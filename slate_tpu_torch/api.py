@@ -1,0 +1,46 @@
+"""Simplified verb-named API of the port (the Cholesky verbs).
+
+Counterpart of ``chol_factor`` / ``chol_solve`` / ``chol_solve_using_factor``
+in ``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
+computes on ``operand_device(first operand, device)``: tensors where they
+lie, anything else on the card unless ``device`` says otherwise.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+from .blas3 import blas3
+from .core.matrix import BaseMatrix, operand_device
+from .linalg import chol
+from .types import Uplo
+
+ArrayLike = Union[torch.Tensor, BaseMatrix]
+
+
+def _data(a: ArrayLike, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(a.data if isinstance(a, BaseMatrix) else a, device=device)
+
+
+def chol_factor(a: ArrayLike, device=None):
+    """(factor, info) of an SPD matrix or HermitianMatrix view."""
+    uplo = a.uplo if isinstance(a, BaseMatrix) else Uplo.Lower
+    return chol.potrf_array(_data(a, operand_device(a, device)), uplo)
+
+
+def chol_solve(a: ArrayLike, b: ArrayLike, device=None):
+    """(x, info) of A X = B, A SPD."""
+    dev = operand_device(a, device)
+    x, _, info = chol.posv_array(
+        _data(a, dev),
+        blas3._arr(b, dev),
+        a.uplo if isinstance(a, BaseMatrix) else Uplo.Lower,
+    )
+    return x, info
+
+
+def chol_solve_using_factor(l: ArrayLike, b: ArrayLike, uplo: Uplo = Uplo.Lower, device=None):
+    dev = operand_device(l, device)
+    return chol.potrs_array(_data(l, dev), blas3._arr(b, dev), uplo)

@@ -1,0 +1,136 @@
+"""Core enums, options and errors of the PyTorch port.
+
+Counterpart of ``slate_tpu/types.py``: the same enum classes with the same
+member names and values, so that a test can map one package's enum onto the
+other's by name (``utils.testing.options_from_names``).  Only the enums the
+single-chip Cholesky path reads are here; the method/norm/grid enums come
+with the slices that read them.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any, Mapping, Optional, Union
+
+
+class Uplo(enum.Enum):
+    """Which triangle of a matrix is stored/referenced."""
+
+    Upper = "U"
+    Lower = "L"
+    General = "G"
+
+
+class Op(enum.Enum):
+    """Logical transposition applied to a matrix view."""
+
+    NoTrans = "N"
+    Trans = "T"
+    ConjTrans = "C"
+
+
+class Diag(enum.Enum):
+    Unit = "U"
+    NonUnit = "N"
+
+
+class Side(enum.Enum):
+    Left = "L"
+    Right = "R"
+
+
+class Target(enum.Enum):
+    """Execution target.  ``TPU`` keeps its name so that options map across
+    packages by name; in this package it means the accelerator (a CUDA
+    card), ``Host`` the CPU."""
+
+    TPU = "tpu"
+    Host = "host"
+
+
+class Precision(enum.Enum):
+    """Accumulation-precision tier for BLAS-3 (Option.Precision).
+
+    On the card (ops/matmul.py): ``Fast`` is bf16 inputs with f32
+    accumulation, ``High`` is TF32, ``Highest`` and ``Emulated`` are full
+    f32/f64 (never TF32).  Every driver defaults to Highest."""
+
+    Fast = "fast"
+    High = "high"
+    Highest = "highest"
+    Emulated = "emulated"
+
+
+class Option(enum.Enum):
+    """Driver options; the same members and values as ``slate_tpu``'s, whose
+    comments document each one.  The mesh/serving options are accepted and
+    ignored until the slices that read them are ported."""
+
+    ChunkSize = "chunk_size"
+    Lookahead = "lookahead"
+    BlockSize = "block_size"
+    InnerBlocking = "inner_blocking"
+    MaxPanelThreads = "max_panel_threads"
+    Tolerance = "tolerance"
+    Target = "target"
+    MaxIterations = "max_iterations"
+    UseFallbackSolver = "use_fallback_solver"
+    PivotThreshold = "pivot_threshold"
+    MethodCholQR = "method_cholqr"
+    MethodEig = "method_eig"
+    MethodGels = "method_gels"
+    MethodGemm = "method_gemm"
+    MethodHemm = "method_hemm"
+    MethodLU = "method_lu"
+    MethodTrsm = "method_trsm"
+    MethodSVD = "method_svd"
+    PrintVerbose = "print_verbose"
+    PrintPrecision = "print_precision"
+    Depth = "depth"
+    Precision = "precision"
+    FaultTolerance = "fault_tolerance"
+    BcastImpl = "bcast_impl"
+    # diagonal-block factor lowering (ops/kernels.py): "xla" (the
+    # torch.linalg cholesky + solve_triangular pair), "pallas" (the
+    # hand-written CUDA kernel on a CUDA tensor, its plain twin on a CPU
+    # tensor) or "auto" (the default: same as "pallas").  The value names
+    # are slate_tpu's.  Resolution order: explicit > ops.kernels.
+    # use_panel_impl context > SLATE_TPU_PANEL_IMPL environment > auto.
+    PanelImpl = "panel_impl"
+    UpdateImpl = "update_impl"
+    MixedPrecision = "mixed_precision"
+    NumMonitor = "num_monitor"
+    AutoTune = "auto_tune"
+    Checkpoint = "checkpoint"
+    ResidualImpl = "residual_impl"
+
+
+Options = Mapping[Union[Option, str], Any]
+
+_DEFAULTS = {
+    Option.Lookahead: 1,
+    Option.BlockSize: 256,
+    Option.InnerBlocking: 32,
+    Option.Tolerance: None,
+    Option.Target: Target.TPU,
+    Option.MaxIterations: 30,
+    Option.UseFallbackSolver: True,
+    Option.PivotThreshold: 1.0,
+    Option.Depth: 2,
+}
+
+
+def get_option(opts: Optional[Options], key: Option, default: Any = None) -> Any:
+    """Typed option lookup: by enum member, then by its string value."""
+    if opts:
+        if key in opts:
+            return opts[key]
+        if key.value in opts:
+            return opts[key.value]
+    if default is not None:
+        return default
+    return _DEFAULTS.get(key)
+
+
+class SlateError(Exception):
+    """slate::Exception analog."""
