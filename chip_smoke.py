@@ -7,7 +7,8 @@ Runs from the root of a checkout and needs one CUDA card.  Phases, each
 printing one JSON line before the next starts (any failure exits non-zero):
 
 1. card:   device name, and the ``nvidia-smi`` name and power limit line;
-2. build:  every csrc/*.cu with nvcc into slate_tpu_torch/_build/ (seconds);
+2. build:  every csrc/*.cu with nvcc into slate_tpu_torch/_build/, one nvcc
+           per source, all started together (seconds);
 3. kernel: chol_diag_inv against its plain twin at nb = 256, f32 and f64
            (SPD blocks within tolerance, a non-SPD block NaN from the same
            column), with kernel, twin and library times and the bound;
@@ -17,27 +18,49 @@ printing one JSON line before the next starts (any failure exits non-zero):
 5. posv f64 at n = 32768 (the left-looking form, 8 panels x 16 leaves);
 6. small:  the entry() solve (n = 1024) against torch.linalg.solve in f64;
 7. non-SPD: one negative pivot gives the expected info in both forms;
-8. kernels: the line of every ported kernel, then the card line and, last,
-           {"ok": true, "device": {...}}.
+8. the mesh kernels against their plain twins at the mesh path's shapes
+   (nb = 256, a virtual 2 x 4 grid): chol_panel_tiles and
+   chol_trailing_update (f32, f64) and summa_update (f32), with kernel,
+   twin and library times and the bound;
+9. mesh_posv f32 at n = 32768, nrhs = 32, nb = 256 on a virtual 2 x 4 mesh
+   (from_dense -> potrf_dist -> two trsm_dist -> gemm_summa residual):
+   info, backward error, the panel and trailing-update launch counts
+   derived from the code, seconds after one warm-up run, peak memory;
+10. mesh_posv f64 at n = 16384;
+11. mesh_gemm f32: a square gemm_summa (GemmC) at n = 16384 against
+   torch.matmul, 64 summa_update launches;
+12. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
+   the psum/ring/doubling lowerings, and the non-SPD info rule;
+13. dryrun_posv_chain: the port's dryrun (n = 64, nb = 8, 2 x 4);
+14. kernels: the line of every ported kernel (one row per kernel and
+   dtype), then the card line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 NB = 256
 N_MAIN = 32768
 NRHS = 32
 SEED = 0
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# HBM 3.35 TB/s; 67 TFLOP/s f32 and 34 TFLOP/s f64 outside the tensor cores
+# HBM 3.35 TB/s; 67 TFLOP/s f32 outside the tensor cores, 67 TFLOP/s f64 on
+# the FP64 tensor cores (DMMA, IEEE double)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS_S = {"float32": 67e12, "float64": 67e12}
+# the mesh path: a virtual 2 x 4 grid; f64 runs at half the f32 size
+P, Q = 2, 4
+MESH_N = {"float32": 32768, "float64": 16384}
+GEMM_N = 16384
+INVARIANT_N = 4096
 
 
 def emit(obj):
@@ -220,6 +243,336 @@ def non_spd_phase(kernels, potrf_array, torch):
               f"non-SPD {name}: info {out[f'{name}_info']}, expected {out[f'{name}_expected']}")
 
 
+# ---------------------------------------------------------------------------
+# the mesh slice: virtual 2 x 4 grid on the card
+# ---------------------------------------------------------------------------
+
+
+def dname(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def row_of(name, dtype, source, replaces, err, ms, plain_ms, library_ms, nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS_S[dname(dtype)] * 1e3
+    return {"name": f"{name}[{dname(dtype)}]", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
+def randn(shape, dtype, seed, torch, scale=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=dtype, device="cuda") * scale
+
+
+def mesh_tiles(n, dtype, seed, torch, local_view):
+    """A random cyclic tile stack of an n x n matrix and its local view
+    (p, q, mtl, ntl, nb, nb): the strides the mesh drivers hand the kernels."""
+    t = randn((n // NB, n // NB, NB, NB), dtype, seed, torch)
+    return t, local_view(t, P, Q)
+
+
+def kernel_panel_phase(dtype, kernels, local_view, torch):
+    """chol_panel_tiles at the f32/f64 mesh path's widest panel: the owning
+    column's p x mtl tiles of a bucket-0 view, strided."""
+    name = dname(dtype)
+    eps = torch.finfo(dtype).eps
+    n = MESH_N[name]
+    t, loc = mesh_tiles(n, dtype, SEED + 11, torch, local_view)
+    pcol = loc[:, 1:2, :, 1]  # (p, 1, mtl, nb, nb), as panel(k) slices it
+    dtile = spd_block(NB, dtype, SEED + 12, torch)
+    lk, sk = kernels.chol_panel_tiles(dtile, pcol)
+    torch.cuda.synchronize()
+    lp, sp = kernels.chol_panel_tiles_plain(dtile, pcol)
+    _, xk = kernels.chol_diag_inv(dtile)  # the L^-1 the panel kernel solved with
+    _, xp = kernels.chol_diag_inv_plain(dtile)
+    # L: chol_diag_inv's 100 nb eps max|A|; solved tiles: panel_solve_tol
+    tol_l = 100 * NB * eps * float(dtile.abs().max())
+    tol_s = panel_solve_tol(pcol, xk, xp, eps)
+    smax = float(sp.abs().max())
+    err_l = float((lk - lp).abs().max())
+    err_s = float((sk - sp).abs().max())
+    check(bool(torch.isfinite(sk).all()), f"chol_panel_tiles {name}: non-finite output")
+    check(tol_s < 1e-2 * smax, f"chol_panel_tiles {name}: tolerance {tol_s} does not separate "
+                               f"a wrong output from max|solved| {smax}")
+    check(err_l < tol_l and err_s < tol_s,
+          f"chol_panel_tiles {name}: |dL| {err_l} (tol {tol_l}), |dS| {err_s} (tol {tol_s})")
+    ms = cuda_ms(lambda: kernels.chol_panel_tiles(dtile, pcol), 20, torch)
+    plain_ms = cuda_ms(lambda: kernels.chol_panel_tiles_plain(dtile, pcol), 2, torch)
+
+    def library():
+        lo, _ = torch.linalg.cholesky_ex(dtile)
+        torch.linalg.solve_triangular(lo.T, pcol, upper=True, left=False)
+
+    library_ms = cuda_ms(library, 20, torch)
+    ntiles = pcol.shape[0] * pcol.shape[2]
+    isz = dtile.element_size()
+    nbytes = (NB * (NB + 1) // 2 + NB * NB + 2 * ntiles * NB * NB) * isz
+    # factor nb^3/3 + triangular inverse nb^3/3, then one product with the
+    # triangular L^-T per tile, nb^3
+    flops = 2 * NB ** 3 / 3 + NB ** 3 * ntiles
+    row = row_of("chol_panel_tiles", dtype, "slate_tpu_torch/csrc/tile_gemm.cu",
+                 "slate_tpu/ops/pallas_ops.py:491", max(err_l, err_s), ms, plain_ms, library_ms,
+                 nbytes, flops)
+    emit({"phase": f"kernel_chol_panel_tiles_{name}", "tiles": list(pcol.shape), "err_L": err_l,
+          "tol_L": tol_l, "err_solved": err_s, "tol_solved": tol_s, "max_abs_solved": smax,
+          "kernel_ms": ms,
+          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
+          "bound_by": row["bound_by"]})
+    del t, loc, pcol
+    torch.cuda.empty_cache()
+    return row
+
+
+def panel_solve_tol(tiles, xk, xp, eps):
+    """Bound on |tiles @ xk^T - tiles @ xp^T| as the kernel and the twin
+    compute it: each sums nb products, within nb eps (|T| |X|^T) of the exact
+    product of its operands, and the two inverses' own difference adds
+    |T| |xk - xp|^T.  Elementwise, then the largest."""
+    nb = xk.shape[-1]
+    t = tiles.abs()
+    bound = nb * eps * (t @ xk.abs().T + t @ xp.abs().T) + t @ (xk - xp).abs().T
+    return float(bound.max())
+
+
+def gemm_tol(nb, eps, amax, bmax, cmax):
+    """Kernel vs twin of a tile update: two k-ordered FMA sums of nb
+    products, whose rounding errors grow as a random walk (a few sqrt(nb)
+    eps max|a| max|b|), plus one rounding each of the final add/subtract
+    (cmax: the largest |c| before or after).  A TF32 product (10-bit
+    mantissa, ~4e3 f32 eps) lies far outside it."""
+    return 8 * math.sqrt(nb) * eps * amax * bmax + 2 * eps * cmax
+
+
+def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch):
+    """chol_trailing_update (bucket-0 view of the mesh posv, lower-tile
+    mask) or summa_update (the mesh gemm's accumulator) against its twin."""
+    name = dname(dtype)
+    eps = torch.finfo(dtype).eps
+    n = MESH_N[name] if which == "chol_trailing_update" else GEMM_N
+    t, loc = mesh_tiles(n, dtype, SEED + 21, torch, local_view)
+    _, _, I, J, _, _ = loc.shape
+    pan = randn((P, 1, I, NB, NB), dtype, SEED + 22, torch, 0.1)
+    rhs = randn((1, Q, J, NB, NB), dtype, SEED + 23, torch, 0.1)
+    if which == "chol_trailing_update":
+        _, _, i_log, j_log = local_indices(P, Q, I, J, "cuda")
+        mask = i_log[:, :, :, None] >= j_log[:, :, None, :]  # the trailing lower tiles
+        run = lambda v: kernels.chol_trailing_update(v, pan, rhs, mask)  # noqa: E731
+        plain = lambda v: kernels.chol_trailing_update_plain(v, pan, rhs, mask)  # noqa: E731
+        library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4).transpose(-1, -2))  # noqa: E731
+        replaces = "slate_tpu/ops/pallas_ops.py:738"
+    else:
+        mask = torch.ones((P, Q, I, J), dtype=torch.bool, device="cuda")
+        run = lambda v: kernels.summa_update(v, pan, rhs)  # noqa: E731
+        plain = lambda v: kernels.summa_update_plain(v, pan, rhs)  # noqa: E731
+        library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4))  # noqa: E731
+        replaces = "slate_tpu/ops/pallas_ops.py:711"
+    before = loc.clone()
+    run(loc)
+    torch.cuda.synchronize()
+    got = loc.clone()
+    loc.copy_(before)
+    plain(loc)
+    want = loc.clone()
+    loc.copy_(before)
+    tol = gemm_tol(NB, eps, float(pan.abs().max()), float(rhs.abs().max()),
+                   max(float(before.abs().max()), float(want.abs().max())))
+    err = float((got - want).abs().max())
+    keep = ~mask
+    untouched = bool(torch.equal(got[keep], before[keep])) if bool(keep.any()) else True
+    del got, want
+    check(err < tol, f"{which} {name}: kernel vs twin {err} (tol {tol})")
+    check(untouched, f"{which} {name}: the kernel wrote a masked tile")
+    ms = cuda_ms(lambda: run(loc), 5, torch)
+    plain_ms = cuda_ms(lambda: plain(loc), 2, torch)
+    library_ms = cuda_ms(library, 3, torch)
+    live = int(mask.sum())
+    isz = loc.element_size()
+    nbytes = (pan.numel() + rhs.numel() + 2 * live * NB * NB) * isz + mask.numel() * 4
+    flops = 2 * NB ** 3 * live
+    row = row_of(which, dtype, "slate_tpu_torch/csrc/tile_gemm.cu", replaces, err, ms, plain_ms,
+                 library_ms, nbytes, flops)
+    emit({"phase": f"kernel_{which}_{name}", "grid": [P, Q, I, J], "unmasked_tiles": live,
+          "err": err, "tol": tol, "masked_untouched": untouched, "kernel_ms": ms,
+          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
+          "bound_by": row["bound_by"]})
+    del t, loc, before
+    torch.cuda.empty_cache()
+    return row
+
+
+def reset_counts(kernels):
+    for fn in (kernels.chol_diag_inv, kernels.chol_panel_tiles, kernels.chol_trailing_update,
+               kernels.summa_update):
+        fn.launches = 0
+
+
+def read_counts(kernels):
+    return {"chol_diag_inv": kernels.chol_diag_inv.launches,
+            "chol_panel_tiles": kernels.chol_panel_tiles.launches,
+            "chol_trailing_update": kernels.chol_trailing_update.launches,
+            "summa_update": kernels.summa_update.launches}
+
+
+def expected_potrf_launches(nt, la, bucket_plan):
+    """Launches of one potrf_dist, derived from its loop: one panel per
+    step; per bucket of s steps, s bulk updates and, at lookahead >= 1, s
+    narrow refreshes plus one drain."""
+    panel = trailing = 0
+    for k0, k1, _, _ in bucket_plan(nt, P, Q):
+        s = k1 - k0
+        panel += s
+        trailing += s + (s + 1 if la >= 1 else 0)
+    return {"chol_panel_tiles": panel, "chol_trailing_update": trailing}
+
+
+def mesh_posv_phase(dtype, kernels, mp, bucket_plan, torch):
+    """from_dense -> potrf_dist -> two trsm_dist (the solve, timed) ->
+    gemm_summa residual, at the size users run on one card."""
+    from slate_tpu_torch.types import Diag, Op, Uplo
+
+    name = dname(dtype)
+    n = MESH_N[name]
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    a = dominant_spd(n, dtype, SEED + 31, torch)
+    b = torch.randn((n, NRHS), generator=torch.Generator(device="cuda").manual_seed(SEED + 32),
+                    dtype=dtype, device="cuda")
+
+    def solve(split):
+        """The solve; ``split`` collects the seconds of each step (a
+        synchronise after each, a few microseconds)."""
+        t = time.perf_counter()
+
+        def mark(name):
+            nonlocal t
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            split[name] = now - t
+            t = now
+
+        ad = mp.from_dense(a, mesh, NB, diag_pad_one=True)
+        bd = mp.from_dense(b, mesh, NB)
+        mark("from_dense")
+        l, info = mp.potrf_dist(ad, overwrite_a=True)
+        mark("potrf_dist")
+        y = mp.trsm_dist(l, bd, Uplo.Lower, Op.NoTrans, Diag.NonUnit)
+        mark("trsm_dist_lower")
+        x = mp.trsm_dist(l, y, Uplo.Lower, Op.ConjTrans, Diag.NonUnit)
+        mark("trsm_dist_upper")
+        return l, x, info
+
+    l, x, info = solve({})  # warm-up: handles, allocator, kernel loads
+    del l, x, info
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    split = {}
+    t0 = time.perf_counter()
+    l, x, info = solve(split)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del l
+    t1 = time.perf_counter()
+    ax = mp.to_dense(mp.gemm_summa(1.0, mp.from_dense(a, mesh, NB), x))
+    torch.cuda.synchronize()
+    residual_seconds = time.perf_counter() - t1
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    xd = mp.to_dense(x)
+    e = float((ax - b).abs().max() / (a.abs().max() * xd.abs().max() * n + b.abs().max()))
+    gate = 100 * n * torch.finfo(dtype).eps
+    nt = n // NB
+    want = expected_potrf_launches(nt, 1, bucket_plan)
+    emit({"phase": f"mesh_posv_{name}", "n": n, "nrhs": NRHS, "nb": NB, "grid": [P, Q],
+          "info": int(info), "eta": e, "eta_gate": gate, "launches": counts,
+          "expected_launches": want, "solve_seconds": seconds, "split_seconds": split,
+          "residual_seconds": residual_seconds, "peak_mem_bytes": peak,
+          "x_finite": bool(torch.isfinite(xd).all())})
+    check(int(info) == 0, f"mesh posv {name}: info {int(info)}")
+    check(e < gate, f"mesh posv {name}: eta {e} >= {gate}")
+    check(tuple(xd.shape) == (n, NRHS) and bool(torch.isfinite(xd).all()),
+          f"mesh posv {name}: bad solution")
+    for k, v in want.items():
+        check(counts[k] == v, f"mesh posv {name}: {counts[k]} {k} launches, expected {v}")
+    del a, b, x, xd, ax
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_gemm_phase(kernels, mp, torch):
+    from slate_tpu_torch.types import MethodGemm, select_gemm_method
+
+    dtype = torch.float32
+    n = GEMM_N
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    a = randn((n, n), dtype, SEED + 41, torch)
+    b = randn((n, n), dtype, SEED + 42, torch)
+    ad, bd = mp.from_dense(a, mesh, NB), mp.from_dense(b, mesh, NB)
+    method = select_gemm_method(ad.mt, bd.nt, ad.nt)
+    check(method == MethodGemm.GemmC, f"mesh gemm: {method} selected, expected GemmC")
+    mp.gemm_summa(1.0, ad, bd)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    c = mp.gemm_summa(1.0, ad, bd)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    del ad, bd
+    cd = mp.to_dense(c)
+    del c
+    ref = torch.matmul(a, b)  # full f32 (TF32 off)
+    rel = float((cd - ref).abs().max() / ref.abs().max())
+    # f32 sums of k = 16384 products in two orders differ by ~sqrt(k) eps
+    # relative to the largest entry; a TF32 product would be ~10x the gate
+    gate = 4 * math.sqrt(n) * torch.finfo(dtype).eps
+    emit({"phase": "mesh_gemm_float32", "n": n, "nb": NB, "grid": [P, Q], "method": method.name,
+          "rel_err_vs_matmul": rel, "gate": gate, "launches": counts, "seconds": seconds,
+          "tflops": 2 * n ** 3 / seconds / 1e12})
+    check(rel < gate, f"mesh gemm: relative error {rel} >= {gate}")
+    check(counts["summa_update"] == n // NB,
+          f"mesh gemm: {counts['summa_update']} summa_update launches, expected {n // NB}")
+    del a, b, cd, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_invariants_phase(mp, posv_chain, torch):
+    """Bitwise across lookahead depths and broadcast lowerings (the whole
+    chain), and the non-SPD info rule (1 + the first bad pivot)."""
+    n = INVARIANT_N
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    a = dominant_spd(n, torch.float32, SEED + 51, torch)
+    b = randn((n, NRHS), torch.float32, SEED + 52, torch)
+    runs = {}
+    for la in (0, 1, 2):
+        runs[f"lookahead{la}"] = posv_chain(a, b, mesh, NB, lookahead=la)[0]
+    for impl in ("psum", "ring", "doubling"):
+        runs[f"bcast_{impl}"] = posv_chain(a, b, mesh, NB, bcast_impl=impl)[0]
+    base = runs["lookahead1"]
+    equal = {k: bool(torch.equal(v, base)) for k, v in runs.items()}
+    j = 9 * NB + 77  # inside diagonal tile 9, step 9 of bucket 2
+    bad = a.clone()
+    bad[j, j] = -1.0
+    _, info = mp.potrf_dist(mp.from_dense(bad, mesh, NB, diag_pad_one=True))
+    emit({"phase": "mesh_invariants", "n": n, "bitwise_equal": equal, "non_spd_info": int(info),
+          "expected_info": j + 1})
+    check(all(equal.values()), f"mesh invariants: not bitwise equal: {equal}")
+    check(int(info) == j + 1, f"mesh invariants: non-SPD info {int(info)}, expected {j + 1}")
+    del a, b, bad, runs
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase():
+    from slate_tpu_torch.parallel import dryrun
+
+    res = dryrun.dryrun("cuda")
+    emit({"phase": "dryrun_posv_chain", **res})
+    check(res["ok"], f"dryrun posv_chain failed: {res['phases']}")
+
+
 def main():
     try:
         import torch
@@ -237,6 +590,9 @@ def main():
     sys.path.insert(0, here)
     from slate_tpu_torch.linalg.chol import posv_array, potrf_array
     from slate_tpu_torch.ops import _build, kernels
+    from slate_tpu_torch import parallel as mp
+    from slate_tpu_torch.parallel.comm import bucket_plan, local_indices
+    from slate_tpu_torch.parallel.dryrun import posv_chain
 
     # 1. card
     kind = torch.cuda.get_device_name(0)
@@ -248,26 +604,45 @@ def main():
           "nvidia_smi": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda})
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 residual products (the default)
 
-    # 2. build (one source so far; a later slice with several starts their
-    # nvcc processes together)
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    built = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
-    for name in built:
-        _build.load(name)
-    emit({"phase": "build", "sources": built, "seconds": time.perf_counter() - t0})
+    names = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load, names))
+    emit({"phase": "build", "sources": names, "seconds": time.perf_counter() - t0})
 
     # 3. kernel vs twin
     rows = [kernel_phase(dt, kernels, torch) for dt in (torch.float32, torch.float64)]
-
-    # 4-5. the main path
+    # 4-5. the single-chip path
     for row, dt in zip(rows, (torch.float32, torch.float64)):
         row["launches"] = posv_phase(dt, kernels, posv_array, torch)
-
     # 6-7. small reference solve, non-SPD info codes
     small_phase(torch)
     non_spd_phase(kernels, potrf_array, torch)
 
-    # 8. kernels line, card line, result
+    # 8. the mesh kernels vs their twins
+    mesh_rows = {}
+    for dt in (torch.float32, torch.float64):
+        mesh_rows[("chol_panel_tiles", dt)] = kernel_panel_phase(dt, kernels, mp.local_view, torch)
+        mesh_rows[("chol_trailing_update", dt)] = kernel_update_phase(
+            "chol_trailing_update", dt, kernels, mp.local_view, local_indices, torch)
+    mesh_rows[("summa_update", torch.float32)] = kernel_update_phase(
+        "summa_update", torch.float32, kernels, mp.local_view, local_indices, torch)
+
+    # 9-11. the mesh paths; every count is read right after its path
+    counts = {dt: mesh_posv_phase(dt, kernels, mp, bucket_plan, torch)
+              for dt in (torch.float32, torch.float64)}
+    counts[torch.float32]["summa_update"] = mesh_gemm_phase(kernels, mp, torch)["summa_update"]
+    for (name, dt), row in mesh_rows.items():
+        row["launches"] = counts[dt][name]
+        check(row["launches"], f"{row['name']}: no launch on its path")
+    rows += list(mesh_rows.values())
+
+    # 12-13. invariants and the dryrun
+    mesh_invariants_phase(mp, posv_chain, torch)
+    dryrun_phase()
+
+    # 14. kernels line, card line, result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

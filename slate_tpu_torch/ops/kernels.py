@@ -1,23 +1,33 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain twins.
 
-Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This slice holds:
+Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This module holds:
 
 - the ``Option.PanelImpl`` gate (:func:`resolve_panel_impl`,
-  :func:`use_panel_impl`, :func:`panel_engaged`) with ``slate_tpu``'s
-  resolve chain, environment name and values ``xla | pallas | auto``;
+  :func:`use_panel_impl`, :func:`panel_impl_scope`, :func:`panel_engaged`)
+  and the ``Option.UpdateImpl`` gate (:func:`resolve_update_impl`,
+  :func:`use_update_impl`, :func:`update_impl_scope`,
+  :func:`update_engaged`), with ``slate_tpu``'s resolve chains, environment
+  names and values ``xla | pallas | auto``;
 - :func:`chol_diag_inv`, the wrapper of ``csrc/chol_diag_inv.cu`` (the port
   of ``chol_diag_inv_pallas``), and :func:`chol_diag_inv_plain`, the same
-  function in plain PyTorch.
+  function in plain PyTorch;
+- the mesh kernels on ``csrc/tile_gemm.cu``: :func:`chol_panel_tiles`
+  (``chol_panel_tiles_pallas``), :func:`chol_trailing_update`
+  (``chol_trailing_update_pallas``) and :func:`summa_update`
+  (``summa_update_pallas``), each with its ``*_plain`` twin.
 
 Dispatch: ``pallas`` and ``auto`` take the CUDA kernel for a CUDA tensor and
 the plain twin for a CPU tensor (the wrapper decides by the tensor's
-device); ``xla`` takes the ``torch.linalg`` cholesky + solve_triangular
-pair, the counterpart of the XLA ops ``slate_tpu`` uses there.  A CUDA
-tensor never falls back to the twin: the kernel builds and launches, or the
-call raises.
+device); ``xla`` takes the plain PyTorch forms (``torch.linalg`` for the
+panel factor, the batched-matmul twins for the updates), the counterparts
+of the XLA ops ``slate_tpu`` uses there.  A CUDA tensor never falls back to
+the twin: the kernel builds and launches, or the call raises.  The update
+wrappers work in place, where ``slate_tpu``'s return a new array.
 
-The other 13 Pallas kernels of ``pallas_ops.py`` / ``matmul.py`` are not
-ported yet (ROADMAP.md, kernel queue).
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
+call (the twin) does not count.  The other 10 Pallas kernels of
+``pallas_ops.py`` / ``matmul.py`` are not ported yet (ROADMAP.md, kernel
+queue).
 """
 
 from __future__ import annotations
@@ -36,6 +46,13 @@ PANEL_IMPLS = ("xla", "pallas", "auto")
 PANEL_IMPL_ENV = "SLATE_TPU_PANEL_IMPL"
 
 _PANEL_DEFAULT = [None]  # process-wide default (use_panel_impl)
+_PANEL_ACTIVE = [None]  # the impl a mesh driver pinned (panel_impl_scope)
+
+UPDATE_IMPLS = ("xla", "pallas", "auto")
+UPDATE_IMPL_ENV = "SLATE_TPU_UPDATE_IMPL"
+
+_UPDATE_DEFAULT = [None]  # process-wide default (use_update_impl)
+_UPDATE_ACTIVE = [None]  # the impl a mesh driver pinned (update_impl_scope)
 
 # the largest block the CUDA kernel takes (one CTA, see csrc/chol_diag_inv.cu)
 CHOL_DIAG_INV_MAX_N = 256
@@ -68,15 +85,79 @@ def use_panel_impl(impl: str):
         _PANEL_DEFAULT.pop()
 
 
+@contextlib.contextmanager
+def panel_impl_scope(impl: str):
+    """Pin the panel lowering for the calls inside (a mesh driver wraps its
+    loop in it with the impl it resolved)."""
+    _PANEL_ACTIVE.append(_check_panel_impl(impl))
+    try:
+        yield
+    finally:
+        _PANEL_ACTIVE.pop()
+
+
 def panel_engaged(dtype: torch.dtype) -> bool:
     """Whether the diagonal-block factor goes through :func:`chol_diag_inv`
-    (kernel on CUDA, twin on CPU).  ``xla`` never engages; ``pallas`` and
-    ``auto`` engage every real floating dtype (complex keeps the
-    torch.linalg pair, as in ``slate_tpu``).  On a CUDA tensor the wrapper
-    then takes f32/f64 blocks up to 256 wide and raises on anything else."""
-    if resolve_panel_impl() == "xla":
+    / :func:`chol_panel_tiles` (kernel on CUDA, twin on CPU).  ``xla``
+    never engages; ``pallas`` and ``auto`` engage every real floating dtype
+    (complex keeps the torch.linalg pair, as in ``slate_tpu``).  On a CUDA
+    tensor the wrappers then take f32/f64 blocks up to 256 wide and raise
+    on anything else (the mesh Cholesky casts bf16 panels to f32 first, as
+    ``slate_tpu`` does)."""
+    impl = _PANEL_ACTIVE[-1] or resolve_panel_impl()
+    if impl == "xla":
         return False
     return dtype.is_floating_point
+
+
+def _check_update_impl(impl: str) -> str:
+    if impl not in UPDATE_IMPLS:
+        raise ValueError(f"unknown update impl {impl!r}; expected one of {UPDATE_IMPLS}")
+    return impl
+
+
+def resolve_update_impl(impl: Optional[str] = None) -> str:
+    """explicit argument > ``use_update_impl`` context >
+    ``SLATE_TPU_UPDATE_IMPL`` environment > ``auto``."""
+    if impl is None:
+        impl = _UPDATE_DEFAULT[-1]
+    if impl is None:
+        impl = os.environ.get(UPDATE_IMPL_ENV) or "auto"
+    return _check_update_impl(impl)
+
+
+@contextlib.contextmanager
+def use_update_impl(impl: str):
+    """Set the default trailing-update lowering for calls made inside."""
+    _UPDATE_DEFAULT.append(_check_update_impl(impl))
+    try:
+        yield
+    finally:
+        _UPDATE_DEFAULT.pop()
+
+
+@contextlib.contextmanager
+def update_impl_scope(impl: str):
+    """Pin the trailing-update lowering for the calls inside (a mesh
+    driver wraps its loop in it with the impl it resolved)."""
+    _UPDATE_ACTIVE.append(_check_update_impl(impl))
+    try:
+        yield
+    finally:
+        _UPDATE_ACTIVE.pop()
+
+
+def update_engaged(dtype: torch.dtype) -> bool:
+    """Whether a mesh trailing update goes through the update wrappers
+    (:func:`summa_update`, :func:`chol_trailing_update`: kernel on CUDA,
+    twin on CPU).  ``xla`` never engages; ``pallas`` and ``auto`` engage
+    f32 and f64, the dtypes the kernel takes.  bf16/f16 and complex keep
+    the plain batched-matmul form on every device (``slate_tpu`` keeps
+    complex on its einsum too)."""
+    impl = _UPDATE_ACTIVE[-1] or resolve_update_impl()
+    if impl == "xla":
+        return False
+    return dtype in (torch.float32, torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -156,3 +237,172 @@ def chol_diag_inv(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 chol_diag_inv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# mesh kernels on csrc/tile_gemm.cu: C[r,q,i,j] (=, +=, -=) A[r,q,i] op(B[r,q,j])
+# ---------------------------------------------------------------------------
+
+_TILE_GEMM_DTYPES = {torch.float32: "tile_gemm_f32", torch.float64: "tile_gemm_f64"}
+_MODE_SET, _MODE_ADD, _MODE_SUB = 0, 1, 2
+
+
+def _tile_gemm_fn(dtype: torch.dtype):
+    lib = _build.load("tile_gemm")
+    fn = getattr(lib, _TILE_GEMM_DTYPES[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
+    dtype = tensors[0].dtype
+    if dtype not in _TILE_GEMM_DTYPES:
+        raise TypeError(f"{who}: dtype {dtype} not supported on CUDA (f32, f64)")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{who}: operands must share device and dtype, got "
+                             f"{[(str(x.device), x.dtype) for x in tensors]}")
+
+
+def _tile_gemm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, mask: Optional[torch.Tensor],
+               trans_b: bool, mode: int, who: str) -> None:
+    """One launch of the tile-GEMM over strided views: ``c`` is (R, Q, I, J,
+    nb, nb); ``a`` broadcasts to (R, Q, I, nb, nb), ``b`` to (R, Q, J, nb,
+    nb), ``mask`` (int-valued) to (R, Q, I, J).  Broadcast dims are read
+    with stride 0; nothing is copied."""
+    _check_cuda(who, c, a, b)
+    if c.dim() != 6 or a.dim() != 5 or b.dim() != 5:
+        raise ValueError(f"{who}: need c (R,Q,I,J,nb,nb), a (R,Q,I,nb,nb), b (R,Q,J,nb,nb); got "
+                         f"{tuple(c.shape)}, {tuple(a.shape)}, {tuple(b.shape)}")
+    R, Q, I, J, nb, nb2 = c.shape
+    if nb != nb2:
+        raise ValueError(f"{who}: tiles must be square, got {nb} x {nb2}")
+    try:
+        a = a.expand(R, Q, I, nb, nb)
+        b = b.expand(R, Q, J, nb, nb)
+        if mask is not None:
+            if mask.dtype != torch.int32:
+                mask = mask.to(torch.int32)
+            mask = mask.to(c.device).expand(R, Q, I, J)
+    except RuntimeError as e:
+        raise ValueError(f"{who}: operand shapes do not broadcast to the tile grid: {e}") from e
+    sm = mask.stride() if mask is not None else (0, 0, 0, 0)
+    geom = (ctypes.c_longlong * 28)(R, Q, I, J, nb, *a.stride(), *b.stride(), *c.stride(), *sm,
+                                    int(trans_b), mode, int(mask is not None))
+    fn = _tile_gemm_fn(c.dtype)
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                mask.data_ptr() if mask is not None else None, geom, stream)
+    if rc != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error {rc}")
+
+
+def summa_update_plain(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`summa_update`: one batched matmul of every tile
+    pair, added in place."""
+    return acc.add_(torch.matmul(pan.unsqueeze(-3), urow.unsqueeze(-4)))
+
+
+def summa_update(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor) -> torch.Tensor:
+    """One SUMMA accumulation step over the virtual mesh, in place:
+    ``acc[r,q,i,j] += pan[r,q,i] @ urow[r,q,j]`` with ``acc`` (R, Q, I, J,
+    nb, nb) and the panels broadcasting to (R, Q, I|J, nb, nb).  A CPU
+    tensor takes the twin; a CUDA tensor launches ``csrc/tile_gemm.cu``
+    once (``summa_update.launches``) or raises."""
+    if acc.device.type == "cpu":
+        return summa_update_plain(acc, pan, urow)
+    _tile_gemm(acc, pan, urow, None, trans_b=False, mode=_MODE_ADD, who="summa_update")
+    summa_update.launches += 1
+    return acc
+
+
+summa_update.launches = 0
+
+
+def chol_trailing_update_plain(view: torch.Tensor, pan: torch.Tensor, pan_t: torch.Tensor,
+                               mask: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`chol_trailing_update`: the batched product of
+    every tile pair, selected by the mask and subtracted in place."""
+    upd = torch.matmul(pan.unsqueeze(-3), pan_t.unsqueeze(-4).transpose(-1, -2))
+    return view.sub_(torch.where(mask[..., None, None] != 0, upd, torch.zeros((), dtype=upd.dtype,
+                                                                               device=upd.device)))
+
+
+def chol_trailing_update(view: torch.Tensor, pan: torch.Tensor, pan_t: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """The potrf trailing herk over the virtual mesh, in place:
+    ``view[r,q,i,j] -= mask[r,q,i,j] ? pan[r,q,i] @ pan_t[r,q,j]^T : 0``.
+    ``view`` is (R, Q, I, J, nb, nb), any strides (a bucket's trailing
+    window of the tile stack); the panels broadcast to (R, Q, I|J, nb, nb)
+    and ``mask`` to (R, Q, I, J).  Masked tiles are neither read nor
+    written.  A CPU tensor takes the twin; a CUDA tensor launches
+    ``csrc/tile_gemm.cu`` once (``chol_trailing_update.launches``) or
+    raises."""
+    if view.device.type == "cpu":
+        return chol_trailing_update_plain(view, pan, pan_t, mask)
+    _tile_gemm(view, pan, pan_t, mask, trans_b=True, mode=_MODE_SUB, who="chol_trailing_update")
+    chol_trailing_update.launches += 1
+    return view
+
+
+chol_trailing_update.launches = 0
+
+
+def _tile_batch(tiles: torch.Tensor) -> torch.Tensor:
+    """(..., nb, nb) with at most three leading dims as (R, Q, I, nb, nb)."""
+    lead = tiles.dim() - 2
+    if not 0 <= lead <= 3:
+        raise ValueError(f"chol_panel_tiles: need (..., nb, nb) with <= 3 leading dims, "
+                         f"got {tuple(tiles.shape)}")
+    for _ in range(3 - lead):
+        tiles = tiles.unsqueeze(0)
+    return tiles
+
+
+def chol_panel_tiles_plain(dtile: torch.Tensor, tiles: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`chol_panel_tiles`: (L, L^-1) by
+    :func:`chol_diag_inv_plain`, then every tile times L^-T."""
+    l, x = chol_diag_inv_plain(dtile)
+    return l, torch.matmul(tiles, x.T)
+
+
+def chol_panel_tiles(dtile: torch.Tensor, tiles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The potrf panel phase: (tril L_kk, the tile stack solved against
+    L_kk^T, i.e. ``tiles[...] @ L_kk^-T``).  ``dtile`` is the nb x nb
+    diagonal tile (lower triangle read), ``tiles`` (..., nb, nb) with up to
+    three leading dims, any strides.  A CPU tensor takes the twin.  A CUDA
+    tensor launches ``csrc/chol_diag_inv.cu`` for (L, L^-1) and then
+    ``csrc/tile_gemm.cu`` for the solve, both on the current stream;
+    ``chol_panel_tiles.launches`` counts wrapper calls (one per panel)."""
+    if dtile.device.type == "cpu":
+        return chol_panel_tiles_plain(dtile, tiles)
+    _check_cuda("chol_panel_tiles", dtile, tiles)
+    nb = dtile.shape[-1]
+    if dtile.dim() != 2 or dtile.shape[0] != nb or not 1 <= nb <= CHOL_DIAG_INV_MAX_N \
+            or tiles.shape[-2:] != (nb, nb):
+        raise ValueError(f"chol_panel_tiles: need an nb x nb diagonal tile (nb <= "
+                         f"{CHOL_DIAG_INV_MAX_N}) and (..., nb, nb) tiles, got "
+                         f"{tuple(dtile.shape)}, {tuple(tiles.shape)}")
+    dtile = dtile.contiguous()
+    l = torch.empty_like(dtile)
+    x = torch.empty_like(dtile)
+    fn = _chol_diag_inv_fn(dtile.dtype)
+    with torch.cuda.device(dtile.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(dtile.data_ptr(), l.data_ptr(), x.data_ptr(), nb, stream)
+    if rc != 0:
+        raise RuntimeError(f"chol_panel_tiles: factor launch failed with CUDA error {rc}")
+    solved = torch.empty(tiles.shape, dtype=tiles.dtype, device=tiles.device)
+    _tile_gemm(_tile_batch(solved).unsqueeze(3), _tile_batch(tiles), x[None, None, None],
+               None, trans_b=True, mode=_MODE_SET, who="chol_panel_tiles")
+    chol_panel_tiles.launches += 1
+    return l, solved
+
+
+chol_panel_tiles.launches = 0

@@ -3,8 +3,9 @@
 Counterpart of ``slate_tpu/types.py``: the same enum classes with the same
 member names and values, so that a test can map one package's enum onto the
 other's by name (``utils.testing.options_from_names``).  Only the enums the
-single-chip Cholesky path reads are here; the method/norm/grid enums come
-with the slices that read them.
+ported paths read are here (the single-chip Cholesky path and the mesh
+solve: grid order, MethodGemm/MethodTrsm and their selectors); the other
+method and norm enums come with the slices that read them.
 """
 
 from __future__ import annotations
@@ -48,6 +49,40 @@ class Target(enum.Enum):
     Host = "host"
 
 
+class GridOrder(enum.Enum):
+    """Process-grid ordering for 2D block-cyclic distributions."""
+
+    Col = "C"
+    Row = "R"
+
+
+class MethodGemm(enum.Enum):
+    Auto = "auto"
+    GemmA = "A"  # stationary-A
+    GemmC = "C"  # stationary-C (SUMMA)
+
+
+class MethodTrsm(enum.Enum):
+    Auto = "auto"
+    TrsmA = "A"
+    TrsmB = "B"
+
+
+def select_gemm_method(m: int, n: int, k: int) -> MethodGemm:
+    """Tile-grid heuristic of ``slate_tpu``: a tiny output panel (n tile
+    columns against m rows or k inner tiles) takes stationary-A."""
+    if n <= max(m, k) // 4:
+        return MethodGemm.GemmA
+    return MethodGemm.GemmC
+
+
+def select_trsm_method(side: "Side", m: int, n: int) -> MethodTrsm:
+    """Solve-side-dominant shapes (B far thinner than A) take TrsmA."""
+    if (side == Side.Left and n <= m // 4) or (side == Side.Right and m <= n // 4):
+        return MethodTrsm.TrsmA
+    return MethodTrsm.TrsmB
+
+
 class Precision(enum.Enum):
     """Accumulation-precision tier for BLAS-3 (Option.Precision).
 
@@ -63,8 +98,11 @@ class Precision(enum.Enum):
 
 class Option(enum.Enum):
     """Driver options; the same members and values as ``slate_tpu``'s, whose
-    comments document each one.  The mesh/serving options are accepted and
-    ignored until the slices that read them are ported."""
+    comments document each one.  The mesh drivers (``parallel/``) read
+    Lookahead (default 1, below), BcastImpl and UpdateImpl (both resolve to
+    ``auto`` when unset: ``parallel.comm.resolve_bcast_impl``,
+    ``ops.kernels.resolve_update_impl``); the serving options are accepted
+    and ignored until the slices that read them are ported."""
 
     ChunkSize = "chunk_size"
     Lookahead = "lookahead"

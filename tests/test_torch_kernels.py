@@ -130,3 +130,151 @@ def test_kernel_matches_twin_on_card(dtype):
     npd = np.float32 if dtype == torch.float32 else np.float64
     assert float((l - lp).abs().max()) < _tol(nb, npd, anorm)
     assert float((x - xp).abs().max()) < _tol(nb, npd, float(xp.abs().max()) * anorm)
+
+
+# ---------------------------------------------------------------------------
+# the mesh kernels' twins against slate_tpu's Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+def _update_operands(dtype, mtl=3, ntl=4, nb=8, seed=0):
+    rng = np.random.default_rng(seed)
+    acc = rng.standard_normal((mtl, ntl, nb, nb)).astype(dtype)
+    pan = rng.standard_normal((mtl, nb, nb)).astype(dtype)
+    rhs = rng.standard_normal((ntl, nb, nb)).astype(dtype)
+    lower = np.arange(mtl)[:, None] >= np.arange(ntl)[None, :]
+    return acc, pan, rhs, lower
+
+
+def _gemm_tol(nb, dtype, *arrays):
+    # two summation orders of nb products each: 2 nb eps sum|a||b|, plus the
+    # final add; the scale is nb max|a| max|b| + max|c|
+    acc, pan, rhs = arrays
+    scale = nb * np.abs(pan).max() * np.abs(rhs).max() + np.abs(acc).max()
+    return 4 * nb * float(np.finfo(dtype).eps) * scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_summa_update_plain_matches_pallas(dtype):
+    acc, pan, rhs, _ = _update_operands(dtype)
+    ref = np.asarray(po.summa_update_pallas(jnp.asarray(acc), jnp.asarray(pan), jnp.asarray(rhs)))
+    # the twin over a one-device grid: (1, 1, I, J, nb, nb)
+    got = tk.summa_update_plain(torch.from_numpy(acc)[None, None].clone(),
+                                torch.from_numpy(pan)[None, None], torch.from_numpy(rhs)[None, None])
+    assert np.abs(got[0, 0].numpy() - ref).max() < _gemm_tol(8, dtype, acc, pan, rhs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chol_trailing_update_plain_matches_pallas(dtype):
+    acc, pan, rhs, lower = _update_operands(dtype, seed=1)
+    ref = np.asarray(po.chol_trailing_update_pallas(
+        jnp.asarray(acc), jnp.asarray(pan), jnp.asarray(rhs), jnp.asarray(lower)))
+    got = tk.chol_trailing_update_plain(torch.from_numpy(acc)[None, None].clone(),
+                                        torch.from_numpy(pan)[None, None],
+                                        torch.from_numpy(rhs)[None, None],
+                                        torch.from_numpy(lower)[None, None])[0, 0].numpy()
+    assert np.abs(got - ref).max() < _gemm_tol(8, dtype, acc, pan, rhs)
+    # masked tiles are untouched, bitwise, in both
+    np.testing.assert_array_equal(got[~lower], acc[~lower])
+    np.testing.assert_array_equal(ref[~lower], acc[~lower])
+
+
+@pytest.mark.parametrize("nb", [8, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chol_panel_tiles_plain_matches_pallas(nb, dtype):
+    d = generate("spd", nb, dtype=dtype, seed=nb + 3)
+    tiles = generate("randn", 5 * nb, nb, dtype=dtype, seed=nb + 4).reshape(5, nb, nb)
+    l_ref, s_ref = (np.asarray(v) for v in po.chol_panel_tiles_pallas(jnp.asarray(d), jnp.asarray(tiles)))
+    l, s = (v.numpy() for v in tk.chol_panel_tiles_plain(torch.from_numpy(d), torch.from_numpy(tiles)))
+    _, x_ref = (np.asarray(v) for v in po.chol_diag_inv_pallas(jnp.asarray(d)))
+    x = tk.chol_diag_inv_plain(torch.from_numpy(d))[1].numpy()
+    assert np.abs(l - l_ref).max() < _tol(nb, dtype, float(np.abs(d).max()))
+    # solved tiles: each side sums nb products, within nb eps |T||X|^T of the
+    # exact product of its operands, and the two L^-1 differ by |X - X_ref|
+    t = np.abs(tiles)
+    tol_s = (nb * float(np.finfo(dtype).eps) * (t @ np.abs(x).T + t @ np.abs(x_ref).T)
+             + t @ np.abs(x - x_ref).T).max()
+    assert tol_s < 1e-2 * np.abs(s_ref).max()  # a wrong output cannot pass
+    assert np.abs(s - s_ref).max() < tol_s
+
+
+@pytest.mark.parametrize("j", [0, 5])
+def test_chol_panel_tiles_plain_non_spd_nan_pattern(j):
+    d = _non_spd(8, np.float32, j)
+    tiles = generate("randn", 16, 8, dtype=np.float32, seed=9).reshape(2, 8, 8)
+    l_ref, s_ref = (np.asarray(v) for v in po.chol_panel_tiles_pallas(jnp.asarray(d), jnp.asarray(tiles)))
+    l, s = (v.numpy() for v in tk.chol_panel_tiles_plain(torch.from_numpy(d), torch.from_numpy(tiles)))
+    np.testing.assert_array_equal(np.isnan(l), np.isnan(l_ref))
+    np.testing.assert_array_equal(np.isnan(s), np.isnan(s_ref))
+
+
+def test_mesh_wrappers_take_twins_on_cpu_without_counting():
+    acc, pan, rhs, lower = (torch.from_numpy(v)[None, None] if isinstance(v, np.ndarray) else v
+                            for v in _update_operands(np.float64, seed=2))
+    before = (tk.summa_update.launches, tk.chol_trailing_update.launches, tk.chol_panel_tiles.launches)
+    assert torch.equal(tk.summa_update(acc.clone(), pan, rhs), tk.summa_update_plain(acc.clone(), pan, rhs))
+    assert torch.equal(tk.chol_trailing_update(acc.clone(), pan, rhs, lower),
+                       tk.chol_trailing_update_plain(acc.clone(), pan, rhs, lower))
+    d = torch.from_numpy(generate("spd", 8, dtype=np.float64, seed=3))
+    for got, want in zip(tk.chol_panel_tiles(d, pan[0, 0]), tk.chol_panel_tiles_plain(d, pan[0, 0])):
+        assert torch.equal(got, want)
+    assert (tk.summa_update.launches, tk.chol_trailing_update.launches,
+            tk.chol_panel_tiles.launches) == before
+
+
+def test_mesh_wrappers_refuse_other_devices():
+    meta = torch.empty((1, 1, 2, 2, 8, 8), device="meta")
+    pan = torch.empty((1, 1, 2, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.summa_update(meta, pan, pan)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.chol_trailing_update(meta, pan, pan, torch.ones((1, 1, 2, 2), dtype=torch.bool))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.chol_panel_tiles(torch.empty((8, 8), device="meta"), pan)
+
+
+def test_update_impl_resolution_chain(monkeypatch):
+    monkeypatch.delenv(tk.UPDATE_IMPL_ENV, raising=False)
+    assert tk.resolve_update_impl() == "auto"
+    monkeypatch.setenv(tk.UPDATE_IMPL_ENV, "xla")
+    assert tk.resolve_update_impl() == "xla"
+    with tk.use_update_impl("pallas"):
+        assert tk.resolve_update_impl() == "pallas"
+        assert tk.resolve_update_impl("auto") == "auto"
+        with tk.update_impl_scope("xla"):  # a driver's pinned impl beats the chain
+            assert tk.update_engaged(torch.float32) is False
+    assert tk.resolve_update_impl() == "xla"
+    with pytest.raises(ValueError, match="unknown update impl"):
+        tk.resolve_update_impl("triton")
+
+
+@pytest.mark.parametrize("impl,engaged", [("auto", True), ("pallas", True), ("xla", False)])
+def test_update_engaged(impl, engaged, monkeypatch):
+    monkeypatch.delenv(tk.UPDATE_IMPL_ENV, raising=False)
+    with tk.use_update_impl(impl):
+        assert tk.update_engaged(torch.float32) is engaged
+        assert tk.update_engaged(torch.float64) is engaged
+        # bf16 and complex keep the plain form on every device
+        assert tk.update_engaged(torch.bfloat16) is False
+        assert tk.update_engaged(torch.complex64) is False
+
+
+def test_panel_impl_scope_beats_the_chain(monkeypatch):
+    monkeypatch.setenv(tk.PANEL_IMPL_ENV, "pallas")
+    with tk.panel_impl_scope("xla"):
+        assert tk.panel_engaged(torch.float32) is False
+    assert tk.panel_engaged(torch.float32) is True
+
+
+def test_tile_gemm_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_DIRS", [str(tmp_path)])
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.load("tile_gemm")
+    # the wrapper raises on the way to a CUDA launch: no fallback to the twin
+    for dtype in (torch.float32, torch.float64):
+        with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+            tk._tile_gemm_fn(dtype)
+    assert os.path.exists(os.path.join(_build.CSRC_DIR, "tile_gemm.cu"))
