@@ -29,10 +29,33 @@ printing one JSON line before the next starts (any failure exits non-zero):
 10. mesh_posv f64 at n = 16384;
 11. mesh_gemm f32: a square gemm_summa (GemmC) at n = 16384 against
    torch.matmul, 64 summa_update launches;
-12. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
+12. the LU kernels against their plain twins at the mesh LU's shapes
+   (f32 n = 32768, f64 n = 16384): lu_panel_tiles (diagonal block + the
+   owning column's (2, 1, mtl) tiles), lu_rowsolve_tiles (the owning row's
+   (1, 4, ntl) tiles) and lu_trailing_update (the bucket-0 window with the
+   lookahead exclusions), with kernel, twin and library times and the bound;
+   the packed L\\U holds L and U each at its own scale and to A by
+   reconstruction;
+13. mesh_gesv_nopiv f32 at n = 32768 and f64 at n = 16384 (uniform[-1, 1)
+   + n I): getrf_nopiv_mesh -> two trsm_dist, info, the normwise backward
+   error (gate 100 n eps) and the componentwise one (gate 10 sqrt(n) eps,
+   the residual in f64), the launches of all three LU kernels derived from
+   ``bucket_plan``, split seconds after a warm-up solve at n = 2048, peak
+   memory;
+14. mesh_gesv_pp (gesv_mesh, partial pivoting) f32 at n = 32768 and f64 at
+   n = 16384 (MixedPrecision off) on uniform[-1, 1): getrf_mesh ->
+   permute_rows_dist -> two trsm_dist, nt lu_rowsolve_tiles launches and
+   no update kernel (the update is pinned to the matmul form);
+15. mesh_gesv_tntpiv f32 at n = 8192 (the tournament is many small torch
+   ops per step, so this size keeps the script well inside its limit);
+16. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
    the psum/ring/doubling lowerings, and the non-SPD info rule;
-13. dryrun_posv_chain: the port's dryrun (n = 64, nb = 8, 2 x 4);
-14. kernels: the line of every ported kernel (one row per kernel and
+17. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
+   bitwise across lookahead 0/1/2 and psum/ring/doubling, and a zero
+   column j giving info j + 1;
+18. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
+   half; n = 64, nb = 8, 2 x 4);
+19. kernels: the line of every ported kernel (one row per kernel and
    dtype), then the card line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -347,10 +370,12 @@ def gemm_tol(nb, eps, amax, bmax, cmax):
 
 def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch):
     """chol_trailing_update (bucket-0 view of the mesh posv, lower-tile
-    mask) or summa_update (the mesh gemm's accumulator) against its twin."""
+    mask), lu_trailing_update (bucket-0 view of the mesh LU, the lookahead
+    exclusions of one row and one column slot) or summa_update (the mesh
+    gemm's accumulator) against its twin."""
     name = dname(dtype)
     eps = torch.finfo(dtype).eps
-    n = MESH_N[name] if which == "chol_trailing_update" else GEMM_N
+    n = GEMM_N if which == "summa_update" else MESH_N[name]
     t, loc = mesh_tiles(n, dtype, SEED + 21, torch, local_view)
     _, _, I, J, _, _ = loc.shape
     pan = randn((P, 1, I, NB, NB), dtype, SEED + 22, torch, 0.1)
@@ -362,6 +387,14 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
         plain = lambda v: kernels.chol_trailing_update_plain(v, pan, rhs, mask)  # noqa: E731
         library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4).transpose(-1, -2))  # noqa: E731
         replaces = "slate_tpu/ops/pallas_ops.py:738"
+    elif which == "lu_trailing_update":
+        mask = torch.ones((P, Q, I, J), dtype=torch.bool, device="cuda")
+        mask[:, :, 1, :] = False  # excl_kr
+        mask[:, :, :, 1] = False  # excl_kc
+        run = lambda v: kernels.lu_trailing_update(v, pan, rhs, mask)  # noqa: E731
+        plain = lambda v: kernels.lu_trailing_update_plain(v, pan, rhs, mask)  # noqa: E731
+        library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4))  # noqa: E731
+        replaces = "slate_tpu/ops/pallas_ops.py:777"
     else:
         mask = torch.ones((P, Q, I, J), dtype=torch.bool, device="cuda")
         run = lambda v: kernels.summa_update(v, pan, rhs)  # noqa: E731
@@ -402,17 +435,17 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
     return row
 
 
+COUNTED = ("chol_diag_inv", "chol_panel_tiles", "chol_trailing_update", "summa_update",
+           "lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update")
+
+
 def reset_counts(kernels):
-    for fn in (kernels.chol_diag_inv, kernels.chol_panel_tiles, kernels.chol_trailing_update,
-               kernels.summa_update):
-        fn.launches = 0
+    for name in COUNTED:
+        getattr(kernels, name).launches = 0
 
 
 def read_counts(kernels):
-    return {"chol_diag_inv": kernels.chol_diag_inv.launches,
-            "chol_panel_tiles": kernels.chol_panel_tiles.launches,
-            "chol_trailing_update": kernels.chol_trailing_update.launches,
-            "summa_update": kernels.summa_update.launches}
+    return {name: getattr(kernels, name).launches for name in COUNTED}
 
 
 def expected_potrf_launches(nt, la, bucket_plan):
@@ -565,12 +598,312 @@ def mesh_invariants_phase(mp, posv_chain, torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the LU slice: the three LU kernels and the three mesh LU solves
+# ---------------------------------------------------------------------------
+
+
+def lu_block(nb, dtype, seed, torch):
+    """A diagonal block that factors stably without pivoting: randn + nb I."""
+    g = randn((nb, nb), torch.float64, seed, torch)
+    g.diagonal().add_(nb)
+    return g.to(dtype)
+
+
+def solve_tol(tiles, xk, xp, eps, left):
+    """Bound on |tiles @ xk - tiles @ xp| (``left``: |xk @ tiles - xp @ tiles|)
+    as the kernel and the twin compute it: each sums nb products, within
+    nb eps of the exact product of its operands, and the two inverses' own
+    difference adds its product with |tiles|.  Elementwise, the largest."""
+    nb = xk.shape[-1]
+    t = tiles.abs()
+    if left:
+        bound = nb * eps * (xk.abs() @ t + xp.abs() @ t) + (xk - xp).abs() @ t
+    else:
+        bound = nb * eps * (t @ xk.abs() + t @ xp.abs()) + t @ (xk - xp).abs()
+    return float(bound.max())
+
+
+def lu_factor_check(a, lk, lp, eps, torch):
+    """The kernel's packed L\\U ``lk`` of block ``a`` against the twin's
+    ``lp`` and against ``a`` itself.  L (strict lower) and U (upper) each
+    hold to 100 nb eps of the twin's largest entry of that factor: the
+    entries of L are ~1/nb of U's, so one limit for both would pass a zero
+    L.  U's largest entry is its diagonal (~nb for randn + nb I), so the
+    off-diagonal entries are held by the reconstruction: LU - A, the product
+    taken in f64, within 3 nb eps |L||U| elementwise.  That is the backward
+    error bound of an LU in any summation order (gamma_nb, unit roundoff
+    eps / 2) plus the check's own product, with room; a factor with L zero
+    or off by 1e-3 relative fails it.  Returns the readings and limits."""
+    nb = a.shape[-1]
+    lo_k, lo_p, up_k, up_p = lk.tril(-1), lp.tril(-1), lk.triu(), lp.triu()
+    lmax, umax = float(lo_p.abs().max()), float(up_p.abs().max())
+    l64 = lk.double().tril(-1) + torch.eye(nb, dtype=torch.float64, device=lk.device)
+    u64 = lk.double().triu()
+    res = (l64 @ u64 - a.double()).abs()
+    bound = 3 * nb * eps * (l64.abs() @ u64.abs())
+    ratio = torch.nan_to_num(res / bound, nan=0.0, posinf=float("inf"))  # 0/0: exact
+    return {"err_L": float((lo_k - lo_p).abs().max()), "tol_L": 100 * nb * eps * lmax,
+            "max_abs_L": lmax, "err_U": float((up_k - up_p).abs().max()),
+            "tol_U": 100 * nb * eps * umax, "max_abs_U": umax,
+            "rec_ratio": float(ratio.max()), "rec_rel_limit": 3 * nb * eps}
+
+
+def lu_factor_ok(c):
+    """Each limit separates a wrong factor (below 1e-2 of what it holds)
+    and each reading is within its limit."""
+    return (c["tol_L"] < 1e-2 * c["max_abs_L"] and c["tol_U"] < 1e-2 * c["max_abs_U"]
+            and c["rec_rel_limit"] < 1e-2 and c["err_L"] < c["tol_L"] and c["err_U"] < c["tol_U"]
+            and c["rec_ratio"] <= 1)
+
+
+def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
+    """lu_panel_tiles (the owning column's p x mtl tiles of the mesh LU's
+    bucket-0 view) and lu_rowsolve_tiles (the owning row's q x ntl tiles)
+    against their twins, strided as the driver slices them."""
+    name = dname(dtype)
+    eps = torch.finfo(dtype).eps
+    n = MESH_N[name]
+    t, loc = mesh_tiles(n, dtype, SEED + 61, torch, local_view)
+    pcol = loc[:, 1:2, :, 1]  # (p, 1, mtl, nb, nb)
+    prow = loc[1:2, :, 2]  # (1, q, ntl, nb, nb)
+    dtile = lu_block(NB, dtype, SEED + 62, torch)
+    lk, sk = kernels.lu_panel_tiles(dtile, pcol)
+    rk = kernels.lu_rowsolve_tiles(lk, prow)
+    torch.cuda.synchronize()
+    lp, sp = kernels.lu_panel_tiles_plain(dtile, pcol)
+    rp = kernels.lu_rowsolve_tiles_plain(lk, prow)
+    # the U^-1 and unit-L^-1 the kernels solved with: each kernel applied to
+    # the identity (I U^-1 and L^-1 I are exact for finite inverses)
+    eye = torch.eye(NB, dtype=dtype, device="cuda")[None]
+    uk, linvk = kernels.lu_panel_tiles(dtile, eye)[1][0], kernels.lu_rowsolve_tiles(lk, eye)[0]
+    _, up = kernels.lu_diag_inv_plain(dtile)
+    linvp = kernels.unit_linv_plain(lk)
+    fac = lu_factor_check(dtile, lk, lp, eps, torch)
+    # solved tiles: solve_tol, which must separate a wrong output from the
+    # largest solved value
+    tol_s = solve_tol(pcol, uk, up, eps, left=False)
+    tol_r = solve_tol(prow, linvk, linvp, eps, left=True)
+    smax, rmax = float(sp.abs().max()), float(rp.abs().max())
+    err_l = max(fac["err_L"], fac["err_U"])
+    err_s = float((sk - sp).abs().max())
+    err_r = float((rk - rp).abs().max())
+    check(bool(torch.isfinite(sk).all()) and bool(torch.isfinite(rk).all()),
+          f"LU panel kernels {name}: non-finite output")
+    check(tol_s < 1e-2 * smax and tol_r < 1e-2 * rmax,
+          f"LU panel kernels {name}: tolerances {tol_s}, {tol_r} do not separate a wrong output "
+          f"from max|solved| {smax}, {rmax}")
+    check(lu_factor_ok(fac), f"lu_panel_tiles {name}: packed L\\U {fac}")
+    check(err_s < tol_s, f"lu_panel_tiles {name}: |dS| {err_s} (tol {tol_s})")
+    check(err_r < tol_r, f"lu_rowsolve_tiles {name}: |dS| {err_r} (tol {tol_r})")
+    isz = dtile.element_size()
+    rows = []
+    for kname, run, plain, library, err, tiles, flops, nbytes, replaces in (
+            ("lu_panel_tiles", lambda: kernels.lu_panel_tiles(dtile, pcol),
+             lambda: kernels.lu_panel_tiles_plain(dtile, pcol),
+             lambda: torch.linalg.solve_triangular(
+                 torch.linalg.lu_factor_ex(dtile, pivot=False)[0].triu(), pcol, upper=True,
+                 left=False),
+             max(err_l, err_s), pcol,
+             # factor 2 nb^3 / 3 + U^-1 nb^3 / 3, then one product with the
+             # triangular U^-1 per tile, nb^3
+             NB ** 3 + NB ** 3 * pcol.shape[0] * pcol.shape[2],
+             # the block read, L\U written, each tile read and written once
+             (2 * NB * NB + 2 * pcol.shape[0] * pcol.shape[2] * NB * NB) * isz,
+             "slate_tpu/ops/pallas_ops.py:543"),
+            ("lu_rowsolve_tiles", lambda: kernels.lu_rowsolve_tiles(lk, prow),
+             lambda: kernels.lu_rowsolve_tiles_plain(lk, prow),
+             lambda: torch.linalg.solve_triangular(lk, prow, upper=False, left=True,
+                                                   unitriangular=True),
+             err_r, prow,
+             # unit-L^-1 nb^3 / 3, then one triangular product per tile, nb^3
+             NB ** 3 / 3 + NB ** 3 * prow.shape[1] * prow.shape[2],
+             # the strict lower triangle read, each tile read and written once
+             (NB * (NB - 1) // 2 + 2 * prow.shape[1] * prow.shape[2] * NB * NB) * isz,
+             "slate_tpu/ops/pallas_ops.py:590")):
+        ms = cuda_ms(run, 20, torch)
+        plain_ms = cuda_ms(plain, 2, torch)
+        library_ms = cuda_ms(library, 20, torch)
+        row = row_of(kname, dtype, "slate_tpu_torch/csrc/lu_diag_inv.cu", replaces, err, ms,
+                     plain_ms, library_ms, nbytes, flops)
+        rows.append(row)
+        emit({"phase": f"kernel_{kname}_{name}", "tiles": list(tiles.shape),
+              "err_solved": err_s if kname == "lu_panel_tiles" else err_r,
+              "tol_solved": tol_s if kname == "lu_panel_tiles" else tol_r,
+              "max_abs_solved": smax if kname == "lu_panel_tiles" else rmax,
+              **(fac if kname == "lu_panel_tiles" else {}), "kernel_ms": ms,
+              "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
+              "bound_by": row["bound_by"]})
+    del t, loc, pcol, prow
+    torch.cuda.empty_cache()
+    return rows
+
+
+LU_KERNELS = ("lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update")
+MESH_LU_N = {("nopiv", "float32"): 32768, ("nopiv", "float64"): 16384,
+             ("pp", "float32"): 32768, ("pp", "float64"): 16384,
+             ("tntpiv", "float32"): 8192}
+WARMUP_N = 2048
+
+
+def expected_lu_launches(form, nt, la, bucket_plan):
+    """Launches of one LU factor, derived from its loop.  No pivoting: one
+    panel column and one panel row per step; per bucket of s steps, s bulk
+    updates at lookahead 0, and at lookahead >= 1 s - 1 narrow refreshes
+    of two launches (column and row; the first step carries no update),
+    s - 1 bulk updates and the drain.  Tournament: nt panels and rows, the
+    update pinned to the matmul form.  Partial pivot: nt panel rows only
+    (its column factor is torch ops)."""
+    if form == "pp":
+        return {"lu_panel_tiles": 0, "lu_rowsolve_tiles": nt, "lu_trailing_update": 0}
+    if form == "tntpiv":
+        return {"lu_panel_tiles": nt, "lu_rowsolve_tiles": nt, "lu_trailing_update": 0}
+    trailing = 0
+    for k0, k1, _, _ in bucket_plan(nt, P, Q):
+        s = k1 - k0
+        trailing += (3 * s - 2) if la >= 1 else s
+    return {"lu_panel_tiles": nt, "lu_rowsolve_tiles": nt, "lu_trailing_update": trailing}
+
+
+def omega(a, x, b, torch, rows=4096):
+    """Componentwise backward error (Oettli-Prager) max_i |AX - B|_i /
+    (|A||X| + |B|)_i, the residual taken in f64 over blocks of rows, so the
+    check adds no rounding of its size.  A right-sized but wrong X reads
+    ~1/sqrt(n) or more (the operand's own scale cancels out)."""
+    x64, w = x.double(), 0.0
+    for r0 in range(0, a.shape[0], rows):
+        a64, b64 = a[r0:r0 + rows].double(), b[r0:r0 + rows].double()
+        r = (a64 @ x64 - b64).abs()
+        w = max(w, float((r / (a64.abs() @ x64.abs() + b64.abs())).max()))
+    return w
+
+
+def omega_gate(n, dtype, torch):
+    """The tighter gate on the LU solves: 10 sqrt(n) eps.  The n-term sums
+    of a backward-stable factor and solve round as a random walk (sqrt(n)
+    eps), with a factor 10 for pivot growth; a wrong X of the right size
+    reads ~1/sqrt(n) or more, >= 100x the gate at n = 32768."""
+    return 10 * math.sqrt(n) * torch.finfo(dtype).eps
+
+
+def lu_matrix(form, n, dtype, seed, torch):
+    """uniform[-1, 1), plus n I for the no-pivot solve, made on the device."""
+    a = torch.rand((n, n), generator=torch.Generator(device="cuda").manual_seed(seed),
+                   dtype=dtype, device="cuda")
+    a.mul_(2).sub_(1)
+    if form == "nopiv":
+        a.diagonal().add_(n)
+    return a
+
+
+def mesh_lu_phase(form, dtype, kernels, mp, bucket_plan, torch):
+    """getrf_*_mesh -> permute_rows_dist -> two trsm_dist (the gesv_*_mesh
+    solve, timed step by step) on a virtual 2 x 4 mesh, after a warm-up
+    gesv_*_mesh at n = 2048; then the backward error of the solution."""
+    from slate_tpu_torch.types import Diag, Op, Option, Uplo
+
+    name = dname(dtype)
+    n = MESH_LU_N[(form, name)]
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    opts = {Option.MixedPrecision: "off"}
+    getrf = {"nopiv": mp.getrf_nopiv_mesh, "pp": mp.getrf_mesh, "tntpiv": mp.getrf_tntpiv_mesh}[form]
+    gesv = {"nopiv": mp.gesv_nopiv_mesh, "pp": mp.gesv_mesh, "tntpiv": mp.gesv_tntpiv_mesh}[form]
+    aw = lu_matrix(form, WARMUP_N, dtype, SEED + 70, torch)
+    xw, infow = gesv(aw, aw[:, :NRHS].clone(), mesh, NB, opts=opts)  # handles, allocator, kernel loads
+    check(int(infow) == 0 and bool(torch.isfinite(xw).all()), f"mesh {form} {name}: warm-up failed")
+    del aw, xw
+    a = lu_matrix(form, n, dtype, SEED + 71, torch)
+    b = randn((n, NRHS), dtype, SEED + 72, torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    split = {}
+    t0 = t = time.perf_counter()
+
+    def mark(step):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[step] = now - t
+        t = now
+
+    out = getrf(a, mesh, NB, opts=opts)
+    mark("getrf")
+    lu, info = out[0], out[-1]
+    bd = mp.from_dense(b, mesh, NB)
+    if form != "nopiv":
+        bd = mp.permute_rows_dist(bd, out[1])
+    mark("from_dense_permute")
+    y = mp.trsm_dist(lu, bd, Uplo.Lower, Op.NoTrans, Diag.Unit)
+    mark("trsm_dist_lower")
+    x = mp.to_dense(mp.trsm_dist(lu, y, Uplo.Upper, Op.NoTrans))
+    mark("trsm_dist_upper")
+    seconds = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    del lu, y, bd, out
+    e = eta(a, x, b, torch)
+    gate = 100 * n * torch.finfo(dtype).eps
+    w, w_gate = omega(a, x, b, torch), omega_gate(n, dtype, torch)
+    nt = n // NB
+    want = expected_lu_launches(form, nt, 1, bucket_plan)
+    emit({"phase": f"mesh_gesv_{form}_{name}", "n": n, "nrhs": NRHS, "nb": NB, "grid": [P, Q],
+          "info": int(info), "eta": e, "eta_gate": gate, "omega": w, "omega_gate": w_gate,
+          "launches": counts,
+          "expected_launches": want, "solve_seconds": seconds, "split_seconds": split,
+          "peak_mem_bytes": peak, "x_finite": bool(torch.isfinite(x).all())})
+    check(int(info) == 0, f"mesh {form} {name}: info {int(info)}")
+    check(e < gate, f"mesh {form} {name}: eta {e} >= {gate}")
+    check(w < w_gate, f"mesh {form} {name}: omega {w} >= {w_gate}")
+    check(tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all()),
+          f"mesh {form} {name}: bad solution")
+    for k, v in want.items():
+        check(counts[k] == v, f"mesh {form} {name}: {counts[k]} {k} launches, expected {v}")
+    del a, b, x
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lu_invariants_phase(mp, torch):
+    """No pivoting and partial pivoting: bitwise across lookahead 0/1/2 and
+    the psum/ring/doubling lowerings (the whole solve), and a zero column
+    j giving info j + 1."""
+    from slate_tpu_torch.types import Option
+
+    n = INVARIANT_N
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    b = randn((n, NRHS), torch.float32, SEED + 81, torch)
+    out = {"phase": "lu_invariants", "n": n}
+    ok = True
+    for form, gesv, getrf in (("nopiv", mp.gesv_nopiv_mesh, mp.getrf_nopiv_mesh),
+                              ("pp", mp.gesv_mesh, mp.getrf_mesh)):
+        a = lu_matrix(form, n, torch.float32, SEED + 80, torch)
+        runs = {}
+        for la in (0, 1, 2):
+            runs[f"lookahead{la}"] = gesv(a, b, mesh, NB, opts={Option.Lookahead: la})[0]
+        for impl in ("psum", "ring", "doubling"):
+            runs[f"bcast_{impl}"] = gesv(a, b, mesh, NB, opts={Option.BcastImpl: impl})[0]
+        base = runs["lookahead1"]
+        equal = {k: bool(torch.equal(v, base)) for k, v in runs.items()}
+        j = 9 * NB + 77
+        a[:, j] = 0
+        info = int(getrf(a, mesh, NB)[-1])
+        out[form] = {"bitwise_equal": equal, "zero_column": j, "info": info,
+                     "expected_info": j + 1}
+        ok = ok and all(equal.values()) and info == j + 1
+        del a, runs
+        torch.cuda.empty_cache()
+    emit(out)
+    check(ok, f"LU invariants failed: {out}")
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
     res = dryrun.dryrun("cuda")
-    emit({"phase": "dryrun_posv_chain", **res})
-    check(res["ok"], f"dryrun posv_chain failed: {res['phases']}")
+    emit({"phase": "dryrun", **res})
+    check(res["ok"], f"dryrun failed: {res['phases']}")
 
 
 def main():
@@ -638,11 +971,33 @@ def main():
         check(row["launches"], f"{row['name']}: no launch on its path")
     rows += list(mesh_rows.values())
 
-    # 12-13. invariants and the dryrun
+    # 12. the LU kernels vs their twins
+    lu_rows = {}
+    for dt in (torch.float32, torch.float64):
+        for row in kernel_lu_panel_phase(dt, kernels, mp.local_view, torch):
+            lu_rows[(row["name"].split("[")[0], dt)] = row
+        lu_rows[("lu_trailing_update", dt)] = kernel_update_phase(
+            "lu_trailing_update", dt, kernels, mp.local_view, local_indices, torch)
+
+    # 13-15. the mesh LU solves; every count is read right after its path.
+    # The no-pivot solve reaches all three kernels; its counts go in the
+    # kernels line
+    lu_counts = {dt: mesh_lu_phase("nopiv", dt, kernels, mp, bucket_plan, torch)
+                 for dt in (torch.float32, torch.float64)}
+    for dt in (torch.float32, torch.float64):
+        mesh_lu_phase("pp", dt, kernels, mp, bucket_plan, torch)
+    mesh_lu_phase("tntpiv", torch.float32, kernels, mp, bucket_plan, torch)
+    for (name, dt), row in lu_rows.items():
+        row["launches"] = lu_counts[dt][name]
+        check(row["launches"], f"{row['name']}: no launch on its path")
+    rows += list(lu_rows.values())
+
+    # 16-18. invariants and the dryrun
     mesh_invariants_phase(mp, posv_chain, torch)
+    lu_invariants_phase(mp, torch)
     dryrun_phase()
 
-    # 14. kernels line, card line, result
+    # 19. kernels line, card line, result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

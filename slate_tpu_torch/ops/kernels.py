@@ -14,7 +14,14 @@ Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This module holds:
 - the mesh kernels on ``csrc/tile_gemm.cu``: :func:`chol_panel_tiles`
   (``chol_panel_tiles_pallas``), :func:`chol_trailing_update`
   (``chol_trailing_update_pallas``) and :func:`summa_update`
-  (``summa_update_pallas``), each with its ``*_plain`` twin.
+  (``summa_update_pallas``), each with its ``*_plain`` twin;
+- the LU kernels: :func:`lu_panel_tiles` (``lu_panel_tiles_pallas``) and
+  :func:`lu_rowsolve_tiles` (``lu_rowsolve_tiles_pallas``), whose diagonal
+  block runs on ``csrc/lu_diag_inv.cu`` (its ``lu_diag_inv`` and
+  ``unit_linv`` entry points) and whose tile solves run on
+  ``csrc/tile_gemm.cu``, and :func:`lu_trailing_update`
+  (``lu_trailing_update_pallas``) on ``csrc/tile_gemm.cu``, each with its
+  ``*_plain`` twin.
 
 Dispatch: ``pallas`` and ``auto`` take the CUDA kernel for a CUDA tensor and
 the plain twin for a CPU tensor (the wrapper decides by the tensor's
@@ -25,7 +32,7 @@ the twin: the kernel builds and launches, or the call raises.  The update
 wrappers work in place, where ``slate_tpu``'s return a new array.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call (the twin) does not count.  The other 10 Pallas kernels of
+call (the twin) does not count.  The other 7 Pallas kernels of
 ``pallas_ops.py`` / ``matmul.py`` are not ported yet (ROADMAP.md, kernel
 queue).
 """
@@ -98,12 +105,13 @@ def panel_impl_scope(impl: str):
 
 def panel_engaged(dtype: torch.dtype) -> bool:
     """Whether the diagonal-block factor goes through :func:`chol_diag_inv`
-    / :func:`chol_panel_tiles` (kernel on CUDA, twin on CPU).  ``xla``
+    / :func:`chol_panel_tiles` / :func:`lu_panel_tiles` /
+    :func:`lu_rowsolve_tiles` (kernel on CUDA, twin on CPU).  ``xla``
     never engages; ``pallas`` and ``auto`` engage every real floating dtype
     (complex keeps the torch.linalg pair, as in ``slate_tpu``).  On a CUDA
     tensor the wrappers then take f32/f64 blocks up to 256 wide and raise
     on anything else (the mesh Cholesky casts bf16 panels to f32 first, as
-    ``slate_tpu`` does)."""
+    ``slate_tpu`` does; so do the mesh LU panels)."""
     impl = _PANEL_ACTIVE[-1] or resolve_panel_impl()
     if impl == "xla":
         return False
@@ -149,7 +157,8 @@ def update_impl_scope(impl: str):
 
 def update_engaged(dtype: torch.dtype) -> bool:
     """Whether a mesh trailing update goes through the update wrappers
-    (:func:`summa_update`, :func:`chol_trailing_update`: kernel on CUDA,
+    (:func:`summa_update`, :func:`chol_trailing_update`,
+    :func:`lu_trailing_update`: kernel on CUDA,
     twin on CPU).  ``xla`` never engages; ``pallas`` and ``auto`` engage
     f32 and f64, the dtypes the kernel takes.  bf16/f16 and complex keep
     the plain batched-matmul form on every device (``slate_tpu`` keeps
@@ -213,15 +222,7 @@ def chol_diag_inv(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     kernel launches."""
     if a.device.type == "cpu":
         return chol_diag_inv_plain(a)
-    if a.device.type != "cuda":
-        raise ValueError(f"chol_diag_inv: unsupported device {a.device}")
-    if a.dtype not in _CUDA_DTYPES:
-        raise TypeError(f"chol_diag_inv: dtype {a.dtype} not supported on CUDA (f32, f64)")
-    if a.dim() != 2 or a.shape[0] != a.shape[1] or not 1 <= a.shape[0] <= CHOL_DIAG_INV_MAX_N:
-        raise ValueError(
-            f"chol_diag_inv: need a square block of side 1..{CHOL_DIAG_INV_MAX_N}, "
-            f"got {tuple(a.shape)}"
-        )
+    _check_block("chol_diag_inv", a)
     if not a.is_contiguous():
         raise ValueError("chol_diag_inv: block must be contiguous")
     fn = _chol_diag_inv_fn(a.dtype)
@@ -266,6 +267,15 @@ def _check_cuda(who: str, *tensors: torch.Tensor) -> None:
         if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{who}: operands must share device and dtype, got "
                              f"{[(str(x.device), x.dtype) for x in tensors]}")
+
+
+def _check_block(who: str, a: torch.Tensor) -> None:
+    """A diagonal block the one-CTA kernels take: CUDA, f32/f64, square,
+    side <= 256."""
+    _check_cuda(who, a)
+    if a.dim() != 2 or a.shape[0] != a.shape[1] or not 1 <= a.shape[0] <= CHOL_DIAG_INV_MAX_N:
+        raise ValueError(f"{who}: need a square block of side 1..{CHOL_DIAG_INV_MAX_N}, "
+                         f"got {tuple(a.shape)}")
 
 
 def _tile_gemm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, mask: Optional[torch.Tensor],
@@ -357,7 +367,7 @@ def _tile_batch(tiles: torch.Tensor) -> torch.Tensor:
     """(..., nb, nb) with at most three leading dims as (R, Q, I, nb, nb)."""
     lead = tiles.dim() - 2
     if not 0 <= lead <= 3:
-        raise ValueError(f"chol_panel_tiles: need (..., nb, nb) with <= 3 leading dims, "
+        raise ValueError(f"panel tiles: need (..., nb, nb) with <= 3 leading dims, "
                          f"got {tuple(tiles.shape)}")
     for _ in range(3 - lead):
         tiles = tiles.unsqueeze(0)
@@ -383,12 +393,11 @@ def chol_panel_tiles(dtile: torch.Tensor, tiles: torch.Tensor) -> Tuple[torch.Te
     if dtile.device.type == "cpu":
         return chol_panel_tiles_plain(dtile, tiles)
     _check_cuda("chol_panel_tiles", dtile, tiles)
+    _check_block("chol_panel_tiles", dtile)
     nb = dtile.shape[-1]
-    if dtile.dim() != 2 or dtile.shape[0] != nb or not 1 <= nb <= CHOL_DIAG_INV_MAX_N \
-            or tiles.shape[-2:] != (nb, nb):
-        raise ValueError(f"chol_panel_tiles: need an nb x nb diagonal tile (nb <= "
-                         f"{CHOL_DIAG_INV_MAX_N}) and (..., nb, nb) tiles, got "
-                         f"{tuple(dtile.shape)}, {tuple(tiles.shape)}")
+    if tiles.shape[-2:] != dtile.shape:
+        raise ValueError(f"chol_panel_tiles: tiles {tuple(tiles.shape)} do not match the "
+                         f"diagonal tile {tuple(dtile.shape)}")
     dtile = dtile.contiguous()
     l = torch.empty_like(dtile)
     x = torch.empty_like(dtile)
@@ -406,3 +415,170 @@ def chol_panel_tiles(dtile: torch.Tensor, tiles: torch.Tensor) -> Tuple[torch.Te
 
 
 chol_panel_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the LU panel and trailing kernels: csrc/lu_diag_inv.cu (the diagonal block)
+# and csrc/tile_gemm.cu (the tile solves and the update)
+# ---------------------------------------------------------------------------
+
+_LU_FNS = {"lu_diag_inv": 3, "unit_linv": 2}  # entry point -> pointer arguments
+
+
+def lu_diag_inv_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the diagonal-block LU: the column loop and the
+    row-wise back substitution of ``slate_tpu``'s ``_lu_inv_body``, op for
+    op.  Returns (packed L\\U, U^-1); a zero pivot divides by 1 in the
+    factor and by the raw 0 in U^-1 (inf/NaN there)."""
+    n = a.shape[0]
+    rows = torch.arange(n, device=a.device)
+    cols = rows
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    w = a.clone()
+    for j in range(n):
+        col = w[:, j]
+        piv = col[j]
+        denom = torch.where(piv == 0, torch.ones_like(piv), piv)
+        lcol = torch.where(rows > j, col / denom, zero)
+        w = torch.where((cols == j)[None, :], torch.where(rows > j, lcol, col)[:, None], w)
+        urow = w[j]
+        w = w - torch.where((cols > j)[None, :], lcol[:, None] * urow[None, :], zero)
+    x = torch.zeros_like(a)
+    for s in range(n):
+        t = n - 1 - s
+        urow = w[t]
+        acc = matmul(torch.where(cols > t, urow, zero)[None, :], x)[0]
+        e = (cols == t).to(a.dtype)
+        xrow = (e - acc) / urow[t]
+        x = torch.where((rows == t)[:, None], xrow[None, :], x)
+    return w, x.triu()
+
+
+def unit_linv_plain(lu: torch.Tensor) -> torch.Tensor:
+    """Plain twin of unit-L^-1 from a packed L\\U block: the row-wise
+    forward substitution of ``slate_tpu``'s ``_unit_linv_body``."""
+    n = lu.shape[0]
+    rows = torch.arange(n, device=lu.device)
+    cols = rows
+    zero = torch.zeros((), dtype=lu.dtype, device=lu.device)
+    x = torch.zeros_like(lu)
+    for t in range(n):
+        lrow = lu[t]
+        acc = matmul(torch.where(cols < t, lrow, zero)[None, :], x)[0]
+        xrow = (cols == t).to(lu.dtype) - acc
+        x = torch.where((rows == t)[:, None], xrow[None, :], x)
+    return x.tril()
+
+
+def _lu_fn(entry: str, dtype: torch.dtype):
+    fn = getattr(_build.load("lu_diag_inv"), f"{entry}_{'f32' if dtype == torch.float32 else 'f64'}")
+    fn.argtypes = [ctypes.c_void_p] * _LU_FNS[entry] + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_lu(entry: str, who: str, src: torch.Tensor, *outs: torch.Tensor) -> None:
+    fn = _lu_fn(entry, src.dtype)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(src.data_ptr(), *(o.data_ptr() for o in outs), src.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"{who}: {entry} launch failed with CUDA error {rc}")
+
+
+def lu_panel_tiles_plain(dtile: torch.Tensor, tiles: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`lu_panel_tiles`: (L\\U, U^-1) by
+    :func:`lu_diag_inv_plain`, then every tile times U^-1."""
+    lu, x = lu_diag_inv_plain(dtile)
+    return lu, torch.matmul(tiles, x)
+
+
+def lu_panel_tiles(dtile: torch.Tensor, tiles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The getrf-nopiv panel-column phase: (packed L\\U of the diagonal
+    tile, ``tiles[...] @ U^-1``).  ``tiles`` is (..., nb, nb) with up to
+    three leading dims, any strides.  A CPU tensor takes the twin.  A CUDA
+    tensor launches ``csrc/lu_diag_inv.cu`` for (L\\U, U^-1) and then
+    ``csrc/tile_gemm.cu`` for the solve (mode set, U^-1 shared by every
+    tile with stride 0); ``lu_panel_tiles.launches`` counts wrapper calls
+    (one per panel)."""
+    if dtile.device.type == "cpu":
+        return lu_panel_tiles_plain(dtile, tiles)
+    _check_cuda("lu_panel_tiles", dtile, tiles)
+    _check_block("lu_panel_tiles", dtile)
+    if tiles.shape[-2:] != dtile.shape:
+        raise ValueError(f"lu_panel_tiles: tiles {tuple(tiles.shape)} do not match the "
+                         f"diagonal tile {tuple(dtile.shape)}")
+    dtile = dtile.contiguous()
+    lu, x = torch.empty_like(dtile), torch.empty_like(dtile)
+    _launch_lu("lu_diag_inv", "lu_panel_tiles", dtile, lu, x)
+    solved = torch.empty(tiles.shape, dtype=tiles.dtype, device=tiles.device)
+    _tile_gemm(_tile_batch(solved).unsqueeze(3), _tile_batch(tiles), x[None, None, None],
+               None, trans_b=False, mode=_MODE_SET, who="lu_panel_tiles")
+    lu_panel_tiles.launches += 1
+    return lu, solved
+
+
+lu_panel_tiles.launches = 0
+
+
+def lu_rowsolve_tiles_plain(luk: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`lu_rowsolve_tiles`: unit-L^-1 by
+    :func:`unit_linv_plain`, then L^-1 times every tile."""
+    return torch.matmul(unit_linv_plain(luk), tiles)
+
+
+def lu_rowsolve_tiles(luk: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """The getrf-nopiv panel-row phase: ``unit-L^-1 @ tiles[...]`` for the
+    packed L\\U ``luk``.  ``tiles`` is (..., nb, nb) with up to three
+    leading dims, any strides.  A CPU tensor takes the twin.  A CUDA tensor
+    launches ``csrc/lu_diag_inv.cu`` for L^-1 and then ``csrc/tile_gemm.cu``
+    for the solve (mode set, L^-1 the shared A, the tiles as B);
+    ``lu_rowsolve_tiles.launches`` counts wrapper calls (one per panel)."""
+    if luk.device.type == "cpu":
+        return lu_rowsolve_tiles_plain(luk, tiles)
+    _check_cuda("lu_rowsolve_tiles", luk, tiles)
+    _check_block("lu_rowsolve_tiles", luk)
+    if tiles.shape[-2:] != luk.shape:
+        raise ValueError(f"lu_rowsolve_tiles: tiles {tuple(tiles.shape)} do not match the "
+                         f"diagonal tile {tuple(luk.shape)}")
+    luk = luk.contiguous()
+    x = torch.empty_like(luk)
+    _launch_lu("unit_linv", "lu_rowsolve_tiles", luk, x)
+    solved = torch.empty(tiles.shape, dtype=tiles.dtype, device=tiles.device)
+    _tile_gemm(_tile_batch(solved).unsqueeze(2), x[None, None, None], _tile_batch(tiles),
+               None, trans_b=False, mode=_MODE_SET, who="lu_rowsolve_tiles")
+    lu_rowsolve_tiles.launches += 1
+    return solved
+
+
+lu_rowsolve_tiles.launches = 0
+
+
+def lu_trailing_update_plain(view: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
+                             mask: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`lu_trailing_update`: the batched product of
+    every tile pair, selected by the mask and subtracted in place (the
+    contraction -> select -> subtract of ``lu_trailing_update_pallas``)."""
+    upd = torch.matmul(pan.unsqueeze(-3), urow.unsqueeze(-4))
+    return view.sub_(torch.where(mask[..., None, None] != 0, upd,
+                                 torch.zeros((), dtype=upd.dtype, device=upd.device)))
+
+
+def lu_trailing_update(view: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """The LU trailing update over the virtual mesh, in place:
+    ``view[r,q,i,j] -= mask[r,q,i,j] ? pan[r,q,i] @ urow[r,q,j] : 0``.
+    ``view`` is (R, Q, I, J, nb, nb), any strides; the panels broadcast to
+    (R, Q, I|J, nb, nb) and ``mask`` to (R, Q, I, J).  Masked tiles are
+    neither read nor written.  A CPU tensor takes the twin; a CUDA tensor
+    launches ``csrc/tile_gemm.cu`` once (``lu_trailing_update.launches``)
+    or raises."""
+    if view.device.type == "cpu":
+        return lu_trailing_update_plain(view, pan, urow, mask)
+    _tile_gemm(view, pan, urow, mask, trans_b=False, mode=_MODE_SUB, who="lu_trailing_update")
+    lu_trailing_update.launches += 1
+    return view
+
+
+lu_trailing_update.launches = 0

@@ -1,7 +1,7 @@
 """Communication verbs of the mesh drivers, on a virtual (p, q) mesh.
 
 Counterpart of the part of ``slate_tpu/parallel/comm.py`` that the mesh
-Cholesky solve and the mesh GEMM use.  In ``slate_tpu`` a shard_map body
+Cholesky and LU solves and the mesh GEMM use.  In ``slate_tpu`` a shard_map body
 runs once per device and the verbs are XLA collectives.  Here every device
 of the grid lives on one card, so a body runs ONCE over the whole grid and
 a per-device value is a tensor whose two leading dims are the grid,
@@ -90,9 +90,16 @@ def _payload_bytes(x: torch.Tensor) -> int:
     return numel * x.element_size()
 
 
-def _rec(op: str, x: torch.Tensor) -> None:
+def audit(op: str, nbytes: int) -> None:
+    """Record one verb by its per-device payload bytes (for a collective
+    whose virtual-mesh form is plain indexing, such as the LU row
+    exchanges)."""
     if _AUDIT is not None:
-        _AUDIT.append((op, _payload_bytes(x), _AUDIT_MULT[-1]))
+        _AUDIT.append((op, int(nbytes), _AUDIT_MULT[-1]))
+
+
+def _rec(op: str, x: torch.Tensor) -> None:
+    audit(op, _payload_bytes(x))
 
 
 def _rec_hop(op: str, x: torch.Tensor, npairs: int) -> None:
@@ -339,10 +346,8 @@ def route_to_block_cyclic_rows(part: torch.Tensor, targets: torch.Tensor, p: int
     numel = 1
     for s in routed_payload:
         numel *= s
-    if _AUDIT is not None:
-        _AUDIT.append((f"psum_scatter[{COL_AXIS}]", numel * part.element_size(), _AUDIT_MULT[-1]))
-        _AUDIT.append((f"psum_scatter[{ROW_AXIS}]", numel // q_ * part.element_size(),
-                       _AUDIT_MULT[-1]))
+    audit(f"psum_scatter[{COL_AXIS}]", numel * part.element_size())
+    audit(f"psum_scatter[{ROW_AXIS}]", numel // q_ * part.element_size())
     out = torch.zeros(routed_payload, dtype=part.dtype, device=part.device)
     tg = targets.expand(P, Q, t).reshape(-1)
     keep = (tg >= 0) & (tg // p < mtl_out)  # mode="drop"

@@ -58,12 +58,12 @@ from .dist import DistMatrix, local_view
 from .mesh import mesh_shape
 
 
-def _check_num_monitor(num_monitor: Optional[str]) -> None:
+def _check_num_monitor(num_monitor: Optional[str], who: str = "potrf_dist") -> None:
     if num_monitor in (None, "off", "auto"):  # auto is off while obs is not ported
         return
     if num_monitor == "on":
         raise NotImplementedError(
-            "potrf_dist: num_monitor='on' (the in-carry numerics gauges) is not "
+            f"{who}: num_monitor='on' (the in-carry numerics gauges) is not "
             "ported yet; it comes with the observability slice")
     raise ValueError(f"unknown num_monitor {num_monitor!r}")
 

@@ -1,0 +1,177 @@
+"""Mesh-level drivers: dense-in / dense-out distributed LU solves.
+
+Counterpart of the LU drivers of ``slate_tpu/parallel/drivers.py`` (the
+reference's ``src/gesv.cc``, ``getrf*.cc`` run with a 2D block-cyclic
+distribution): ``getrf_nopiv_mesh`` / ``gesv_nopiv_mesh`` (no pivoting),
+``getrf_tntpiv_mesh`` / ``gesv_tntpiv_mesh`` (tournament pivoting, CALU)
+and ``getrf_mesh`` / ``gesv_mesh`` (partial pivoting, the reference's
+default ``MethodLU::PartialPiv``), with the ``_la/_bi/_pi/_ui/_nm`` option
+readers.  Factorization inputs are padded with an identity diagonal block
+(``from_dense(..., diag_pad_one=True)``), so padded runs stay exact.
+
+Not ported yet, and refused with ``NotImplementedError``:
+``Option.FaultTolerance`` and ``Option.Checkpoint`` (the ABFT and
+checkpointed factor loops, slice 9) and the ``Option.MixedPrecision``
+ladder of an f64 ``gesv_mesh`` with a 2-D right-hand side (slice 4; the
+direct path runs under ``MixedPrecision=off`` and for f32).  The other
+drivers of ``slate_tpu.parallel.drivers`` come with their slices.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..types import Diag, Op, Option, Options, Uplo, get_option
+from .dist import DistMatrix, from_dense, to_dense
+from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
+from .dist_refine import resolve_mixed
+from .dist_trsm import trsm_dist
+from .mesh import VirtualMesh
+
+_DEFAULT_NB = 256
+CKPT_ENV = "SLATE_TPU_CKPT"
+
+
+def _la(opts: Optional[Options]):
+    """Raw Option.Lookahead (None: ``comm.la_depth`` maps it to 1)."""
+    return get_option(opts, Option.Lookahead)
+
+
+def _bi(opts: Optional[Options]):
+    """Raw Option.BcastImpl (None: ``comm.resolve_bcast_impl``'s chain)."""
+    return get_option(opts, Option.BcastImpl)
+
+
+def _pi(opts: Optional[Options]):
+    """Raw Option.PanelImpl (None: ``ops.kernels.resolve_panel_impl``'s chain)."""
+    return get_option(opts, Option.PanelImpl)
+
+
+def _ui(opts: Optional[Options]):
+    """Raw Option.UpdateImpl (None: ``ops.kernels.resolve_update_impl``'s chain)."""
+    return get_option(opts, Option.UpdateImpl)
+
+
+def _nm(opts: Optional[Options]):
+    """Raw Option.NumMonitor (``on`` raises until the observability slice)."""
+    return get_option(opts, Option.NumMonitor)
+
+
+def _resilience(opts: Optional[Options]) -> None:
+    """Refuse an active Option.FaultTolerance policy or Option.Checkpoint
+    interval (explicit > ``SLATE_TPU_CKPT`` > off, as ``slate_tpu``)."""
+    ft = get_option(opts, Option.FaultTolerance)
+    if ft is not None and str(getattr(ft, "value", ft)) != "off":
+        raise NotImplementedError(
+            f"Option.FaultTolerance={ft!r}: the ABFT mesh factorizations are not "
+            "ported yet; they come with slice 9 (ft)")
+    every = get_option(opts, Option.Checkpoint)
+    if every is None:
+        every = os.environ.get(CKPT_ENV, "").strip() or None
+    if every not in (None, 0, False) and str(every) not in ("0", "off"):
+        raise NotImplementedError(
+            f"Option.Checkpoint={every!r}: the checkpointed mesh factorizations are "
+            "not ported yet; they come with slice 9 (ft)")
+
+
+def _solve(lu: DistMatrix, b, mesh: VirtualMesh, nb: int, perm, opts) -> torch.Tensor:
+    """Permute B (when pivoted), then the unit-lower and upper sweeps."""
+    la, bi = _la(opts), _bi(opts)
+    bd = from_dense(b, mesh, nb)
+    if perm is not None:
+        bd = permute_rows_dist(bd, perm)
+    y = trsm_dist(lu, bd, Uplo.Lower, Op.NoTrans, Diag.Unit, lookahead=la, bcast_impl=bi)
+    x = trsm_dist(lu, y, Uplo.Upper, Op.NoTrans, lookahead=la, bcast_impl=bi)
+    return to_dense(x)
+
+
+def getrf_nopiv_mesh(
+    a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[DistMatrix, torch.Tensor]:
+    """Distributed LU without pivoting (src/getrf_nopiv.cc): (LU, info)."""
+    _resilience(opts)
+    return getrf_nopiv_dist(
+        from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
+        bcast_impl=_bi(opts), panel_impl=_pi(opts), update_impl=_ui(opts),
+        num_monitor=_nm(opts), overwrite_a=True,
+    )
+
+
+def gesv_nopiv_mesh(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed LU solve without pivoting: factor, then the two
+    triangular sweeps.  Returns (X dense, info)."""
+    lu, info = getrf_nopiv_mesh(a, mesh, nb, opts)
+    return _solve(lu, b, mesh, nb, None, opts), info
+
+
+def getrf_tntpiv_mesh(
+    a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
+    """Distributed tournament-pivoted LU (src/getrf_tntpiv.cc): P A = L U.
+    Returns (LU, perm over the padded row space, info)."""
+    _resilience(opts)
+    return getrf_tntpiv_dist(
+        from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
+        bcast_impl=_bi(opts), panel_impl=_pi(opts), num_monitor=_nm(opts),
+        overwrite_a=True,
+    )
+
+
+def gesv_tntpiv_mesh(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed general solve with tournament pivoting (src/gesv.cc
+    with MethodLU::CALU): factor, permute B, two sweeps."""
+    lu, perm, info = getrf_tntpiv_mesh(a, mesh, nb, opts)
+    return _solve(lu, b, mesh, nb, perm, opts), info
+
+
+def getrf_mesh(
+    a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
+    """Distributed partial-pivot LU, the reference's default getrf
+    (src/getrf.cc:23-200): (LU, perm over the padded row space, info)."""
+    _resilience(opts)
+    return getrf_pp_dist(
+        from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
+        bcast_impl=_bi(opts), panel_impl=_pi(opts), num_monitor=_nm(opts),
+        overwrite_a=True,
+    )
+
+
+def _gesv_mesh_plain(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The direct general solve at the data's dtype: partial-pivot
+    factor, permute B, two sweeps."""
+    lu, perm, info = getrf_mesh(a, mesh, nb, opts)
+    return _solve(lu, b, mesh, nb, perm, opts), info
+
+
+def _is_f64(x) -> bool:
+    dt = getattr(x, "dtype", None)
+    return dt == torch.float64 or (isinstance(dt, np.dtype) and dt == np.float64)
+
+
+def gesv_mesh(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed general solve with partial pivoting (src/gesv.cc,
+    MethodLU::PartialPiv).  Returns (X dense, info).  In ``slate_tpu`` an
+    f64 system with a 2-D B goes through the Option.MixedPrecision ladder
+    by default; that ladder comes with slice 4, so here such a call
+    raises ``NotImplementedError`` unless the mode resolves to ``off``.
+    f32, and f64 under ``off``, run the direct path."""
+    mode = resolve_mixed(opts)
+    if mode != "off" and _is_f64(a) and getattr(b, "ndim", 0) == 2:
+        raise NotImplementedError(
+            f"gesv_mesh: Option.MixedPrecision={mode!r} on an f64 system routes through the "
+            "mixed-precision ladder, which comes with slice 4; pass "
+            "{Option.MixedPrecision: 'off'} for the direct f64 solve")
+    return _gesv_mesh_plain(a, b, mesh, nb, opts)

@@ -26,7 +26,9 @@ import torch
 from ..types import Diag, Op, Uplo
 from .dist import from_dense, to_dense
 from .dist_chol import potrf_dist
+from .dist_lu import getrf_nopiv_dist
 from .dist_trsm import trsm_dist
+from .drivers import gesv_mesh
 from .mesh import make_mesh
 from .summa import gemm_summa
 
@@ -34,13 +36,26 @@ N, NRHS, NB = 64, 16, 8
 
 
 def posv_chain_operands(n: int = N, nrhs: int = NRHS):
-    """The dryrun's operands, made exactly as ``__graft_entry__.py`` makes
+    """The posv_chain operands, made exactly as ``__graft_entry__.py`` makes
     them (numpy, seed 0): A = G G^T + n I and B, f32."""
+    ops = dryrun_operands(n, nrhs)
+    return ops["a"], ops["b"]
+
+
+def dryrun_operands(n: int = N, nrhs: int = NRHS):
+    """Every operand of the ported phases, drawn from one numpy generator
+    (seed 0) in ``__graft_entry__.py``'s order: G, B (posv_chain), the
+    gesv_pp matrix, the two stedc_dist vectors (drawn and dropped here),
+    then the strict upper part of the panel_pallas LU matrix."""
     rng = np.random.default_rng(0)
     g = rng.standard_normal((n, n)).astype(np.float32)
     a = g @ g.T + n * np.eye(n, dtype=np.float32)
     b = rng.standard_normal((n, nrhs)).astype(np.float32)
-    return a, b
+    am = rng.standard_normal((n, n)).astype(np.float32)
+    rng.standard_normal(96)  # stedc_dist's d and e
+    rng.standard_normal(95)
+    lum = (np.tril(g) + n * np.eye(n) + np.triu(rng.standard_normal((n, n)), 1)).astype(np.float32)
+    return {"a": a, "b": b, "am": am, "lum": lum}
 
 
 def posv_chain(a: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB, **opts):
@@ -62,24 +77,61 @@ def posv_chain(a: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB, **opts):
     return xd, info, eta
 
 
+def gesv_pp(am: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB):
+    """gesv_mesh (partial pivoting) and its normwise backward error.
+    Returns (x, info, eta)."""
+    n = am.shape[0]
+    x, info = gesv_mesh(am, b, mesh, nb)
+    eta = float((am @ x - b).abs().max()
+                / (am.abs().max() * x.abs().max() * n + b.abs().max()))
+    return x, info, eta
+
+
+def lu_panel_residual(lum: torch.Tensor, mesh, nb: int = NB):
+    """getrf_nopiv_dist under PanelImpl pallas and its reconstruction
+    residual max|L U - A| / max|A|.  Returns (info, residual)."""
+    lu, info = getrf_nopiv_dist(from_dense(lum, mesh, nb, diag_pad_one=True),
+                                panel_impl="pallas", overwrite_a=True)
+    lun = to_dense(lu)
+    eye = torch.eye(lum.shape[0], dtype=lum.dtype, device=lum.device)
+    rec = (lun.tril(-1) + eye) @ lun.triu()
+    return info, float((rec - lum).abs().max() / lum.abs().max())
+
+
 def dryrun(device: str = "cuda") -> dict:
     mesh = make_mesh(2, 4, device=device)
-    a, b = posv_chain_operands()
+    ops = {k: torch.from_numpy(v).to(device) for k, v in dryrun_operands().items()}
+    gate = 100 * N * float(np.finfo(np.float32).eps)
     result = {"n_devices": 8, "device": device, "phases": {}, "ok": True}
-    t0 = time.time()
-    try:
-        a_t, b_t = torch.from_numpy(a).to(device), torch.from_numpy(b).to(device)
-        _, info, eta = posv_chain(a_t, b_t, mesh)
-        gate = 100 * N * float(np.finfo(np.float32).eps)
+
+    def posv():
+        _, info, eta = posv_chain(ops["a"], ops["b"], mesh)
         if int(info) != 0:
             raise RuntimeError(f"potrf_dist info={int(info)}")
         if not eta < gate:
             raise RuntimeError(f"distributed solve backward error {eta}")
-        result["phases"]["posv_chain"] = {"eta": eta, "seconds": round(time.time() - t0, 3)}
-    except Exception as e:  # noqa: BLE001 -- recorded in the phase line, exit code 1
-        result["ok"] = False
-        result["phases"]["posv_chain"] = {"error": f"{type(e).__name__}: {e}",
-                                          "seconds": round(time.time() - t0, 3)}
+        return {"eta": eta}
+
+    def pp():
+        _, info, eta = gesv_pp(ops["am"], ops["b"], mesh)
+        if int(info) != 0 or not eta < gate:
+            raise RuntimeError(f"gesv_mesh (partial pivot) info={int(info)} eta={eta}")
+        return {"eta": eta}
+
+    def panel():
+        info, r_lu = lu_panel_residual(ops["lum"], mesh)
+        if int(info) != 0 or not r_lu < gate:
+            raise RuntimeError(f"getrf_nopiv_dist[pallas] info={int(info)} resid={r_lu}")
+        return {"resid_lu": r_lu}
+
+    for name, fn in (("posv_chain", posv), ("gesv_pp", pp), ("panel_pallas", panel)):
+        t0 = time.time()
+        try:
+            result["phases"][name] = dict(fn(), seconds=round(time.time() - t0, 3))
+        except Exception as e:  # noqa: BLE001 -- recorded in the phase line, exit code 1
+            result["ok"] = False
+            result["phases"][name] = {"error": f"{type(e).__name__}: {e}",
+                                      "seconds": round(time.time() - t0, 3)}
     return result
 
 

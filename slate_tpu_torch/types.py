@@ -4,7 +4,8 @@ Counterpart of ``slate_tpu/types.py``: the same enum classes with the same
 member names and values, so that a test can map one package's enum onto the
 other's by name (``utils.testing.options_from_names``).  Only the enums the
 ported paths read are here (the single-chip Cholesky path and the mesh
-solve: grid order, MethodGemm/MethodTrsm and their selectors); the other
+solve: grid order, MethodGemm/MethodTrsm and their selectors; the mesh LU
+solves: MethodLU); the other
 method and norm enums come with the slices that read them.
 """
 
@@ -66,6 +67,13 @@ class MethodTrsm(enum.Enum):
     Auto = "auto"
     TrsmA = "A"
     TrsmB = "B"
+
+
+class MethodLU(enum.Enum):
+    PartialPiv = "PPLU"
+    CALU = "CALU"  # tournament pivoting (getrf_tntpiv analog)
+    NoPiv = "NoPiv"
+    RBT = "RBT"  # random butterfly transform + no-pivot LU
 
 
 def select_gemm_method(m: int, n: int, k: int) -> MethodGemm:

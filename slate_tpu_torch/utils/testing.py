@@ -3,7 +3,9 @@
 ``generate`` is a copy of ``slate_tpu/utils/testing.py:generate`` (numpy
 only, seeded identically), so both packages compute on the same operands.
 ``from_numpy`` carries numpy operands onto a torch device and
-``options_from_names`` carries an ``Options`` mapping given by enum names.
+``options_from_names`` carries an ``Options`` mapping given by enum names;
+``dist_from_numpy`` rebuilds a mesh matrix from another package's tile
+stack (so a test can feed one package's factor to the other's solves).
 """
 
 from __future__ import annotations
@@ -129,3 +131,16 @@ def options_from_names(opts: Optional[Mapping[Any, Any]]) -> dict:
         name = key if isinstance(key, str) else key.name
         out[_types.Option[name]] = _port_value(value)
     return out
+
+
+def dist_from_numpy(tiles: np.ndarray, m: int, n: int, nb: int, mesh, diag_pad: bool = True):
+    """The port's ``DistMatrix`` over ``mesh`` holding ``tiles``, a cyclic
+    tile stack (mt, nt, nb, nb) as numpy -- e.g. ``np.asarray`` of a
+    ``slate_tpu`` DistMatrix's ``tiles``, whose storage order is the same.
+    A pivot vector carries across as ``torch.from_numpy(np.asarray(perm))``."""
+    from ..parallel.dist import DistMatrix
+
+    t = torch.from_numpy(np.ascontiguousarray(tiles)).to(mesh.device)
+    if t.dim() != 4 or t.shape[2:] != (nb, nb):
+        raise ValueError(f"dist_from_numpy: need (mt, nt, {nb}, {nb}) tiles, got {tuple(t.shape)}")
+    return DistMatrix(tiles=t, m=m, n=n, nb=nb, mesh=mesh, diag_pad=diag_pad)

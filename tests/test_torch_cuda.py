@@ -8,7 +8,9 @@ that has only PyTorch; tests/conftest.py imports JAX, so run it with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: the Cholesky factor and inverse hold to the 100 nb eps class
-(two summation orders, explicit inverse).  A tile update holds to two
+(two summation orders, explicit inverse).  The packed LU holds L and U
+each at its own scale, and to A by reconstruction within 3 nb eps |L||U|
+elementwise; its inverses hold to U X = I and L Y = I the same way.  A tile update holds to two
 k-ordered FMA sums of nb products, a few sqrt(nb) eps max|a| max|b|, plus
 one rounding of the final add each: a TF32 product would fail it.  The
 panel solve holds to nb eps |T||X|^T per side plus the two inverses'
@@ -177,3 +179,181 @@ def test_posv_chain_on_card(card):
     _, info, eta = posv_chain(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
                               make_mesh(2, 4, device="cuda"))
     assert int(info) == 0 and eta < 100 * 64 * _eps(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the LU kernels (csrc/lu_diag_inv.cu, and the tile-GEMM in their geometries)
+# ---------------------------------------------------------------------------
+
+
+def _lu_block(nb, dtype, seed):
+    """A block that factors stably without pivoting: randn + nb I."""
+    g = np.random.default_rng(seed).standard_normal((nb, nb)) + nb * np.eye(nb)
+    return torch.from_numpy(g).to(dtype).cuda()
+
+
+def _solve_tol(eps, nb, left, right_k, right_p, left_side):
+    """|T X_k - T X_p| (or |X_k T - X_p T|) as two k-ordered sums of nb
+    products plus the inverses' own difference; elementwise, the largest."""
+    t = left.abs()
+    if left_side:  # X @ T
+        return float((nb * eps * (right_k.abs() @ t + right_p.abs() @ t)
+                      + (right_k - right_p).abs() @ t).max())
+    return float((nb * eps * (t @ right_k.abs() + t @ right_p.abs()) + t @ (right_k - right_p).abs()).max())
+
+
+def _residual_ratio(lhs, rhs, want):
+    """max |lhs @ rhs - want| / (3 nb eps |lhs||rhs|), the product in f64:
+    at most 1 for a factor or triangular inverse computed in any summation
+    order (the backward error bound gamma_nb, unit roundoff eps / 2, plus
+    the check's own product, with room).  0/0 reads 0."""
+    nb, eps = lhs.shape[-1], _eps(lhs.dtype)
+    l64, r64 = lhs.double(), rhs.double()
+    res = (l64 @ r64 - want.double()).abs()
+    return float(torch.nan_to_num(res / (3 * nb * eps * (l64.abs() @ r64.abs())), nan=0.0,
+                                  posinf=float("inf")).max())
+
+
+def _check_lu_factor(a, lu, lup):
+    """The kernel's packed L\\U: L (strict lower) and U (upper) each within
+    100 nb eps of the twin's largest entry of that factor (L's entries are
+    ~1/nb of U's: one limit for both would pass a zero L), each limit below
+    1e-2 of what it holds, and L U = A by reconstruction (which also holds
+    U's off-diagonal entries, far below its diagonal)."""
+    nb, eps = a.shape[-1], _eps(a.dtype)
+    for part in (lambda m: m.tril(-1), lambda m: m.triu()):
+        scale = float(part(lup).abs().max())
+        assert 100 * nb * eps < 1e-2
+        assert float((part(lu) - part(lup)).abs().max()) < 100 * nb * eps * scale
+    eye = torch.eye(nb, dtype=a.dtype, device=a.device)
+    assert _residual_ratio(lu.tril(-1) + eye, lu.triu(), a) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [72, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_diag_inv_and_unit_linv_on_card(card, nb, dtype):
+    # the kernel's two entry points through their wrappers, applied to the
+    # identity: I U^-1 and L^-1 I are exact for finite inverses
+    a = _lu_block(nb, dtype, nb)
+    eye = torch.eye(nb, dtype=dtype, device="cuda")
+    counts = (tk.lu_panel_tiles.launches, tk.lu_rowsolve_tiles.launches)
+    lu, x = tk.lu_panel_tiles(a, eye[None])
+    linv = tk.lu_rowsolve_tiles(lu, eye[None])[0]
+    x = x[0]
+    torch.cuda.synchronize()
+    assert (tk.lu_panel_tiles.launches, tk.lu_rowsolve_tiles.launches) == (counts[0] + 1, counts[1] + 1)
+    lup, xp = tk.lu_diag_inv_plain(a)
+    linvp = tk.unit_linv_plain(lup)
+    eps = _eps(dtype)
+    _check_lu_factor(a, lu, lup)
+    # each inverse: to the twin at its own scale, and U X = I, L Y = I by residual
+    assert float((x - xp).abs().max()) < 100 * nb * eps * float(xp.abs().max())
+    assert float((linv - linvp).abs().max()) < 100 * nb * eps * float(linvp.abs().max())
+    assert _residual_ratio(lu.triu(), x, eye) <= 1
+    assert _residual_ratio(lu.tril(-1) + eye, linv, eye) <= 1
+    assert torch.equal(x.tril(-1), torch.zeros_like(x)) and torch.equal(linv.triu(1), torch.zeros_like(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_diag_inv_zero_pivot_pattern_on_card(card, dtype):
+    # a zero pivot divides by 1 in the factor (finite) and by the raw 0 in
+    # U^-1: the same non-finite pattern as the twin (slate_tpu's body)
+    nb, j = 64, 17
+    a = _lu_block(nb, dtype, 3)
+    a[j, :] = 0
+    lu, x = torch.empty_like(a), torch.empty_like(a)
+    tk._launch_lu("lu_diag_inv", "test", a, lu, x)  # the entry point itself: U^-1 unsmeared
+    lup, xp = tk.lu_diag_inv_plain(a)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(lu).all()) and float(lu[j, j]) == 0.0
+    assert torch.equal(torch.isfinite(x), torch.isfinite(xp))
+    assert not bool(torch.isfinite(x[: j + 1].triu()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_panel_and_rowsolve_kernels_on_strided_tiles(card, dtype):
+    nb = 256
+    eps = _eps(dtype)
+    _, loc = _stack(8, 8, nb, dtype, seed=9)
+    pcol = loc[:, 1:2, :, 1]  # the owning column's panel: (2, 1, 4, nb, nb)
+    prow = loc[1:2, :, 2]  # the owning row's panel: (1, 4, 2, nb, nb)
+    d = _lu_block(nb, dtype, 10)
+    before = (tk.lu_panel_tiles.launches, tk.lu_rowsolve_tiles.launches)
+    lu, s = tk.lu_panel_tiles(d, pcol)
+    r = tk.lu_rowsolve_tiles(lu, prow)
+    torch.cuda.synchronize()
+    assert (tk.lu_panel_tiles.launches, tk.lu_rowsolve_tiles.launches) == (before[0] + 1, before[1] + 1)
+    lup, sp = tk.lu_panel_tiles_plain(d, pcol)
+    rp = tk.lu_rowsolve_tiles_plain(lu, prow)
+    eye = torch.eye(nb, dtype=dtype, device="cuda")[None]
+    xk = tk.lu_panel_tiles(d, eye)[1][0]  # the U^-1 the panel kernel solved with
+    _, xp = tk.lu_diag_inv_plain(d)
+    _check_lu_factor(d, lu, lup)
+    tol_s = _solve_tol(eps, nb, pcol, xk, xp, left_side=False)
+    assert tol_s < 1e-2 * float(sp.abs().max())  # a wrong output cannot pass
+    assert float((s - sp).abs().max()) < tol_s
+    lk, lp = tk.lu_rowsolve_tiles(lu, eye)[0], tk.unit_linv_plain(lu)
+    tol_r = _solve_tol(eps, nb, prow, lk, lp, left_side=True)
+    assert tol_r < 1e-2 * float(rp.abs().max())
+    assert float((r - rp).abs().max()) < tol_r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_trailing_update_matches_twin_on_a_strided_window(card, dtype):
+    nb = 256
+    _, loc = _stack(6, 8, nb, dtype, seed=11)
+    view = loc[:, :, 1:, 1:]  # (2, 4, 2, 1)
+    pan = _randn((2, 1, 2, nb, nb), dtype, 12, 0.1)
+    urow = _randn((1, 4, 1, nb, nb), dtype, 13, 0.1)
+    mask = torch.tensor([[True], [False]], device="cuda")[None, None]  # the lookahead exclusion
+    base = view.clone()
+    before = tk.lu_trailing_update.launches
+    tk.lu_trailing_update(view, pan, urow, mask)
+    torch.cuda.synchronize()
+    assert tk.lu_trailing_update.launches == before + 1
+    got = view.clone()
+    view.copy_(base)
+    tk.lu_trailing_update_plain(view, pan, urow, mask)
+    cmax = torch.maximum(base.abs(), view.abs())
+    assert float((got - view).abs().max()) < _gemm_tol(nb, dtype, cmax, pan, urow)
+    assert torch.equal(got[:, :, 1], base[:, :, 1])  # the masked row slot is untouched
+
+
+@pytest.mark.cuda
+def test_lu_wrappers_raise_instead_of_falling_back(card):
+    half = torch.zeros((8, 8), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError, match="not supported on CUDA"):
+        tk.lu_panel_tiles(half, half[None])
+    with pytest.raises(ValueError, match="lu_panel_tiles"):
+        tk.lu_panel_tiles(torch.zeros((300, 300), device="cuda"), torch.zeros((2, 300, 300), device="cuda"))
+    with pytest.raises(ValueError, match="share device and dtype"):
+        tk.lu_rowsolve_tiles(torch.zeros((8, 8), device="cuda"), torch.zeros((2, 8, 8), dtype=torch.float64,
+                                                                              device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["nopiv", "pp", "tntpiv"])
+def test_mesh_lu_on_card_bitwise_across_lookahead(card, form):
+    from slate_tpu_torch.parallel import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist
+
+    n, nb = 1000, 64  # 16 tiles, padded from 15.6
+    g = np.random.default_rng(21).standard_normal((n, n))
+    if form == "nopiv":
+        g += n * np.eye(n)
+    a = torch.from_numpy(g).float()
+    fn = {"nopiv": getrf_nopiv_dist, "pp": getrf_pp_dist, "tntpiv": getrf_tntpiv_dist}[form]
+    mesh = make_mesh(2, 4, device="cuda")
+    runs = [fn(from_dense(a, mesh, nb, diag_pad_one=True), lookahead=la) for la in (0, 1, 2)]
+    for out in runs:
+        assert int(out[-1]) == 0
+        assert torch.equal(out[0].tiles, runs[0][0].tiles)
+        if form != "nopiv":
+            assert torch.equal(out[1], runs[0][1])
+    lu = to_dense(runs[0][0]).double().cpu()
+    rec = (lu.tril(-1) + torch.eye(n, dtype=torch.float64)) @ lu.triu()
+    ap = g if form == "nopiv" else np.pad(g, ((0, 24), (0, 0)))[runs[0][1].cpu().numpy()][:n]
+    assert float((rec - torch.from_numpy(ap)).abs().max()) < 100 * n * _eps(torch.float32) * float(np.abs(g).max())

@@ -278,3 +278,116 @@ def test_tile_gemm_build_raises_without_nvcc(monkeypatch, tmp_path):
         with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
             tk._tile_gemm_fn(dtype)
     assert os.path.exists(os.path.join(_build.CSRC_DIR, "tile_gemm.cu"))
+
+
+# ---------------------------------------------------------------------------
+# the LU kernels' twins against slate_tpu's Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+def _lu_block(nb, dtype, seed):
+    """randn + nb I: factors stably without pivoting."""
+    return (generate("randn", nb, dtype=dtype, seed=seed) + nb * np.eye(nb)).astype(dtype)
+
+
+@pytest.mark.parametrize("nb", [8, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_panel_tiles_plain_matches_pallas(nb, dtype):
+    d = _lu_block(nb, dtype, nb + 5)
+    tiles = generate("randn", 5 * nb, nb, dtype=dtype, seed=nb + 6).reshape(5, nb, nb)
+    lu_ref, s_ref = (np.asarray(v) for v in po.lu_panel_tiles_pallas(jnp.asarray(d), jnp.asarray(tiles)))
+    lu, s = (v.numpy() for v in tk.lu_panel_tiles_plain(torch.from_numpy(d), torch.from_numpy(tiles)))
+    x = tk.lu_diag_inv_plain(torch.from_numpy(d))[1].numpy()
+    assert np.abs(lu - lu_ref).max() < _tol(nb, dtype, float(np.abs(d).max()))
+    # solved tiles: nb eps (|T||X| + |T||X_ref|) + |T||X - X_ref|, with the
+    # reference's U^-1 recovered from its own output (U^-1 = solve of I)
+    x_ref = np.asarray(po.lu_panel_tiles_pallas(jnp.asarray(d), jnp.asarray(np.eye(nb, dtype=dtype)[None]))[1][0])
+    t = np.abs(tiles)
+    eps = float(np.finfo(dtype).eps)
+    tol_s = (nb * eps * (t @ np.abs(x) + t @ np.abs(x_ref)) + t @ np.abs(x - x_ref)).max()
+    assert tol_s < 1e-2 * np.abs(s_ref).max()  # a wrong output cannot pass
+    assert np.abs(s - s_ref).max() < tol_s
+    np.testing.assert_array_equal(np.tril(x, -1), 0)
+
+
+@pytest.mark.parametrize("nb", [8, 16])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_rowsolve_tiles_plain_matches_pallas(nb, dtype):
+    d = _lu_block(nb, dtype, nb + 7)
+    lu = tk.lu_diag_inv_plain(torch.from_numpy(d))[0].numpy()
+    tiles = generate("randn", 4 * nb, nb, dtype=dtype, seed=nb + 8).reshape(4, nb, nb)
+    ref = np.asarray(po.lu_rowsolve_tiles_pallas(jnp.asarray(lu), jnp.asarray(tiles)))
+    got = tk.lu_rowsolve_tiles_plain(torch.from_numpy(lu), torch.from_numpy(tiles)).numpy()
+    linv = tk.unit_linv_plain(torch.from_numpy(lu)).numpy()
+    scale = float(np.abs(linv).max() * np.abs(tiles).max())
+    assert np.abs(got - ref).max() < _tol(nb, dtype, scale)
+    np.testing.assert_array_equal(np.triu(linv, 1), 0)
+    np.testing.assert_array_equal(np.diag(linv), 1)
+
+
+@pytest.mark.parametrize("nb,j", [(8, 0), (8, 5), (16, 11)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_panel_tiles_plain_zero_pivot_pattern(nb, j, dtype):
+    # a zero pivot: the factor divides by 1 (finite), U^-1 by the raw 0, and
+    # the non-finite pattern of the solved tiles is the Pallas kernel's
+    d = _lu_block(nb, dtype, 17)
+    d[j, :] = 0
+    tiles = generate("randn", 2 * nb, nb, dtype=dtype, seed=18).reshape(2, nb, nb)
+    lu_ref, s_ref = (np.asarray(v) for v in po.lu_panel_tiles_pallas(jnp.asarray(d), jnp.asarray(tiles)))
+    lu, s = (v.numpy() for v in tk.lu_panel_tiles_plain(torch.from_numpy(d), torch.from_numpy(tiles)))
+    assert np.isfinite(lu).all() and lu[j, j] == 0 == lu_ref[j, j]
+    np.testing.assert_array_equal(np.isfinite(s), np.isfinite(s_ref))
+    assert not np.isfinite(s).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_trailing_update_plain_matches_pallas(dtype):
+    acc, pan, rhs, _ = _update_operands(dtype, seed=4)
+    keep = np.ones((3, 4), bool)
+    keep[1, :] = False  # excl_kr
+    keep[:, 2] = False  # excl_kc
+    ref = np.asarray(po.lu_trailing_update_pallas(jnp.asarray(acc), jnp.asarray(pan), jnp.asarray(rhs),
+                                                  jnp.asarray(keep)))
+    got = tk.lu_trailing_update_plain(torch.from_numpy(acc)[None, None].clone(),
+                                      torch.from_numpy(pan)[None, None], torch.from_numpy(rhs)[None, None],
+                                      torch.from_numpy(keep)[None, None])[0, 0].numpy()
+    assert np.abs(got - ref).max() < _gemm_tol(8, dtype, acc, pan, rhs)
+    np.testing.assert_array_equal(got[~keep], acc[~keep])
+    np.testing.assert_array_equal(ref[~keep], acc[~keep])
+
+
+def test_lu_wrappers_take_twins_on_cpu_without_counting():
+    acc, pan, rhs, lower = (torch.from_numpy(v)[None, None] for v in _update_operands(np.float64, seed=5))
+    d = torch.from_numpy(_lu_block(8, np.float64, 6))
+    names = ("lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update")
+    before = [getattr(tk, n).launches for n in names]
+    for got, want in zip(tk.lu_panel_tiles(d, pan[0, 0]), tk.lu_panel_tiles_plain(d, pan[0, 0])):
+        assert torch.equal(got, want)
+    assert torch.equal(tk.lu_rowsolve_tiles(d, pan[0, 0]), tk.lu_rowsolve_tiles_plain(d, pan[0, 0]))
+    assert torch.equal(tk.lu_trailing_update(acc.clone(), pan, rhs, lower),
+                       tk.lu_trailing_update_plain(acc.clone(), pan, rhs, lower))
+    assert [getattr(tk, n).launches for n in names] == before
+
+
+def test_lu_wrappers_refuse_other_devices():
+    meta = torch.empty((8, 8), device="meta")
+    tiles = torch.empty((1, 1, 2, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.lu_panel_tiles(meta, tiles[0, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.lu_rowsolve_tiles(meta, tiles[0, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.lu_trailing_update(torch.empty((1, 1, 2, 2, 8, 8), device="meta"), tiles, tiles,
+                              torch.ones((1, 1, 2, 2), dtype=torch.bool))
+
+
+def test_lu_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_DIRS", [str(tmp_path)])
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    for entry in ("lu_diag_inv", "unit_linv"):
+        for dtype in (torch.float32, torch.float64):
+            with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+                tk._lu_fn(entry, dtype)
+    assert os.path.exists(os.path.join(_build.CSRC_DIR, "lu_diag_inv.cu"))
