@@ -10,8 +10,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
 2. build:  every csrc/*.cu with nvcc into slate_tpu_torch/_build/, one nvcc
            per source, all started together (seconds);
 3. kernel: chol_diag_inv against its plain twin at nb = 256, f32 and f64
-           (SPD blocks within tolerance, a non-SPD block NaN from the same
-           column), with kernel, twin and library times and the bound;
+           (L and L^-1 each at its own scale, L L^T = A and L X = I by
+           reconstruction, a non-SPD block NaN from the same column), with
+           kernel, twin and library times and the bound;
 4. posv f32 at n = 32768, nrhs = 32 through linalg.posv_array (the
            panel-stepped scan form): info, backward error, 128 kernel
            launches, seconds after one warm-up run, peak memory;
@@ -48,14 +49,36 @@ printing one JSON line before the next starts (any failure exits non-zero):
    no update kernel (the update is pinned to the matmul form);
 15. mesh_gesv_tntpiv f32 at n = 8192 (the tournament is many small torch
    ops per step, so this size keeps the script well inside its limit);
-16. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
+16. the QR kernels against their plain twins (utils.testing.qr_panel_check:
+   R's pivots, R's other entries, V below its pivots, tau and T's
+   off-diagonal each within 2 m eps of its own largest entry, Q R = A in
+   f64, the compact-WY identity; each part zeroed must fail its reading):
+   qr_panel at the gels leaf (32768, 64) f32 / (16384, 64) f64 and the mesh
+   merge (512, 256), qr_panel_offset on a batch with row0 at 0, a middle
+   and the last tile and a zero column, and timed on the mesh path's batch
+   of p panels, with library (torch.geqrf, which gives VR and tau but no T)
+   and the bound;
+17. gels: gels_array (MethodGels.QR, 32 right-hand sides) f32 at
+   m = 32768, n = 16384 and f64 at m = 16384, n = 8192: the
+   normal-equations gate of tester.py's run_gels and the componentwise one
+   (omega < 20 eps / sqrt(m), in f64), one qr_panel launch per leaf of
+   _geqrf_rec (derived from its split), seconds, peak memory; geqrf's
+   Q R = A at n = 4096, and a gels there with TF32 products that omega must
+   refuse;
+18. mesh_gels: gels_mesh on a virtual 2 x 4 mesh, nb = 256, at the gels
+   sizes: nt qr_panel_offset and nt (p - 1) merge qr_panel launches, the
+   same gates, agreement with the single-chip X; then its steps
+   (from_dense -> geqrf_dist -> unmqr_dist -> the R round trip ->
+   trsm_dist) inlined and timed one by one, their X bitwise gels_mesh's;
+   and a zero column j giving info j + 1;
+19. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
    the psum/ring/doubling lowerings, and the non-SPD info rule;
-17. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
+20. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
    bitwise across lookahead 0/1/2 and psum/ring/doubling, and a zero
    column j giving info j + 1;
-18. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
+21. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
    half; n = 64, nb = 8, 2 x 4);
-19. kernels: the line of every ported kernel (one row per kernel and
+22. kernels: the line of every ported kernel (one row per kernel and
    dtype), then the card line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -146,16 +169,12 @@ def kernel_phase(dtype, kernels, torch):
     l, x = kernels.chol_diag_inv(a)
     torch.cuda.synchronize()
     lp, xp = kernels.chol_diag_inv_plain(a)
-    anorm = float(a.abs().max())
-    # tolerance: 100 nb eps max|A| for L, 100 nb eps max|L^-1| max|A| for
-    # L^-1 -- the O(eps cond) class of two summation orders
-    tol_l = 100 * NB * eps * anorm
-    tol_x = 100 * NB * eps * float(xp.abs().max()) * anorm
-    err_l = float((l - lp).abs().max())
-    err_x = float((x - xp).abs().max())
+    # L and L^-1 each at its own scale, L L^T = A and L X = I by
+    # reconstruction (chol_factor_check)
+    fac = chol_factor_check(a, l, lp, x, xp, eps, torch)
+    err_l, err_x = fac["err_L"], fac["err_Linv"]
     check(torch.isfinite(l).all() and torch.isfinite(x).all(), f"{name}: non-finite kernel output")
-    check(err_l < tol_l and err_x < tol_x,
-          f"{name}: kernel vs twin |dL| {err_l} (tol {tol_l}), |dX| {err_x} (tol {tol_x})")
+    check(chol_factor_ok(fac), f"{name}: kernel vs twin {fac}")
     # non-SPD: NaN from the same column in kernel and twin
     bad = a.clone()
     j = 100
@@ -192,11 +211,51 @@ def kernel_phase(dtype, kernels, torch):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
-    emit({"phase": f"kernel_{name}", "nb": NB, "err_L": err_l, "tol_L": tol_l,
-          "err_Linv": err_x, "tol_Linv": tol_x, "nan_first_col": first_k,
+    emit({"phase": f"kernel_{name}", "nb": NB, **fac, "nan_first_col": first_k,
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
     return row
+
+
+def chol_factor_check(a, lk, lp, xk, xp, eps, torch):
+    """The kernel's Cholesky factor ``lk`` (and inverse ``xk``, if given) of
+    block ``a`` against the twin's ``lp`` (``xp``) and against ``a``: L
+    within 100 nb eps of the twin's largest |L| (its own scale, not A's),
+    L^-1 likewise at its own scale; L L^T = A and L X = I, the products in
+    f64, within 3 nb eps |L||L^T| and 3 nb eps |L||X| elementwise (the
+    backward error bound gamma_nb of any summation order, unit roundoff
+    eps / 2, plus the check's own product, with room).  A zero or 1e-3-off
+    L fails the reconstruction.  Returns the readings and limits."""
+    nb = a.shape[-1]
+    lmax = float(lp.abs().max())
+    l64 = lk.double()
+    out = {"err_L": float((lk - lp).abs().max()), "tol_L": 100 * nb * eps * lmax, "max_abs_L": lmax,
+           "rec_ratio": residual_ratio(l64, l64.T, a.double(), nb, eps, torch),
+           "rec_rel_limit": 3 * nb * eps}
+    if xk is not None:
+        xmax = float(xp.abs().max())
+        eye = torch.eye(nb, dtype=torch.float64, device=a.device)
+        out.update({"err_Linv": float((xk - xp).abs().max()), "tol_Linv": 100 * nb * eps * xmax,
+                    "max_abs_Linv": xmax,
+                    "inv_ratio": residual_ratio(l64, xk.double(), eye, nb, eps, torch)})
+    return out
+
+
+def chol_factor_ok(c):
+    """Each limit below 1e-2 of what it holds, each reading within it."""
+    ok = (c["tol_L"] < 1e-2 * c["max_abs_L"] and c["rec_rel_limit"] < 1e-2
+          and c["err_L"] < c["tol_L"] and c["rec_ratio"] <= 1)
+    if "err_Linv" in c:
+        ok = ok and c["tol_Linv"] < 1e-2 * c["max_abs_Linv"] and c["err_Linv"] < c["tol_Linv"] \
+            and c["inv_ratio"] <= 1
+    return ok
+
+
+def residual_ratio(lhs64, rhs64, want64, nb, eps, torch):
+    """max |lhs rhs - want| / (3 nb eps |lhs||rhs|), in f64; 0/0 reads 0."""
+    res = (lhs64 @ rhs64 - want64).abs()
+    bound = 3 * nb * eps * (lhs64.abs() @ rhs64.abs())
+    return float(torch.nan_to_num(res / bound, nan=0.0, posinf=float("inf")).max())
 
 
 def posv_phase(dtype, kernels, posv_array, torch):
@@ -310,17 +369,17 @@ def kernel_panel_phase(dtype, kernels, local_view, torch):
     lp, sp = kernels.chol_panel_tiles_plain(dtile, pcol)
     _, xk = kernels.chol_diag_inv(dtile)  # the L^-1 the panel kernel solved with
     _, xp = kernels.chol_diag_inv_plain(dtile)
-    # L: chol_diag_inv's 100 nb eps max|A|; solved tiles: panel_solve_tol
-    tol_l = 100 * NB * eps * float(dtile.abs().max())
+    # L: at its own scale and by reconstruction; solved tiles: panel_solve_tol
+    fac = chol_factor_check(dtile, lk, lp, None, None, eps, torch)
+    err_l = fac["err_L"]
     tol_s = panel_solve_tol(pcol, xk, xp, eps)
     smax = float(sp.abs().max())
-    err_l = float((lk - lp).abs().max())
     err_s = float((sk - sp).abs().max())
     check(bool(torch.isfinite(sk).all()), f"chol_panel_tiles {name}: non-finite output")
     check(tol_s < 1e-2 * smax, f"chol_panel_tiles {name}: tolerance {tol_s} does not separate "
                                f"a wrong output from max|solved| {smax}")
-    check(err_l < tol_l and err_s < tol_s,
-          f"chol_panel_tiles {name}: |dL| {err_l} (tol {tol_l}), |dS| {err_s} (tol {tol_s})")
+    check(chol_factor_ok(fac), f"chol_panel_tiles {name}: L {fac}")
+    check(err_s < tol_s, f"chol_panel_tiles {name}: |dS| {err_s} (tol {tol_s})")
     ms = cuda_ms(lambda: kernels.chol_panel_tiles(dtile, pcol), 20, torch)
     plain_ms = cuda_ms(lambda: kernels.chol_panel_tiles_plain(dtile, pcol), 2, torch)
 
@@ -338,8 +397,8 @@ def kernel_panel_phase(dtype, kernels, local_view, torch):
     row = row_of("chol_panel_tiles", dtype, "slate_tpu_torch/csrc/tile_gemm.cu",
                  "slate_tpu/ops/pallas_ops.py:491", max(err_l, err_s), ms, plain_ms, library_ms,
                  nbytes, flops)
-    emit({"phase": f"kernel_chol_panel_tiles_{name}", "tiles": list(pcol.shape), "err_L": err_l,
-          "tol_L": tol_l, "err_solved": err_s, "tol_solved": tol_s, "max_abs_solved": smax,
+    emit({"phase": f"kernel_chol_panel_tiles_{name}", "tiles": list(pcol.shape), **fac,
+          "err_solved": err_s, "tol_solved": tol_s, "max_abs_solved": smax,
           "kernel_ms": ms,
           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
           "bound_by": row["bound_by"]})
@@ -436,7 +495,8 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
 
 
 COUNTED = ("chol_diag_inv", "chol_panel_tiles", "chol_trailing_update", "summa_update",
-           "lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update")
+           "lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update", "qr_panel",
+           "qr_panel_offset")
 
 
 def reset_counts(kernels):
@@ -898,6 +958,326 @@ def lu_invariants_phase(mp, torch):
     check(ok, f"LU invariants failed: {out}")
 
 
+# ---------------------------------------------------------------------------
+# the QR slice: the two Householder panel kernels, gels and mesh gels
+# ---------------------------------------------------------------------------
+
+# gels on one card and on the virtual 2 x 4 mesh: m = 2n, f64 at half size
+GELS_MN = {"float32": (32768, 16384), "float64": (16384, 8192)}
+QR_LEAF_W = 64  # linalg.qr._QR_PANEL, the width of geqrf_array's leaves
+QR_RECON_MN = (8192, 4096)
+QR_WARMUP_MN = (2048, 1024)
+
+
+def qr_mutants_fail(a, got, want, offset, row0, testing):
+    """The sanity case: V zeroed below its pivots, R's off-pivot entries
+    zeroed, T's off-diagonal zeroed and a T column doubled each fail the
+    reading named for it."""
+    muts = testing.qr_panel_mutants(got, offset, row0)
+    return all(testing.qr_panel_check(a, mut, want, offset, row0)[k] > 1 for k, mut in muts.items())
+
+
+def qr_bound(m, w, batch, dtype, offset):
+    """(bytes, flops) of the panel function: A read once, the factor (and
+    V) written once, tau and T; flops 2 m w^2 for the reflections plus
+    m w^2 for the Gram of T."""
+    isz = 4 if dtype == "float32" else 8
+    nbytes = batch * ((3 if offset else 2) * m * w + w + w * w) * isz
+    return nbytes, batch * 3 * m * w * w
+
+
+def qr_panel_input(m, w, dtype, seed, torch, zero_col=None):
+    a = randn((m, w), dtype, seed, torch)
+    if zero_col is not None:
+        a[:, zero_col] = 0
+    a[0, 0] = -0.0  # the first pivot: sign +1, beta = -anorm < 0
+    return a
+
+
+def kernel_qr_phase(dtype, kernels, torch):
+    """qr_panel at the gels leaf shape (m, 64) and the mesh merge shape
+    (2nb, nb), and qr_panel_offset at the mesh panel shape (mtl nb, nb) of
+    the mesh gels (a batch of three with row0 at 0, a middle tile and the
+    last tile, one with a zero column; then the path's batch of p panels),
+    each against its twin by utils.testing.qr_panel_check: every part of
+    the factor at its own scale, Q R = A and the compact-WY identity."""
+    from slate_tpu_torch.utils import testing
+
+    name = dname(dtype)
+    m_gels = GELS_MN[name][0]
+    mfl = m_gels // NB // P * NB
+    rows = []
+    out = {"phase": f"kernel_qr_{name}"}
+    # qr_panel: the leaf and the merge of two upper-triangular R blocks
+    leaf = qr_panel_input(m_gels, QR_LEAF_W, dtype, SEED + 91, torch, zero_col=17)
+    merge = torch.cat([randn((NB, NB), dtype, SEED + 92, torch).triu(),
+                       randn((NB, NB), dtype, SEED + 93, torch).triu()])
+    for tag, a in (("leaf", leaf), ("merge", merge)):
+        got = kernels.qr_panel(a)
+        torch.cuda.synchronize()
+        want = kernels.qr_panel_plain(a)
+        c = testing.qr_panel_check(a, got, want, False)
+        out[f"qr_panel_{tag}"] = {"shape": list(a.shape), **c}
+        check(testing.qr_panel_ok(c), f"qr_panel {name} {tag}: {c}")
+        check(float(got[0][0, 0]) < 0, f"qr_panel {name} {tag}: the -0.0 pivot read sign -1")
+        if tag == "leaf":
+            check(float(got[1][17]) == 0.0 and float(got[0][17, 17]) == 0.0,
+                  f"qr_panel {name}: the zero column is not dead")
+            check(qr_mutants_fail(a, got, want, False, 0, testing),
+                  f"qr_panel {name}: a wrong factor passed")
+    ms = cuda_ms(lambda: kernels.qr_panel(leaf), 10, torch)
+    plain_ms = cuda_ms(lambda: kernels.qr_panel_plain(leaf), 2, torch)
+    library_ms = cuda_ms(lambda: torch.geqrf(leaf), 10, torch)  # VR and tau, no T
+    merge_ms = cuda_ms(lambda: kernels.qr_panel(merge), 10, torch)
+    nbytes, flops = qr_bound(m_gels, QR_LEAF_W, 1, name, False)
+    row = row_of("qr_panel", dtype, "slate_tpu_torch/csrc/qr_panel.cu",
+                 "slate_tpu/ops/pallas_ops.py:632", out["qr_panel_leaf"]["max_abs_err"], ms,
+                 plain_ms, library_ms, nbytes, flops)
+    out["qr_panel_timing"] = {"shape": [m_gels, QR_LEAF_W], "kernel_ms": ms, "plain_ms": plain_ms,
+                              "library_ms_geqrf_no_T": library_ms, "merge_kernel_ms": merge_ms,
+                              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+    rows.append(row)
+    # qr_panel_offset: row0 at 0, a middle tile, the last tile; a zero column
+    r0s = [0, (mfl // NB // 2) * NB, mfl - NB]
+    batch = torch.stack([qr_panel_input(mfl, NB, dtype, SEED + 94 + i, torch,
+                                        zero_col=40 if i == 1 else None) for i in range(3)])
+    ridx = torch.arange(mfl, device="cuda")
+    for i, r0 in enumerate(r0s):
+        batch[i, ridx < r0] = 0
+        batch[i, r0, 0] = -0.0
+    got = kernels.qr_panel_offset(batch, r0s)
+    torch.cuda.synchronize()
+    want = kernels.qr_panel_offset_plain(batch, r0s)
+    errs = []
+    for i, r0 in enumerate(r0s):
+        gi, wi = tuple(x[i] for x in got), tuple(x[i] for x in want)
+        c = testing.qr_panel_check(batch[i], gi, wi, True, r0)
+        out[f"qr_panel_offset_row0_{r0}"] = c
+        errs.append(c["max_abs_err"])
+        check(testing.qr_panel_ok(c), f"qr_panel_offset {name} row0 {r0}: {c}")
+        check(qr_mutants_fail(batch[i], gi, wi, True, r0, testing),
+              f"qr_panel_offset {name} row0 {r0}: a wrong factor passed")
+        check(bool((gi[0][:r0] == 0).all()) and bool((gi[1][:r0] == 0).all()),
+              f"qr_panel_offset {name} row0 {r0}: rows above row0 were written")
+        check(float(gi[0][r0, 0]) < 0, f"qr_panel_offset {name} row0 {r0}: the -0.0 pivot read -1")
+    check(float(got[2][1, 40]) == 0.0 and float(got[1][1, r0s[1] + 40, 40]) == 0.0,
+          f"qr_panel_offset {name}: the zero column is not dead (tau 0, v pivot 0)")
+    path = torch.stack([qr_panel_input(mfl, NB, dtype, SEED + 97 + i, torch) for i in range(P)])
+    path_r0 = [0] * P  # step 0: every mesh row's panel starts at its first slot
+    ms = cuda_ms(lambda: kernels.qr_panel_offset(path, path_r0), 5, torch)
+    plain_ms = cuda_ms(lambda: kernels.qr_panel_offset_plain(path, path_r0), 2, torch)
+    library_ms = cuda_ms(lambda: torch.geqrf(path), 5, torch)  # batched VR and tau, no T
+    nbytes, flops = qr_bound(mfl, NB, P, name, True)
+    row = row_of("qr_panel_offset", dtype, "slate_tpu_torch/csrc/qr_panel.cu",
+                 "slate_tpu/ops/pallas_ops.py:659", max(errs), ms, plain_ms, library_ms, nbytes,
+                 flops)
+    out["qr_panel_offset_timing"] = {"shape": [P, mfl, NB], "kernel_ms": ms, "plain_ms": plain_ms,
+                                     "library_ms_geqrf_no_T": library_ms,
+                                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+    rows.append(row)
+    emit(out)
+    del leaf, merge, batch, path, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def geqrf_leaves(n, qr):
+    """The leaves of linalg.qr._geqrf_rec for n columns: one qr_panel launch
+    each on the card (derived from its split, not by hand)."""
+    if n <= qr._QR_PANEL:
+        return 1
+    h = qr._split_qr(n)
+    return geqrf_leaves(h, qr) + geqrf_leaves(n - h, qr)
+
+
+def gels_residual(a, x, b):
+    """tester.py's run_gels gate reading: |A^H (A X - B)| /
+    (max|A|^2 max|X| m), in the working dtype (TF32 off)."""
+    r = (a.T @ (a @ x - b)).abs().max()
+    return float(r / (a.abs().max() ** 2 * x.abs().max() * a.shape[0]))
+
+
+def gels_operands(m, n, dtype, torch):
+    return randn((m, n), dtype, SEED + 101, torch), randn((m, NRHS), dtype, SEED + 102, torch)
+
+
+def gels_phase(dtype, kernels, torch):
+    """gels_array (MethodGels.QR) at m = 2n on one card, after a warm-up
+    solve: the normal-equations gate of tester.py's run_gels and the
+    componentwise one (utils.testing.gels_omega, in f64, gate 20 eps /
+    sqrt(m)), the qr_panel launches (the leaves of _geqrf_rec), seconds,
+    peak memory; then geqrf's Q R = A at n = 4096, and the same gels there
+    with _geqrf_rec's products at TF32, which the componentwise gate must
+    refuse."""
+    from slate_tpu_torch.linalg import qr
+    from slate_tpu_torch.ops.matmul import matmul
+    from slate_tpu_torch.types import MethodGels, Op, Option, Precision, Side
+    from slate_tpu_torch.utils import testing
+
+    name = dname(dtype)
+    m, n = GELS_MN[name]
+    eps = torch.finfo(dtype).eps
+    opts = {Option.MethodGels: MethodGels.QR}
+    wm, wn = QR_WARMUP_MN
+    aw, bw = gels_operands(wm, wn, dtype, torch)
+    check(bool(torch.isfinite(qr.gels_array(aw, bw, opts)).all()), f"gels {name}: warm-up failed")
+    del aw, bw
+    a, b = gels_operands(m, n, dtype, torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    x = qr.gels_array(a, b, opts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    res, gate = gels_residual(a, x, b), 100 * n * eps
+    om, om_gate = testing.gels_omega(a, x, b), testing.gels_omega_gate(m, dtype)
+    want = {"qr_panel": geqrf_leaves(n, qr), "qr_panel_offset": 0}
+    del a, b
+    torch.cuda.empty_cache()
+    # geqrf's Q R = A at n = 4096: Q applied to R by unmqr, within m eps max|A|
+    rm, rn = QR_RECON_MN
+    a4 = randn((rm, rn), dtype, SEED + 103, torch)
+    f = qr.geqrf_array(a4)
+    rfull = torch.zeros_like(a4)
+    rfull[:rn] = f.vr[:rn].triu()
+    qr_a = qr.unmqr_array(Side.Left, Op.NoTrans, f, rfull)
+    recon = float((qr_a - a4).abs().max()) / (rm * eps * float(a4.abs().max()))
+    del f, rfull, qr_a
+    # the mutant: every product of linalg.qr (the trailing updates and T
+    # merges of _geqrf_rec, unmqr) in f32 at TF32
+    b4 = randn((rm, NRHS), dtype, SEED + 104, torch)
+    om_sound = testing.gels_omega(a4, qr.gels_array(a4, b4, opts), b4)
+    sound_matmul = qr.matmul
+    qr.matmul = lambda p_, q_, **kw: matmul(p_.float(), q_.float(),
+                                            precision=Precision.High).to(p_.dtype)
+    try:
+        om_tf32 = testing.gels_omega(a4, qr.gels_array(a4, b4, opts), b4)
+    finally:
+        qr.matmul = sound_matmul
+    om_gate4 = testing.gels_omega_gate(rm, dtype)
+    del a4, b4
+    emit({"phase": f"gels_{name}", "m": m, "n": n, "nrhs": NRHS, "method": "QR",
+          "normal_eq_residual": res, "gate": gate, "omega": om, "omega_gate": om_gate,
+          "launches": counts, "expected_launches": want,
+          "seconds": seconds, "peak_mem_bytes": peak, "x_finite": bool(torch.isfinite(x).all()),
+          "geqrf_qr_recon_ratio": recon, "geqrf_recon_shape": [rm, rn],
+          "omega_at_recon_shape": om_sound, "omega_tf32_products": om_tf32,
+          "omega_gate_at_recon_shape": om_gate4})
+    check(tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all()), f"gels {name}: bad solution")
+    check(res < gate, f"gels {name}: normal-equations residual {res} >= {gate}")
+    check(om < om_gate, f"gels {name}: componentwise residual {om} >= {om_gate}")
+    check(recon <= 1, f"gels {name}: geqrf Q R - A at {recon} of m eps max|A|")
+    check(om_sound < om_gate4 < om_tf32,
+          f"gels {name}: the gate does not tell TF32 products ({om_tf32}) from sound ones "
+          f"({om_sound}) at {om_gate4}")
+    for k, v in want.items():
+        check(counts[k] == v, f"gels {name}: {counts[k]} {k} launches, expected {v}")
+    torch.cuda.empty_cache()
+    return counts, x
+
+
+def mesh_gels_phase(dtype, kernels, mp, x_single, torch):
+    """gels_mesh on a virtual 2 x 4 mesh at the single-chip gels size,
+    after a warm-up gels_mesh: seconds, the launches derived from the code,
+    peak memory, info, the two gates and the agreement with the
+    single-chip X.  Then its steps (from_dense -> geqrf_dist -> unmqr_dist
+    -> the R round trip -> trsm_dist) inlined and timed one by one, their X
+    held bitwise to gels_mesh's; then a zero column for the info code."""
+    from slate_tpu_torch.parallel.dist_qr import _tree_rounds
+    from slate_tpu_torch.types import Diag, Op, Uplo
+    from slate_tpu_torch.utils import testing
+
+    name = dname(dtype)
+    m, n = GELS_MN[name]
+    eps = torch.finfo(dtype).eps
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    wm, wn = QR_WARMUP_MN
+    aw, bw = gels_operands(wm, wn, dtype, torch)
+    xw, infow = mp.gels_mesh(aw, bw, mesh, NB)
+    check(int(infow) == 0 and bool(torch.isfinite(xw).all()), f"mesh gels {name}: warm-up failed")
+    del aw, bw, xw
+    a, b = gels_operands(m, n, dtype, torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    x, info = mp.gels_mesh(a, b, mesh, NB)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    info = int(info)
+    nt = mp.padded_tiles(n, NB, mesh)
+    merges = sum(len(rnd) for rnd in _tree_rounds(P))
+    want = {"qr_panel_offset": nt, "qr_panel": nt * merges}
+    res, gate = gels_residual(a, x, b), 100 * n * eps
+    om, om_gate = testing.gels_omega(a, x, b), testing.gels_omega_gate(m, dtype)
+    # two backward-stable least-squares solvers on the same A, B: they
+    # agree to the forward-error class (cond(A)^2 ~ 34 for a 2:1 Gaussian
+    # A, times a random walk of m-term sums); a wrong X reads O(1)
+    agree = float((x - x_single).abs().max() / x_single.abs().max())
+    agree_gate = 100 * math.sqrt(n) * eps
+    # the split: gels_mesh's steps inlined (the same calls and options)
+    split = {}
+    t = time.perf_counter()
+
+    def mark(step):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[step] = now - t
+        t = now
+
+    ad, bd = mp.from_dense(a, mesh, NB), mp.from_dense(b, mesh, NB)
+    mark("from_dense")
+    f = mp.geqrf_dist(ad, overwrite_a=True)
+    del ad
+    mark("geqrf_dist")
+    qb = mp.to_dense(mp.unmqr_dist(f, bd, Op.ConjTrans))[:n]
+    mark("unmqr_dist")
+    r = torch.triu(mp.to_dense(f.fact)[:n, :n])
+    del f
+    rd = mp.from_dense(r, mesh, NB, diag_pad_one=True)
+    qd = mp.from_dense(qb, mesh, NB)
+    mark("r_round_trip")
+    x_split = mp.to_dense(mp.trsm_dist(rd, qd, Uplo.Upper, Op.NoTrans, Diag.NonUnit))
+    mark("trsm_dist")
+    split_equal = bool(torch.equal(x_split, x))
+    del rd, qd, r, bd, x_split
+    del a, b
+    torch.cuda.empty_cache()
+    # a zero column j: R(j, j) is exactly zero, info j + 1
+    j = 2 * NB + 77
+    az, bz = gels_operands(wm, wn, dtype, torch)
+    az[:, j] = 0
+    _, zinfo = mp.gels_mesh(az, bz, mesh, NB)
+    del az, bz
+    emit({"phase": f"mesh_gels_{name}", "m": m, "n": n, "nrhs": NRHS, "nb": NB, "grid": [P, Q],
+          "info": info, "normal_eq_residual": res, "gate": gate, "omega": om,
+          "omega_gate": om_gate, "x_vs_single_chip": agree, "x_vs_single_chip_gate": agree_gate,
+          "launches": counts, "expected_launches": want, "solve_seconds": seconds,
+          "split_seconds": split, "split_x_bitwise_equal": split_equal,
+          "peak_mem_bytes": peak, "x_finite": bool(torch.isfinite(x).all()),
+          "zero_column": j, "zero_column_info": int(zinfo), "expected_info": j + 1})
+    check(info == 0, f"mesh gels {name}: info {info}")
+    check(tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all()), f"mesh gels {name}: bad X")
+    check(res < gate, f"mesh gels {name}: normal-equations residual {res} >= {gate}")
+    check(om < om_gate, f"mesh gels {name}: componentwise residual {om} >= {om_gate}")
+    check(agree < agree_gate, f"mesh gels {name}: X differs from the single-chip X by {agree}")
+    check(split_equal, f"mesh gels {name}: the inlined steps' X differs from gels_mesh's")
+    check(int(zinfo) == j + 1, f"mesh gels {name}: zero column {j} gave info {int(zinfo)}")
+    for k, v in want.items():
+        check(counts[k] == v, f"mesh gels {name}: {counts[k]} {k} launches, expected {v}")
+    del x
+    torch.cuda.empty_cache()
+    return counts
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -992,12 +1372,29 @@ def main():
         check(row["launches"], f"{row['name']}: no launch on its path")
     rows += list(lu_rows.values())
 
-    # 16-18. invariants and the dryrun
+    # 16-18. the QR kernels vs their twins, gels on one card and on the mesh;
+    # every count is read right after its path: qr_panel's row takes the
+    # single-chip gels (its leaves), qr_panel_offset's the mesh gels
+    qr_rows = {}
+    for dt in (torch.float32, torch.float64):
+        for row in kernel_qr_phase(dt, kernels, torch):
+            qr_rows[(row["name"].split("[")[0], dt)] = row
+    for dt in (torch.float32, torch.float64):
+        gcounts, x_single = gels_phase(dt, kernels, torch)
+        mcounts = mesh_gels_phase(dt, kernels, mp, x_single, torch)
+        del x_single
+        qr_rows[("qr_panel", dt)]["launches"] = gcounts["qr_panel"]
+        qr_rows[("qr_panel_offset", dt)]["launches"] = mcounts["qr_panel_offset"]
+    for row in qr_rows.values():
+        check(row["launches"], f"{row['name']}: no launch on its path")
+    rows += list(qr_rows.values())
+
+    # 19-21. invariants and the dryrun
     mesh_invariants_phase(mp, posv_chain, torch)
     lu_invariants_phase(mp, torch)
     dryrun_phase()
 
-    # 19. kernels line, card line, result
+    # 22. kernels line, card line, result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

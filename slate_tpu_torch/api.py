@@ -1,7 +1,9 @@
-"""Simplified verb-named API of the port (the Cholesky verbs).
+"""Simplified verb-named API of the port (the Cholesky and QR verbs).
 
 Counterpart of ``chol_factor`` / ``chol_solve`` / ``chol_solve_using_factor``
-in ``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
+and ``least_squares_solve`` / ``qr_factor`` / ``qr_multiply_by_q`` /
+``lq_factor`` / ``lq_multiply_by_q`` in ``slate_tpu/api.py``; the other verbs
+come with their slices.  Each verb
 computes on ``operand_device(first operand, device)``: tensors where they
 lie, anything else on the card unless ``device`` says otherwise.
 """
@@ -14,8 +16,8 @@ import torch
 
 from .blas3 import blas3
 from .core.matrix import BaseMatrix, operand_device
-from .linalg import chol
-from .types import Uplo
+from .linalg import chol, qr
+from .types import Op, Side, Uplo
 
 ArrayLike = Union[torch.Tensor, BaseMatrix]
 
@@ -44,3 +46,28 @@ def chol_solve(a: ArrayLike, b: ArrayLike, device=None):
 def chol_solve_using_factor(l: ArrayLike, b: ArrayLike, uplo: Uplo = Uplo.Lower, device=None):
     dev = operand_device(l, device)
     return chol.potrs_array(_data(l, dev), blas3._arr(b, dev), uplo)
+
+
+# -- least squares / QR / LQ -------------------------------------------------
+
+
+def least_squares_solve(a: ArrayLike, b: ArrayLike, device=None):
+    """slate::least_squares_solve -> gels."""
+    dev = operand_device(a, device)
+    return qr.gels_array(blas3._arr(a, dev), blas3._arr(b, dev))
+
+
+def qr_factor(a: ArrayLike, device=None):
+    return qr.geqrf_array(blas3._arr(a, operand_device(a, device)))
+
+
+def qr_multiply_by_q(f, c: ArrayLike, side: Side = Side.Left, op: Op = Op.NoTrans, device=None):
+    return qr.unmqr_array(side, op, f, blas3._arr(c, operand_device(f.vr, device)))
+
+
+def lq_factor(a: ArrayLike, device=None):
+    return qr.gelqf_array(blas3._arr(a, operand_device(a, device)))
+
+
+def lq_multiply_by_q(f, c: ArrayLike, side: Side = Side.Left, op: Op = Op.NoTrans, device=None):
+    return qr.unmlq_array(side, op, f, blas3._arr(c, operand_device(f.lv, device)))

@@ -5,7 +5,8 @@ The triangular solve keeps ``slate_tpu``'s recursive blocking: split at a
 power-of-two multiple of ``_NB``, solve the leading block, one ``matmul``
 for the off-diagonal block, recurse on the trailing block.  The leaves are
 ``torch.linalg.solve_triangular`` (cuBLAS/LAPACK trsm), the counterpart of
-XLA's ``triangular_solve``.
+XLA's ``triangular_solve`` (:func:`solve_tri`: in f32 for bf16/f16, which
+PyTorch's solve does not take).
 """
 
 from __future__ import annotations
@@ -83,6 +84,15 @@ def _split(n: int) -> int:
     return split_pow2(n, _NB)
 
 
+def solve_tri(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """``torch.linalg.solve_triangular`` for every real dtype: PyTorch has
+    no bf16/f16 triangular solve on either device, so half precision is
+    solved in f32 and cast back."""
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return torch.linalg.solve_triangular(a.float(), b.float(), **kw).to(b.dtype)
+    return torch.linalg.solve_triangular(a, b, **kw)
+
+
 def _trsm_left_lower_notrans(a: torch.Tensor, b: torch.Tensor, diag: Diag) -> torch.Tensor:
     """Solve L X = B, L lower triangular, recursive blocked."""
     n = a.shape[0]
@@ -92,9 +102,9 @@ def _trsm_left_lower_notrans(a: torch.Tensor, b: torch.Tensor, diag: Diag) -> to
             # wide RHS: invert the small triangle against eye and ride one
             # gemm (the explicit-inverse trade of slate_tpu, O(eps cond(L11)))
             eye = torch.eye(n, dtype=a.dtype, device=a.device)
-            linv = torch.linalg.solve_triangular(a, eye, upper=False, unitriangular=unit)
+            linv = solve_tri(a, eye, upper=False, unitriangular=unit)
             return matmul(linv, b).to(b.dtype)
-        return torch.linalg.solve_triangular(a, b, upper=False, unitriangular=unit)
+        return solve_tri(a, b, upper=False, unitriangular=unit)
     h = _split(n)
     # slate_tpu concatenates the two halves; here they are written into one
     # preallocated result

@@ -21,7 +21,15 @@ Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This module holds:
   ``unit_linv`` entry points) and whose tile solves run on
   ``csrc/tile_gemm.cu``, and :func:`lu_trailing_update`
   (``lu_trailing_update_pallas``) on ``csrc/tile_gemm.cu``, each with its
-  ``*_plain`` twin.
+  ``*_plain`` twin;
+- the Householder panels on ``csrc/qr_panel.cu``: :func:`qr_panel`
+  (``qr_panel_pallas``: the packed VR, tau and the compact-WY T of an
+  (m, w) panel) and :func:`qr_panel_offset` (``qr_panel_offset_pallas``:
+  the same with the pivot of column j at row ``row0 + j``), each over a
+  batch of panels in one cooperative launch, with their twins
+  :func:`qr_panel_plain` and :func:`qr_panel_offset_plain` (the
+  ``_panel_qr`` + ``_larft`` and ``_panel_qr_offset`` + ``_larft_v``
+  pairs, ``slate_tpu/linalg/qr.py``'s Householder loops op for op).
 
 Dispatch: ``pallas`` and ``auto`` take the CUDA kernel for a CUDA tensor and
 the plain twin for a CPU tensor (the wrapper decides by the tensor's
@@ -32,7 +40,7 @@ the twin: the kernel builds and launches, or the call raises.  The update
 wrappers work in place, where ``slate_tpu``'s return a new array.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call (the twin) does not count.  The other 7 Pallas kernels of
+call (the twin) does not count.  The other 5 Pallas kernels of
 ``pallas_ops.py`` / ``matmul.py`` are not ported yet (ROADMAP.md, kernel
 queue).
 """
@@ -106,12 +114,14 @@ def panel_impl_scope(impl: str):
 def panel_engaged(dtype: torch.dtype) -> bool:
     """Whether the diagonal-block factor goes through :func:`chol_diag_inv`
     / :func:`chol_panel_tiles` / :func:`lu_panel_tiles` /
-    :func:`lu_rowsolve_tiles` (kernel on CUDA, twin on CPU).  ``xla``
-    never engages; ``pallas`` and ``auto`` engage every real floating dtype
-    (complex keeps the torch.linalg pair, as in ``slate_tpu``).  On a CUDA
-    tensor the wrappers then take f32/f64 blocks up to 256 wide and raise
-    on anything else (the mesh Cholesky casts bf16 panels to f32 first, as
-    ``slate_tpu`` does; so do the mesh LU panels)."""
+    :func:`lu_rowsolve_tiles` (kernel on CUDA, twin on CPU), and a
+    Householder panel through :func:`qr_panel` / :func:`qr_panel_offset`.
+    ``xla`` never engages; ``pallas`` and ``auto`` engage every real
+    floating dtype (complex keeps the torch.linalg pair, as in
+    ``slate_tpu``).  On a CUDA tensor the wrappers then take f32/f64 blocks
+    up to 256 wide and raise on anything else: the mesh Cholesky casts bf16
+    panels to f32 first, as ``slate_tpu`` does, and so do the mesh LU
+    panels and ``linalg.qr``'s Householder panels."""
     impl = _PANEL_ACTIVE[-1] or resolve_panel_impl()
     if impl == "xla":
         return False
@@ -582,3 +592,245 @@ def lu_trailing_update(view: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor
 
 
 lu_trailing_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the Householder panel kernels: csrc/qr_panel.cu (reflectors, the trailing
+# updates inside the panel and the compact-WY T in one cooperative launch)
+# ---------------------------------------------------------------------------
+
+# the widest panel the kernel takes (one thread of the T recurrence per row)
+QR_PANEL_MAX_W = 256
+
+
+def _qr_fns(dtype: torch.dtype):
+    lib = _build.load("qr_panel")
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    plan = getattr(lib, f"qr_panel_plan_{sfx}")
+    plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+    plan.restype = ctypes.c_int
+    run = getattr(lib, f"qr_panel_{sfx}")
+    run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    return plan, run
+
+
+def _launch_qr(a: torch.Tensor, row0, who: str):
+    """One launch of csrc/qr_panel.cu over a (B, m, w) batch of panels;
+    ``row0`` is None (the plain panel) or B pivot-row offsets.  Returns
+    (work, v, tau, t): the packed VR (or r), the explicit reflectors (offset
+    form, else None), tau (B, w) and T (B, w, w)."""
+    _check_cuda(who, a)
+    bsz, m, w = a.shape
+    if not 1 <= w <= QR_PANEL_MAX_W or m < 1 or bsz < 1:
+        raise ValueError(f"{who}: need panels of width 1..{QR_PANEL_MAX_W}, got {tuple(a.shape)}")
+    a = a.contiguous()
+    plan, run = _qr_fns(a.dtype)
+    elems = ctypes.c_longlong(0)
+    with torch.cuda.device(a.device):
+        nc = plan(bsz, m, w, ctypes.byref(elems))
+        if nc < 1:
+            raise RuntimeError(f"{who}: no cooperative grid for {bsz} panel(s) of {m} x {w}")
+        work = torch.empty_like(a)
+        v = torch.empty_like(a) if row0 is not None else None
+        tau = torch.empty((bsz, w), dtype=a.dtype, device=a.device)
+        t = torch.empty((bsz, w, w), dtype=a.dtype, device=a.device)
+        scratch = torch.empty(elems.value, dtype=a.dtype, device=a.device)
+        r0 = (torch.tensor(row0, dtype=torch.int32).to(a.device)
+              if row0 is not None else None)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = run(a.data_ptr(), work.data_ptr(), v.data_ptr() if v is not None else None,
+                 tau.data_ptr(), t.data_ptr(), r0.data_ptr() if r0 is not None else None,
+                 scratch.data_ptr(), bsz, m, w, nc, int(row0 is not None), stream)
+    if rc != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error {rc}")
+    return work, v, tau, t
+
+
+def _row0_list(a: torch.Tensor, row0) -> list:
+    """The pivot-row offsets of a (m, w) panel (an int) or a (B, m, w) batch
+    (B ints), checked: the offset form needs row0 + w <= m."""
+    m, w = a.shape[-2:]
+    if a.dim() == 2:
+        r0 = [int(row0)]
+    else:
+        r0 = [int(r) for r in (row0.tolist() if isinstance(row0, torch.Tensor) else row0)]
+        if len(r0) != a.shape[0]:
+            raise ValueError(f"qr_panel_offset: {len(r0)} offsets for {a.shape[0]} panels")
+    for r in r0:
+        if not 0 <= r <= m - w:
+            raise ValueError(f"qr_panel_offset: row0 {r} outside 0..{m - w} for a {m} x {w} panel")
+    return r0
+
+
+def _sign_safe(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) with sign(0) = 1, complex-safe (LAPACK larfg convention):
+    +1 for x >= 0, so -0.0 gives +1 and NaN gives -1."""
+    if x.is_complex():
+        mag = x.abs()
+        return torch.where(mag == 0, torch.ones_like(x), x / torch.where(mag == 0, 1, mag))
+    return torch.where(x >= 0, torch.ones_like(x), -torch.ones_like(x))
+
+
+def _householder(col: torch.Tensor, alpha: torch.Tensor, below: torch.Tensor):
+    """The reflector scalars of one column: (beta, tau, denom, dead)."""
+    xnorm2 = torch.sum(torch.where(below, col.abs() ** 2, 0))
+    anorm = torch.sqrt(alpha.abs() ** 2 + xnorm2)
+    s = _sign_safe(alpha if not col.is_complex()
+                   else torch.where(alpha.real == 0, torch.ones_like(alpha), alpha))
+    beta = -s * anorm.to(col.dtype)
+    dead = anorm == 0
+    beta = torch.where(dead, torch.ones_like(beta), beta)
+    tj = (beta - alpha) / beta
+    tj = torch.where(dead, torch.zeros_like(tj), tj)
+    denom = alpha - beta
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    return beta, tj, denom, dead
+
+
+def _panel_qr(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unblocked Householder QR of (m, w), min(m, w) steps.  Returns
+    (packed VR, tau): above the diagonal the updated entries of ``a``, on
+    it R, below it V."""
+    m, w = a.shape
+    rows = torch.arange(m, device=a.device)
+    cols = torch.arange(w, device=a.device)
+    tau = torch.zeros(w, dtype=a.dtype, device=a.device)
+    for j in range(min(m, w)):
+        col = a[:, j]
+        below = rows > j
+        alpha = col[j]
+        beta, tj, denom, dead = _householder(col, alpha, below)
+        v = torch.where(below, col / denom, torch.zeros_like(col))
+        v[j] = 1
+        w_row = matmul(v.conj()[None, :], a)[0]  # v^H A
+        cmask = (cols > j).to(a.dtype)
+        a = a - torch.outer(tj * v, w_row * cmask)
+        newcol = torch.where(below, v, a[:, j])
+        newcol[j] = torch.where(dead, alpha, beta)
+        a[:, j] = newcol
+        tau[j] = tj
+    return a, tau
+
+
+def _panel_qr_offset(a: torch.Tensor, row0: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Householder QR of a full-height column block whose pivot row for
+    column j is row ``row0 + j`` (w steps; row0 + w <= m).  Rows < row0 of
+    ``a`` must be zero and are never touched.  A dead column (no weight at
+    or below its pivot) gets tau = 0 and a zero reflector pivot entry.
+
+    Returns (r, v, tau): ``r`` is ``a`` with R at rows row0..row0+w and
+    zeros below each pivot, ``v`` the explicit reflectors, ``tau`` the w
+    scalar factors."""
+    m, w = a.shape
+    rows = torch.arange(m, device=a.device)
+    cols = torch.arange(w, device=a.device)
+    vmat = torch.zeros_like(a)
+    tau = torch.zeros(w, dtype=a.dtype, device=a.device)
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    for j in range(w):
+        gi = int(row0) + j
+        col = a[:, j]
+        below = rows > gi
+        alpha = col[gi]
+        beta, tj, denom, dead = _householder(col, alpha, below)
+        v = torch.where(below, col / denom, torch.zeros_like(col))
+        v[gi] = torch.where(dead, zero, one)
+        w_row = matmul(v.conj()[None, :], a)[0]
+        cmask = (cols > j).to(a.dtype)
+        newcol = torch.where(below, torch.zeros_like(col), col)
+        newcol[gi] = torch.where(dead, alpha, beta)
+        a = a - torch.outer(tj * v, w_row * cmask)
+        a[:, j] = newcol
+        vmat[:, j] = v
+        tau[j] = tj
+    return a, vmat, tau
+
+
+def _larft_v(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """Compact-WY T from explicit reflectors (columns of ``v``), LAPACK
+    larft forward columnwise: T[:j, j] = -tau_j * T[:j, :j] @ (V^H v_j)."""
+    w = v.shape[1]
+    vhv = matmul(v.conj().T, v)
+    t = torch.zeros((w, w), dtype=v.dtype, device=v.device)
+    idx = torch.arange(w, device=v.device)
+    for j in range(w):
+        tcol = -tau[j] * matmul(t, vhv[:, j][:, None])[:, 0]
+        t[:, j] = tcol * (idx < j).to(v.dtype)
+        t[j, j] = tau[j]
+    return t
+
+
+def _larft(vr: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """Compact-WY T from packed reflectors (unit-lower V read out of the
+    packed VR)."""
+    m, w = vr.shape
+    rows = torch.arange(m, device=vr.device)[:, None]
+    cols = torch.arange(w, device=vr.device)[None, :]
+    v = torch.where(rows > cols, vr, torch.where(rows == cols, torch.ones_like(vr),
+                                                 torch.zeros_like(vr)))
+    return _larft_v(v, tau)
+
+
+def qr_panel_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`qr_panel`: :func:`_panel_qr` then
+    :func:`_larft` (the op sequence of ``qr_panel_pallas``'s body), per
+    panel of a batch."""
+    if a.dim() == 3:
+        outs = [qr_panel_plain(x) for x in a]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    vr, tau = _panel_qr(a)
+    return vr, tau, _larft(vr, tau)
+
+
+def qr_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unblocked Householder QR of an (m, w) panel with its compact-WY T:
+    (packed VR, tau, T), Q = I - V T V^T; ``a`` may carry a leading batch
+    dim (B, m, w).  A CPU tensor takes :func:`qr_panel_plain`.  A CUDA
+    tensor launches ``csrc/qr_panel.cu`` once for the whole batch (f32/f64,
+    w <= 256; anything else raises); ``qr_panel.launches`` counts
+    launches."""
+    if a.device.type == "cpu":
+        return qr_panel_plain(a)
+    batched = a.dim() == 3
+    vr, _, tau, t = _launch_qr(a if batched else a[None], None, "qr_panel")
+    qr_panel.launches += 1
+    return (vr, tau, t) if batched else (vr[0], tau[0], t[0])
+
+
+qr_panel.launches = 0
+
+
+def qr_panel_offset_plain(a: torch.Tensor, row0
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`qr_panel_offset`: :func:`_panel_qr_offset`
+    then :func:`_larft_v` (``qr_panel_offset_pallas``'s body), per panel."""
+    r0 = _row0_list(a, row0)
+    if a.dim() == 3:
+        outs = [qr_panel_offset_plain(x, r) for x, r in zip(a, r0)]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    r, v, tau = _panel_qr_offset(a, r0[0])
+    return r, v, tau, _larft_v(v, tau)
+
+
+def qr_panel_offset(a: torch.Tensor, row0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The offset-pivot panel: the pivot of column j is row ``row0 + j``
+    (rows < row0 must be zero and stay untouched).  Returns (r, v, tau, T):
+    r holds R at rows row0..row0+w and zeros below each pivot, v the
+    explicit reflectors (unit pivot entries; 0 for a dead column, which
+    gets tau = 0).  ``a`` is (m, w) with an int ``row0``, or a batch
+    (B, m, w) with B offsets (one launch: the mesh factors the owning
+    column's p panels together).  CPU: :func:`qr_panel_offset_plain`; CUDA:
+    ``csrc/qr_panel.cu`` (``qr_panel_offset.launches``) or a raise."""
+    if a.device.type == "cpu":
+        return qr_panel_offset_plain(a, row0)
+    r0 = _row0_list(a, row0)
+    batched = a.dim() == 3
+    r, v, tau, t = _launch_qr(a if batched else a[None], r0, "qr_panel_offset")
+    qr_panel_offset.launches += 1
+    return (r, v, tau, t) if batched else (r[0], v[0], tau[0], t[0])
+
+
+qr_panel_offset.launches = 0

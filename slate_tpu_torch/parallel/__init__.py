@@ -1,10 +1,12 @@
 """The mesh layer of the port: a virtual (p, q) process grid on one card,
 the block-cyclic DistMatrix, the communication verbs, the distributed
 Cholesky, LU (no-pivot, tournament and partial pivot), triangular solve and
-GEMM, and the LU solve drivers -- ``slate_tpu.parallel``'s names for the
-slices that run the distributed SPD solve (potrf_dist -> trsm_dist ->
-gemm_summa) and the distributed LU solves (gesv_mesh, gesv_nopiv_mesh,
-gesv_tntpiv_mesh).  The other mesh drivers come with their slices."""
+GEMM, CAQR, and the LU and least-squares drivers -- ``slate_tpu.parallel``'s
+names for the slices that run the distributed SPD solve (potrf_dist ->
+trsm_dist -> gemm_summa), the distributed LU solves (gesv_mesh,
+gesv_nopiv_mesh, gesv_tntpiv_mesh) and the distributed least squares
+(geqrf_mesh, gels_mesh: geqrf_dist -> unmqr_dist -> trsm_dist).  The other
+mesh drivers come with their slices."""
 
 from .mesh import COL_AXIS, ROW_AXIS, VirtualMesh, make_mesh, mesh_shape
 from .dist import DistMatrix, empty_like, from_dense, local_view, padded_tiles, to_dense
@@ -12,8 +14,11 @@ from .summa import gemm_summa
 from .dist_chol import potrf_dist
 from .dist_trsm import trsm_dist
 from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
+from .dist_qr import DistQR, geqrf_dist, unmqr_dist
 from .dist_refine import MIXED_ENV, MIXED_MODES, resolve_mixed, use_mixed
 from .drivers import (
+    gels_mesh,
+    geqrf_mesh,
     gesv_mesh,
     gesv_nopiv_mesh,
     gesv_tntpiv_mesh,

@@ -8,7 +8,8 @@ every device subtracts the panel update.  TrsmB broadcasts A's panel to
 B's owners; TrsmA keeps A's tiles where they are, replicates the solved
 row and routes the partial updates back to B's owners (psum-scatters).
 There is no Pallas kernel on this path in ``slate_tpu``: the solves and
-products are ``torch.linalg.solve_triangular`` and batched ``matmul`` over
+products are ``torch.linalg.solve_triangular`` (in f32 for a half-precision
+B) and batched ``matmul`` over
 the grid, as ``slate_tpu`` left them to XLA.  ``trsm_dist_right`` is not
 ported yet.
 """
@@ -19,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..blas3.blas3 import solve_tri
 from ..types import Diag, MethodTrsm, Op, Side, Uplo, select_trsm_method
 from .comm import (
     COL_AXIS,
@@ -85,8 +87,8 @@ def _solve_row(b_loc, dtile, k, p, eff_lower, unit):
     broadcast down the mesh columns: (1, q, ntl_b, nb, nb)."""
     r0, kr = k % p, k // p
     brow = b_loc[r0:r0 + 1, :, kr]
-    brow.copy_(torch.linalg.solve_triangular(dtile[0, 0], brow, upper=not eff_lower,
-                                             left=True, unitriangular=unit))
+    brow.copy_(solve_tri(dtile[0, 0], brow, upper=not eff_lower, left=True,
+                         unitriangular=unit))
     return bcast_from_row(brow, r0, p)
 
 

@@ -1,17 +1,19 @@
-"""Mesh-level drivers: dense-in / dense-out distributed LU solves.
+"""Mesh-level drivers: dense-in / dense-out distributed LU solves and
+least squares.
 
-Counterpart of the LU drivers of ``slate_tpu/parallel/drivers.py`` (the
-reference's ``src/gesv.cc``, ``getrf*.cc`` run with a 2D block-cyclic
-distribution): ``getrf_nopiv_mesh`` / ``gesv_nopiv_mesh`` (no pivoting),
-``getrf_tntpiv_mesh`` / ``gesv_tntpiv_mesh`` (tournament pivoting, CALU)
-and ``getrf_mesh`` / ``gesv_mesh`` (partial pivoting, the reference's
-default ``MethodLU::PartialPiv``), with the ``_la/_bi/_pi/_ui/_nm`` option
-readers.  Factorization inputs are padded with an identity diagonal block
+Counterpart of the LU and QR drivers of ``slate_tpu/parallel/drivers.py``
+(the reference's ``src/gesv.cc``, ``getrf*.cc``, ``geqrf.cc`` and
+``gels_qr.cc`` run with a 2D block-cyclic distribution): ``getrf_nopiv_mesh``
+/ ``gesv_nopiv_mesh`` (no pivoting), ``getrf_tntpiv_mesh`` /
+``gesv_tntpiv_mesh`` (tournament pivoting, CALU), ``getrf_mesh`` /
+``gesv_mesh`` (partial pivoting, the reference's default
+``MethodLU::PartialPiv``) and ``geqrf_mesh`` / ``gels_mesh`` (CAQR), with
+the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs are padded with an identity diagonal block
 (``from_dense(..., diag_pad_one=True)``), so padded runs stay exact.
 
 Not ported yet, and refused with ``NotImplementedError``:
 ``Option.FaultTolerance`` and ``Option.Checkpoint`` (the ABFT and
-checkpointed factor loops, slice 9) and the ``Option.MixedPrecision``
+checkpointed factor loops, ``geqrf_ckpt`` among them, slice 9) and the ``Option.MixedPrecision``
 ladder of an f64 ``gesv_mesh`` with a 2-D right-hand side (slice 4; the
 direct path runs under ``MixedPrecision=off`` and for f32).  The other
 drivers of ``slate_tpu.parallel.drivers`` come with their slices.
@@ -28,6 +30,7 @@ import torch
 from ..types import Diag, Op, Option, Options, Uplo, get_option
 from .dist import DistMatrix, from_dense, to_dense
 from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
+from .dist_qr import DistQR, geqrf_dist, unmqr_dist
 from .dist_refine import resolve_mixed
 from .dist_trsm import trsm_dist
 from .mesh import VirtualMesh
@@ -175,3 +178,34 @@ def gesv_mesh(
             "mixed-precision ladder, which comes with slice 4; pass "
             "{Option.MixedPrecision: 'off'} for the direct f64 solve")
     return _gesv_mesh_plain(a, b, mesh, nb, opts)
+
+
+def geqrf_mesh(
+    a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> DistQR:
+    """Distributed CAQR factorization (src/geqrf.cc).  Returns DistQR.
+    ``opts`` carries Option.BcastImpl and Option.PanelImpl;
+    Option.Checkpoint (``geqrf_ckpt``) raises until slice 9."""
+    _resilience(opts)
+    return geqrf_dist(from_dense(a, mesh, nb), bcast_impl=_bi(opts), panel_impl=_pi(opts),
+                      num_monitor=_nm(opts), overwrite_a=True)
+
+
+def gels_mesh(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed least squares min ||A X - B|| for m >= n via CAQR
+    (src/gels_qr.cc): X = R^-1 (Q^H B)[:n].  Returns (X dense, info), info
+    1 + the first zero of diag(R), else 0.  R goes to its square
+    distribution through one dense round trip, as in ``slate_tpu``."""
+    m, n = a.shape
+    bi = _bi(opts)
+    f = geqrf_mesh(a, mesh, nb, opts)
+    qb = to_dense(unmqr_dist(f, from_dense(b, mesh, nb), Op.ConjTrans, bcast_impl=bi))[:n]
+    r = torch.triu(to_dense(f.fact)[:n, :n])
+    del f
+    rd = from_dense(r, mesh, nb, diag_pad_one=True)
+    xd = trsm_dist(rd, from_dense(qb, mesh, nb), Uplo.Upper, Op.NoTrans, bcast_impl=bi)
+    zero = torch.diagonal(r) == 0
+    info = torch.where(zero.any(), zero.to(torch.int8).argmax() + 1, 0).to(torch.int32)
+    return to_dense(xd), info

@@ -5,7 +5,7 @@ member names and values, so that a test can map one package's enum onto the
 other's by name (``utils.testing.options_from_names``).  Only the enums the
 ported paths read are here (the single-chip Cholesky path and the mesh
 solve: grid order, MethodGemm/MethodTrsm and their selectors; the mesh LU
-solves: MethodLU); the other
+solves: MethodLU; least squares: MethodGels); the other
 method and norm enums come with the slices that read them.
 """
 
@@ -67,6 +67,11 @@ class MethodTrsm(enum.Enum):
     Auto = "auto"
     TrsmA = "A"
     TrsmB = "B"
+
+
+class MethodGels(enum.Enum):
+    QR = "QR"
+    CholQR = "CholQR"
 
 
 class MethodLU(enum.Enum):

@@ -5,7 +5,8 @@ only, seeded identically), so both packages compute on the same operands.
 ``from_numpy`` carries numpy operands onto a torch device and
 ``options_from_names`` carries an ``Options`` mapping given by enum names;
 ``dist_from_numpy`` rebuilds a mesh matrix from another package's tile
-stack (so a test can feed one package's factor to the other's solves).
+stack (so a test can feed one package's factor to the other's solves), and
+``distqr_from_numpy`` rebuilds CAQR factors the same way.
 """
 
 from __future__ import annotations
@@ -140,7 +141,153 @@ def dist_from_numpy(tiles: np.ndarray, m: int, n: int, nb: int, mesh, diag_pad: 
     A pivot vector carries across as ``torch.from_numpy(np.asarray(perm))``."""
     from ..parallel.dist import DistMatrix
 
-    t = torch.from_numpy(np.ascontiguousarray(tiles)).to(mesh.device)
+    t = torch.from_numpy(np.array(tiles)).to(mesh.device)  # a writable copy
     if t.dim() != 4 or t.shape[2:] != (nb, nb):
         raise ValueError(f"dist_from_numpy: need (mt, nt, {nb}, {nb}) tiles, got {tuple(t.shape)}")
     return DistMatrix(tiles=t, m=m, n=n, nb=nb, mesh=mesh, diag_pad=diag_pad)
+
+
+def distqr_from_numpy(fact_tiles: np.ndarray, tloc: np.ndarray, treev: np.ndarray,
+                      treet: np.ndarray, m: int, n: int, nb: int, mesh):
+    """The port's ``DistQR`` over ``mesh`` from CAQR factors as numpy -- e.g.
+    ``np.asarray`` of a ``slate_tpu`` DistQR's ``fact.tiles``, ``tloc``
+    (p * nt, nb, nb), ``treev`` (nt, max(1, p), 2nb, nb) and ``treet``
+    (nt, max(1, p), nb, nb), whose layouts are the same -- so that
+    ``unmqr_dist`` can be held alone on identical factors."""
+    from ..parallel.dist_qr import DistQR
+
+    fact = dist_from_numpy(fact_tiles, m, n, nb, mesh, diag_pad=True)
+    nt = fact.nt
+    p = mesh.p
+    t = [torch.from_numpy(np.array(x)).to(mesh.device) for x in (tloc, treev, treet)]
+    if (tuple(t[0].shape) != (p * nt, nb, nb) or t[1].shape[0] != nt or t[2].shape[0] != nt
+            or tuple(t[1].shape[2:]) != (2 * nb, nb) or tuple(t[2].shape[2:]) != (nb, nb)):
+        raise ValueError(f"distqr_from_numpy: factor shapes {[tuple(x.shape) for x in t]} do not fit "
+                         f"nt = {nt}, p = {p}, nb = {nb}")
+    return DistQR(fact, *t)
+
+
+
+QR_PART_C = 2  # each part's limit: QR_PART_C m eps times that part's own scale
+
+
+def qr_panel_parts(out, offset: bool, row0: int = 0):
+    """(R, V, pivots) of one Householder panel's outputs: the packed VR
+    split at the diagonal (unit V pivots), or the offset form's ``r`` and
+    ``v`` as they come; ``pivots`` is the (m, w) mask of the entries
+    (row0 + j, j)."""
+    f = out[0]
+    rows = torch.arange(f.shape[0], device=f.device)[:, None]
+    cols = torch.arange(f.shape[1], device=f.device)[None, :]
+    piv = rows == cols + row0
+    if offset:
+        return out[0], out[1], piv
+    return f.triu(), torch.where(rows > cols, f, piv.to(f.dtype)), piv
+
+
+def _part_err(got, want, mask, scale_mask):
+    """(max |got - want| over ``mask``, max |want| over ``scale_mask``)."""
+    zero = torch.zeros((), dtype=want.dtype, device=want.device)
+    err = torch.where(mask, (got - want).abs(), zero).max()
+    return float(err), float(torch.where(scale_mask, want.abs(), zero).max())
+
+
+def qr_panel_check(a, got, want, offset: bool, row0: int = 0) -> dict:
+    """The kernel's Householder panel (``got``: (VR, tau, T), or the offset
+    form's (r, v, tau, T)) against its twin's (``want``) and against A.
+
+    No part is held to another part's scale (R's diagonal is ~sqrt(m) times
+    its other entries, V's unit pivots dwarf its entries below them, tau ~1
+    dwarfs T's off-diagonal), so each of R's pivot entries, R's other
+    entries, V (scaled by its entries strictly below the pivots; a pivot
+    entry that differs reads ~1 / limit), tau and T's off-diagonal is held
+    within ``QR_PART_C`` m eps of the twin's largest entry of that part.
+    Then Q R = A with Q = I - V T V^T, in f64, within m eps max|A|, and the
+    compact-WY identity T (V^T V) T^T = T + T^T within m eps max|T|.
+
+    Returns each reading as a ratio to its limit (pass at <= 1), the
+    largest absolute difference, and the limits relative to the scales
+    they hold (``part_rel_limit``, ``rec_rel_limit``): both must stay below
+    1e-2, so that a zeroed part cannot pass."""
+    m, w = got[0].shape
+    eps = torch.finfo(a.dtype).eps
+    r, v, piv = qr_panel_parts(got, offset, row0)
+    rp, vp, _ = qr_panel_parts(want, offset, row0)
+    tau, t, taup, tp = got[-2], got[-1], want[-2], want[-1]
+    rows = torch.arange(m, device=r.device)[:, None]
+    below = rows > torch.arange(w, device=r.device)[None, :] + row0
+    ones = torch.ones_like(piv)
+    tri = torch.ones((w, w), dtype=torch.bool, device=t.device)
+    off = tri.triu(1) | tri.tril(-1)
+    lim = QR_PART_C * m * eps
+    parts = {"R_diag": _part_err(r, rp, piv, piv), "R_off": _part_err(r, rp, ~piv, ~piv),
+             "V": _part_err(v, vp, ones, below), "tau": _part_err(tau, taup, tau == tau, tau == tau),
+             "T_off": _part_err(t, tp, off, off)}
+    out = {k: e / (lim * max(sc, 1e-30)) for k, (e, sc) in parts.items()}
+    r64, v64, t64 = r.double(), v.double(), t.double()
+    rec = r64 - v64 @ (t64 @ (v64.T @ r64))
+    out["QR"] = float((rec - a.double()).abs().max()) / (m * eps * float(a.abs().max()))
+    e = t64 @ (v64.T @ v64) @ t64.T - t64 - t64.T
+    out["WY"] = float(e.abs().max()) / (m * eps * max(float(t.abs().max()), 1e-30))
+    out["max_abs_err"] = max(e for e, _ in parts.values())
+    out["part_rel_limit"] = lim
+    out["rec_rel_limit"] = m * eps
+    return out
+
+
+QR_READINGS = ("R_diag", "R_off", "V", "tau", "T_off", "QR", "WY")
+
+
+def qr_panel_ok(c: dict) -> bool:
+    """Every reading within its limit, and every limit below 1e-2 of the
+    scale it holds."""
+    return (all(c[k] <= 1 for k in QR_READINGS) and c["part_rel_limit"] < 1e-2
+            and c["rec_rel_limit"] < 1e-2)
+
+
+def qr_panel_mutants(got, offset: bool, row0: int = 0) -> dict:
+    """Wrong factors each check must refuse, by the reading that must fail:
+    V zeroed strictly below its pivots, R's off-pivot entries zeroed, T's
+    off-diagonal zeroed, and one column of T doubled."""
+    f = got[0]
+    m, w = f.shape
+    rows = torch.arange(m, device=f.device)[:, None]
+    below = rows > torch.arange(w, device=f.device)[None, :] + row0
+    piv = rows == torch.arange(w, device=f.device)[None, :] + row0
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    t_diag = torch.diag_embed(torch.diagonal(got[-1]))
+    t_col = got[-1].clone()
+    t_col[:, w // 2] *= 2
+    if offset:
+        zero_v = (got[0], torch.where(below, zero, got[1])) + tuple(got[2:])
+        zero_r = (torch.where(piv, got[0], zero),) + tuple(got[1:])
+    else:
+        zero_v = (torch.where(below, zero, f),) + tuple(got[1:])
+        zero_r = (torch.where(rows < torch.arange(w, device=f.device)[None, :], zero, f),) \
+            + tuple(got[1:])
+    return {"V": zero_v, "R_off": zero_r, "T_off": tuple(got[:-1]) + (t_diag,),
+            "WY": tuple(got[:-1]) + (t_col,)}
+
+
+def gels_omega(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, chunk: int = 2048) -> float:
+    """The componentwise residual of the normal equations of min ||A X - B||,
+    max |A^T (A X - B)| / (|A^T| (|A| |X| + |B|)) entrywise, in f64 (0/0
+    reads 0), accumulated over blocks of ``chunk`` rows of A so that no f64
+    copy of the whole A is made.  For a backward-stable real solve on
+    Gaussian operands it reads a few eps / sqrt(m); products rounded to
+    TF32 or bf16 read hundreds of times more."""
+    x64 = x.double()
+    ax = x64.abs()
+    num = torch.zeros(x64.shape, dtype=torch.float64, device=x.device)
+    den = torch.zeros_like(num)
+    for i in range(0, a.shape[0], chunk):
+        ac, bc = a[i:i + chunk].double(), b[i:i + chunk].double()
+        num += ac.T @ (ac @ x64 - bc)
+        aa = ac.abs()
+        den += aa.T @ (aa @ ax + bc.abs())
+    return float(torch.nan_to_num(num.abs() / den, nan=0.0).max())
+
+
+def gels_omega_gate(m: int, dtype: torch.dtype) -> float:
+    """The gate of :func:`gels_omega`: 20 eps / sqrt(m)."""
+    return 20 * torch.finfo(dtype).eps / float(np.sqrt(m))

@@ -437,6 +437,8 @@ def _port_files():
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10
+    for mod in ("linalg/qr.py", "parallel/dist_qr.py", "ops/kernels.py"):
+        assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -7,14 +7,23 @@ that has only PyTorch; tests/conftest.py imports JAX, so run it with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: the Cholesky factor and inverse hold to the 100 nb eps class
-(two summation orders, explicit inverse).  The packed LU holds L and U
+Tolerances: the Cholesky factor holds to the twin at L's own scale (100 nb
+eps max|L|) and to A by reconstruction, L L^T = A within 3 nb eps |L||L^T|
+elementwise; its inverse to the twin at its own scale and to L X = I the
+same way.  The packed LU holds L and U
 each at its own scale, and to A by reconstruction within 3 nb eps |L||U|
 elementwise; its inverses hold to U X = I and L Y = I the same way.  A tile update holds to two
 k-ordered FMA sums of nb products, a few sqrt(nb) eps max|a| max|b|, plus
 one rounding of the final add each: a TF32 product would fail it.  The
 panel solve holds to nb eps |T||X|^T per side plus the two inverses'
-difference |T||X_k - X_p|^T, well below its outputs.
+difference |T||X_k - X_p|^T, well below its outputs.  A Householder panel
+never holds its packed factor to one limit (``utils.testing.qr_panel_check``):
+R's pivots, R's other entries, V below its pivots, tau and T's off-diagonal
+each hold to the twin within 2 m eps of their own largest entry, Q R = A
+(Q = I - V T V^T, in f64) within m eps max|A|, and the compact-WY identity
+T (V^T V) T^T = T + T^T within m eps max|T|.  A least-squares solve holds
+to the componentwise normal-equations residual (``gels_omega``, in f64)
+below 20 eps / sqrt(m).
 """
 
 import math
@@ -26,7 +35,14 @@ import torch
 from slate_tpu_torch.ops import kernels as tk
 from slate_tpu_torch.parallel import comm, from_dense, local_view, make_mesh, potrf_dist, to_dense
 from slate_tpu_torch.parallel.dryrun import posv_chain, posv_chain_operands
-from slate_tpu_torch.utils.testing import generate
+from slate_tpu_torch.utils.testing import (
+    generate,
+    gels_omega,
+    gels_omega_gate,
+    qr_panel_check,
+    qr_panel_mutants,
+    qr_panel_ok,
+)
 
 DTYPES = [torch.float32, torch.float64]
 
@@ -52,6 +68,17 @@ def _randn(shape, dtype, seed, scale=1.0):
     return torch.randn(shape, generator=g, dtype=dtype, device="cuda") * scale
 
 
+def _check_chol_factor(a, l, lp):
+    """The kernel's L: to the twin within 100 nb eps of L's own largest
+    entry (a limit below 1e-2 of it), and L L^T = A by reconstruction
+    within 3 nb eps |L||L^T| elementwise (``_residual_ratio``)."""
+    nb, eps = a.shape[-1], _eps(a.dtype)
+    scale = float(lp.abs().max())
+    assert 100 * nb * eps < 1e-2
+    assert float((l - lp).abs().max()) < 100 * nb * eps * scale
+    assert _residual_ratio(l, l.T, a) <= 1
+
+
 def _stack(mt, nt, nb, dtype, seed, p=2, q=4):
     t = _randn((mt, nt, nb, nb), dtype, seed)
     return t, local_view(t, p, q)
@@ -67,9 +94,10 @@ def test_chol_diag_inv_kernel_on_card(card, dtype):
     torch.cuda.synchronize()
     assert tk.chol_diag_inv.launches == before + 1
     lp, xp = tk.chol_diag_inv_plain(a)
-    anorm = float(a.abs().max())
-    assert float((l - lp).abs().max()) < 100 * nb * _eps(dtype) * anorm
-    assert float((x - xp).abs().max()) < 100 * nb * _eps(dtype) * float(xp.abs().max()) * anorm
+    _check_chol_factor(a, l, lp)
+    # L^-1: to the twin at its own scale, and L X = I by residual
+    assert float((x - xp).abs().max()) < 100 * nb * _eps(dtype) * float(xp.abs().max())
+    assert _residual_ratio(l, x, torch.eye(nb, dtype=dtype, device="cuda")) <= 1
 
 
 @pytest.mark.cuda
@@ -138,7 +166,7 @@ def test_chol_panel_tiles_kernel_on_a_strided_panel(card, dtype):
     lp, sp = tk.chol_panel_tiles_plain(d, pcol)
     _, xk = tk.chol_diag_inv(d)  # the L^-1 the panel kernel solved with
     _, xp = tk.chol_diag_inv_plain(d)
-    assert float((l - lp).abs().max()) < 100 * nb * _eps(dtype) * float(d.abs().max())
+    _check_chol_factor(d, l, lp)
     t = pcol.abs()
     tol_s = float((nb * _eps(dtype) * (t @ xk.abs().T + t @ xp.abs().T) + t @ (xk - xp).abs().T).max())
     assert tol_s < 1e-2 * float(sp.abs().max())  # a wrong output cannot pass
@@ -357,3 +385,148 @@ def test_mesh_lu_on_card_bitwise_across_lookahead(card, form):
     rec = (lu.tril(-1) + torch.eye(n, dtype=torch.float64)) @ lu.triu()
     ap = g if form == "nopiv" else np.pad(g, ((0, 24), (0, 0)))[runs[0][1].cpu().numpy()][:n]
     assert float((rec - torch.from_numpy(ap)).abs().max()) < 100 * n * _eps(torch.float32) * float(np.abs(g).max())
+
+
+# ---------------------------------------------------------------------------
+# the Householder panel kernels (csrc/qr_panel.cu)
+# ---------------------------------------------------------------------------
+
+
+def _panel(m, w, dtype, seed, zero_col=None):
+    """A randn panel; column ``zero_col`` zero (a dead column at its step:
+    every reflection keeps it exactly zero) and a -0.0 first pivot, whose
+    sign must read +1 (beta = -anorm < 0; copysign would flip it)."""
+    g = np.random.default_rng(seed).standard_normal((m, w))
+    if zero_col is not None:
+        g[:, zero_col] = 0
+    g[0, 0] = -0.0
+    return torch.from_numpy(g).to(dtype).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 256), (2000, 64), (40, 64), (3000, 100)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_panel_kernel_matches_twin(card, shape, dtype):
+    m, w = shape
+    a = _panel(m, w, dtype, seed=m + w, zero_col=min(w, m) // 2)
+    before = tk.qr_panel.launches
+    got = tk.qr_panel(a)
+    torch.cuda.synchronize()
+    assert tk.qr_panel.launches == before + 1
+    want = tk.qr_panel_plain(a)
+    res = qr_panel_check(a, got, want, offset=False)
+    assert qr_panel_ok(res), res
+    k = min(m, w) // 2  # the zero column: tau 0, R(k, k) = alpha = 0
+    assert float(got[1][k]) == 0.0 and float(got[0][k, k]) == 0.0
+    assert float(got[0][0, 0]) < 0 and float(want[0][0, 0]) < 0  # the -0.0 pivot
+    if m < w:  # min(m, w) steps: the columns right of m keep the updated a
+        assert torch.equal(got[1][m:], torch.zeros_like(got[1][m:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_panel_offset_kernel_batched_with_row0(card, dtype):
+    m, w = 1024, 256
+    a = torch.stack([_panel(m, w, dtype, seed=s, zero_col=7) for s in (1, 2, 3)])
+    row0 = [0, 256, m - w]
+    rows = torch.arange(m, device="cuda")
+    for i, r0 in enumerate(row0):
+        a[i, rows < r0] = 0
+        a[i, r0, 0] = -0.0  # the first pivot
+    before = tk.qr_panel_offset.launches
+    got = tk.qr_panel_offset(a, row0)
+    torch.cuda.synchronize()
+    assert tk.qr_panel_offset.launches == before + 1  # one launch for the batch
+    want = tk.qr_panel_offset_plain(a, row0)
+    for i, r0 in enumerate(row0):
+        gi = tuple(x[i] for x in got)
+        res = qr_panel_check(a[i], gi, tuple(x[i] for x in want), offset=True, row0=r0)
+        assert qr_panel_ok(res), (r0, res)
+        assert torch.equal(gi[0][:r0], torch.zeros_like(gi[0][:r0]))  # rows < row0 untouched
+        assert torch.equal(gi[1][:r0], torch.zeros_like(gi[1][:r0]))
+        assert float(gi[2][7]) == 0.0 and float(gi[1][r0 + 7, 7]) == 0.0  # dead: tau 0, pivot 0
+        # the -0.0 pivot with weight below: sign +1 (beta < 0), as the twin
+        assert float(gi[0][r0, 0]) < 0 and float(want[0][i, r0, 0]) < 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+def test_qr_checks_fail_a_wrong_factor(card, offset):
+    """Each part zeroed (V below its pivots, R off its pivots, T's
+    off-diagonal) fails its own reading; a doubled T column fails WY."""
+    m, w, row0 = 16384, 64, 8192 if offset else 0
+    a = _panel(m, w, torch.float32, seed=5)
+    if offset:
+        a[:row0] = 0
+        got, want = tk.qr_panel_offset(a, row0), tk.qr_panel_offset_plain(a, row0)
+    else:
+        got, want = tk.qr_panel(a), tk.qr_panel_plain(a)
+    assert qr_panel_ok(qr_panel_check(a, got, want, offset, row0))
+    for reading, bad in qr_panel_mutants(got, offset, row0).items():
+        assert qr_panel_check(a, bad, want, offset, row0)[reading] > 1, reading
+
+
+@pytest.mark.cuda
+def test_qr_wrappers_raise_instead_of_falling_back(card):
+    with pytest.raises(TypeError, match="not supported on CUDA"):
+        tk.qr_panel(torch.zeros((64, 8), dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(ValueError, match="width"):
+        tk.qr_panel(torch.zeros((600, 300), device="cuda"))
+    with pytest.raises(ValueError, match="row0"):
+        tk.qr_panel_offset(torch.zeros((64, 16), device="cuda"), 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_geqrf_and_gels_mesh_on_card_against_the_host(card, dtype):
+    from slate_tpu_torch.linalg.qr import gels_array, geqrf_array
+    from slate_tpu_torch.parallel import gels_mesh
+
+    m, n, nb = 1000, 300, 64
+    g = np.random.default_rng(31).standard_normal((m, n))
+    b = np.random.default_rng(32).standard_normal((m, 4))
+    a = torch.from_numpy(g).to(dtype)
+    bt = torch.from_numpy(b).to(dtype)
+    counts = (tk.qr_panel.launches, tk.qr_panel_offset.launches)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        res[dev] = gels_mesh(a.to(dev), bt.to(dev), make_mesh(2, 4, device=dev), nb)[0].cpu()
+    nt = 8  # 300 / 64 -> 5 tiles, padded to lcm(2, 4)
+    assert (tk.qr_panel.launches - counts[0], tk.qr_panel_offset.launches - counts[1]) == (nt, nt)
+    eps = _eps(dtype)
+    assert float((res["cuda"] - res["cpu"]).abs().max()) < 100 * m * eps * float(res["cpu"].abs().max())
+    f = geqrf_array(a.cuda())
+    x = gels_array(a.cuda(), bt.cuda()).double().cpu()
+    a64 = a.double()
+    # the normal equations' residual of tester.py's run_gels
+    r = (a64.T @ (a64 @ x - bt.double())).abs().max() / (a64.abs().max() ** 2 * x.abs().max() * m)
+    assert float(r) < 100 * n * eps
+    assert gels_omega(a, x.to(dtype), bt) < gels_omega_gate(m, dtype)
+    assert gels_omega(a, res["cuda"], bt) < gels_omega_gate(m, dtype)
+    assert f.vr.shape == (m, n) and f.t.shape == (n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_gels_launches_the_kernel(card, dtype):
+    """A bf16/f16 gels factors its panels on the kernel in f32 (no plain
+    pair on the card): one qr_panel launch per leaf, and gels_mesh one
+    qr_panel_offset per step; X within 10 eps_half max|X| of the f32 solve
+    of the same rounded operands."""
+    from slate_tpu_torch.linalg.qr import gels_array
+    from slate_tpu_torch.parallel import gels_mesh
+
+    m, n, nb = 2048, 256, 64
+    a = torch.from_numpy(np.random.default_rng(41).standard_normal((m, n))).to(dtype).cuda()
+    b = torch.from_numpy(np.random.default_rng(42).standard_normal((m, 4))).to(dtype).cuda()
+    x32 = gels_array(a.float(), b.float())
+    heps = _eps(dtype)
+    before = tk.qr_panel.launches
+    x = gels_array(a, b)
+    assert tk.qr_panel.launches - before == n // 64  # the leaves of _geqrf_rec
+    assert x.dtype == dtype
+    assert float((x.float() - x32).abs().max()) < 10 * heps * float(x32.abs().max())
+    before = tk.qr_panel_offset.launches
+    xm, info = gels_mesh(a, b, make_mesh(2, 4, device="cuda"), nb)
+    assert tk.qr_panel_offset.launches - before == n // nb and int(info) == 0
+    assert float((xm.float() - x32).abs().max()) < 10 * heps * float(x32.abs().max())

@@ -391,3 +391,71 @@ def test_lu_build_raises_without_nvcc(monkeypatch, tmp_path):
             with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
                 tk._lu_fn(entry, dtype)
     assert os.path.exists(os.path.join(_build.CSRC_DIR, "lu_diag_inv.cu"))
+
+
+# ---------------------------------------------------------------------------
+# the Householder panel kernels (csrc/qr_panel.cu): dispatch and refusals on
+# the host; their twins against the Pallas kernels are in test_torch_qr.py
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("impl,engaged", [("auto", True), ("pallas", True), ("xla", False)])
+def test_qr_gate_dispatch(impl, engaged, monkeypatch):
+    """pallas/auto send every real panel to the wrappers (bf16/f16 as f32),
+    xla and complex keep the plain pair."""
+    from slate_tpu_torch.linalg import qr as tqr
+
+    monkeypatch.delenv(tk.PANEL_IMPL_ENV, raising=False)
+    calls = []
+    monkeypatch.setattr(tqr, "qr_panel", lambda a: calls.append(a.dtype) or tk.qr_panel_plain(a))
+    monkeypatch.setattr(tqr, "qr_panel_offset",
+                        lambda a, r: calls.append(a.dtype) or tk.qr_panel_offset_plain(a, r))
+    g = torch.Generator().manual_seed(3)
+    dtypes = (torch.float32, torch.float64, torch.bfloat16, torch.float16, torch.complex64)
+    with tk.use_panel_impl(impl):
+        for dt in dtypes:
+            a = torch.randn((8, 4), generator=g, dtype=torch.float64).to(dt)
+            outs = tqr._panel_qr_t(a) + tqr._panel_qr_offset_t(a, 2)
+            assert all(x.dtype == dt for x in outs)
+    f32, f64 = torch.float32, torch.float64
+    assert calls == ([f32, f32, f64, f64, f32, f32, f32, f32] if engaged else [])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_qr_half_panel_is_the_f32_panel_cast_back(dtype, monkeypatch):
+    """Under auto a half-precision panel is the f32 panel rounded to its
+    dtype, bitwise; under xla it runs the plain pair in its own dtype."""
+    from slate_tpu_torch.linalg import qr as tqr
+
+    monkeypatch.delenv(tk.PANEL_IMPL_ENV, raising=False)
+    a = torch.randn((24, 8), generator=torch.Generator().manual_seed(4)).to(dtype)
+    with tk.use_panel_impl("auto"):
+        got = tqr._panel_qr_t(a) + tqr._panel_qr_offset_t(a, 5)
+    want = tk.qr_panel_plain(a.float()) + tk.qr_panel_offset_plain(a.float(), 5)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.to(dtype))
+    with tk.use_panel_impl("xla"):
+        plain = tqr._panel_qr_t(a)
+    for g, w in zip(plain, tk.qr_panel_plain(a)):
+        assert torch.equal(g, w)
+
+
+def test_qr_wrappers_refuse_other_devices():
+    meta = torch.empty((64, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.qr_panel(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.qr_panel_offset(meta, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.qr_panel_offset(torch.empty((2, 64, 8), device="meta"), [0, 8])
+
+
+def test_qr_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_DIRS", [str(tmp_path)])
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    for dtype in (torch.float32, torch.float64):
+        with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+            tk._qr_fns(dtype)
+    assert os.path.exists(os.path.join(_build.CSRC_DIR, "qr_panel.cu"))
