@@ -71,14 +71,39 @@ printing one JSON line before the next starts (any failure exits non-zero):
    (from_dense -> geqrf_dist -> unmqr_dist -> the R round trip ->
    trsm_dist) inlined and timed one by one, their X bitwise gels_mesh's;
    and a zero column j giving info j + 1;
-19. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
+19. the FT kernel against its twin (utils.testing.ft_summa_check: acc to
+   the tile-update limit, each weighted part to it scaled by sum |w|; a
+   zeroed part and an f32 TF32 product must fail): ft_summa_update at one
+   step of the f32 n = 16384 gemm_ft ((2, 4, 34, 17) tiles of 256,
+   stride-0 panels, the augmented grid's weights) and the f64 n = 8192 one,
+   with kernel, twin and library times and the bound;
+20. mesh_gemm_ft f32 at n = 16384 and f64 at n = 8192 (virtual 2 x 4): a
+   clean Detect run against gemm_mesh (clean report, online discrepancy
+   and its threshold, kt ft_summa_update launches, seconds, overhead), FT
+   off bitwise gemm_mesh, a seeded trailing fault (corrected) and a seeded
+   bcast fault (corrected or recomputed, naming the injected tile), each
+   within the plain gemm's gate — in f32 a seeded fault below slate_tpu's
+   threshold (16 max|C| at this size) is checked by floor_ratio instead,
+   and a flip of 10 thresholds must be corrected;
+21. mesh_potrf_ft / mesh_getrf_nopiv_ft f32 and f64 at n = 16384: a clean
+   run, a seeded panel-store fault and a panel flip of 10 thresholds (a
+   detected one corrected, info 0, the factor within the verify's
+   threshold of the clean one, L L^T = A resp. L U = A in f64 within
+   n eps n max|L| max|L^T|; one below slate_tpu's threshold checked by
+   floor_ratio; the f64 flip must be detected), the launches derived from
+   the loop; an f64 potrf trailing fault recomputed;
+22. ft_drivers: posv_mesh and gesv_nopiv_mesh f32 at n = 16384 under
+   FaultTolerance correct (eta, omega, info 0), and a persistent double
+   fault raising FtError;
+23. ft_smoke: slate_tpu_torch.ft.smoke on the card;
+24. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
    the psum/ring/doubling lowerings, and the non-SPD info rule;
-20. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
+25. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
    bitwise across lookahead 0/1/2 and psum/ring/doubling, and a zero
    column j giving info j + 1;
-21. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
+26. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
    half; n = 64, nb = 8, 2 x 4);
-22. kernels: the line of every ported kernel (one row per kernel and
+27. kernels: the line of every ported kernel (one row per kernel and
    dtype), then the card line and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -496,7 +521,7 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
 
 COUNTED = ("chol_diag_inv", "chol_panel_tiles", "chol_trailing_update", "summa_update",
            "lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update", "qr_panel",
-           "qr_panel_offset")
+           "qr_panel_offset", "ft_summa_update")
 
 
 def reset_counts(kernels):
@@ -1278,6 +1303,443 @@ def mesh_gels_phase(dtype, kernels, mp, x_single, torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the FT slice: the checksum-carrying SUMMA kernel and the ABFT mesh drivers
+# ---------------------------------------------------------------------------
+
+# gemm_ft at the mesh gemm's size; f64 at half, as the other f64 paths
+FT_GEMM_N = {"float32": 16384, "float64": 8192}
+FT_FACTOR_N = 16384
+FT_WARMUP_N = 2048
+FT_DOUBLE_N = 4096
+
+
+def ft_shape(n):
+    """(mt, kt, mtl, ntl) of gemm_ft at n: the data tile count, the
+    k-steps, and the local stacks of the augmented grid (mt + 2 checksum
+    tile rows / columns, padded to the mesh)."""
+    mt = n // NB
+    aug = -(-(mt + 2) // math.lcm(P, Q)) * math.lcm(P, Q)
+    return mt, mt, aug // P, aug // Q
+
+
+def kernel_ft_summa_phase(dtype, kernels, testing, local_indices, torch):
+    """ft_summa_update against its twin at one step of the f32 n = 16384 (f64
+    n = 8192) gemm_ft: acc (2, 4, mtl, ntl) tiles of 256, the stride-0 A
+    column panel (2, 1, mtl) and B row panel (1, 4, ntl), the weights of the
+    real augmented grid (zero on the checksum and pad rows).  acc holds to
+    the tile-update limit, each part to it scaled by sum |w| plus the two
+    orders of the I-row sum (utils.testing.ft_summa_check); a zeroed part,
+    and in f32 a TF32 product, must each fail their reading."""
+    name = dname(dtype)
+    mt, _, mtl, ntl = ft_shape(FT_GEMM_N[name])
+    acc = randn((P, Q, mtl, ntl, NB, NB), dtype, SEED + 91, torch, 10.0)
+    pan = randn((P, 1, mtl, NB, NB), dtype, SEED + 92, torch)
+    urow = randn((1, Q, ntl, NB, NB), dtype, SEED + 93, torch)
+    part = randn((P, Q, 2, ntl, NB, NB), dtype, SEED + 94, torch, 100.0)
+    _, _, i_log, _ = local_indices(P, Q, mtl, ntl, "cuda")
+    data = i_log < mt
+    w1, w2 = data.to(dtype), ((i_log + 1) * data).to(dtype)
+    got = kernels.ft_summa_update(acc.clone(), pan, urow, w1, w2, part.clone())
+    torch.cuda.synchronize()
+    want = kernels.ft_summa_update_plain(acc.clone(), pan, urow, w1, w2, part.clone())
+    readings = testing.ft_summa_check(acc, pan, urow, w1, w2, part, got, want)
+    zeroed = testing.ft_summa_check(acc, pan, urow, w1, w2, part,
+                                    (got[0], torch.zeros_like(got[1])), want)
+    mutants = {"zeroed_part0": zeroed["part0"], "zeroed_part1": zeroed["part1"]}
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = kernels.ft_summa_update_plain(acc.clone(), pan, urow, w1, w2, part.clone())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        r = testing.ft_summa_check(acc, pan, urow, w1, w2, part, tf32, want)
+        mutants.update({"tf32_acc": r["acc"], "tf32_part0": r["part0"], "tf32_part1": r["part1"]})
+        del tf32
+    err = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+    del got, want
+    check(all(v <= 1 for v in readings.values()), f"ft_summa_update {name}: {readings}")
+    check(all(v > 1 for v in mutants.values()), f"ft_summa_update {name}: a mutant passed {mutants}")
+    a2, p2 = acc.clone(), part.clone()
+    ms = cuda_ms(lambda: kernels.ft_summa_update(a2, pan, urow, w1, w2, p2), 5, torch)
+    plain_ms = cuda_ms(lambda: kernels.ft_summa_update_plain(a2, pan, urow, w1, w2, p2), 2, torch)
+    w1e, w2e = w1.expand(P, Q, mtl), w2.expand(P, Q, mtl)
+
+    def library():
+        upd = torch.matmul(pan.unsqueeze(-3), urow.unsqueeze(-4))
+        torch.einsum("rqi,rqijab->rqjab", w1e, upd)
+        torch.einsum("rqi,rqijab->rqjab", w2e, upd)
+
+    library_ms = cuda_ms(library, 3, torch)
+    tiles = P * Q * mtl * ntl
+    isz = acc.element_size()
+    # acc and part read and written once, the panels and weights read once
+    nbytes = (2 * acc.numel() + 2 * part.numel() + pan.numel() + urow.numel()
+              + 2 * P * mtl) * isz
+    flops = tiles * (2 * NB ** 3 + 4 * NB * NB)  # the products, then 2 weighted adds each
+    row = row_of("ft_summa_update", dtype, "slate_tpu_torch/csrc/ft_summa_update.cu",
+                 "slate_tpu/ops/pallas_ops.py:819", err, ms, plain_ms, library_ms, nbytes, flops)
+    emit({"phase": f"kernel_ft_summa_{name}", "grid": [P, Q, mtl, ntl], "nb": NB,
+          "readings": readings, "mutant_readings": mutants, "max_abs_err": err,
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
+    del acc, part, a2, p2
+    torch.cuda.empty_cache()
+    return row
+
+
+def timed(fn, torch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def floor_ratio(err, out, ops, scale_tiles, nb, cks):
+    """How far an output error E = (faulty - clean) reaches toward
+    slate_tpu's detection threshold, on the side whose carried checksums
+    the fault cannot touch: the largest unit and ramp tile-column sums of
+    E, each over its threshold, the thresholds taken as the reference
+    takes them — 64 ops eps times scale_tiles (scale_tiles^2 for the ramp)
+    times max|out| of the FAULTY output.  < 1: the reference's decision
+    rule flags nothing from that side."""
+    fmax = max(1.0, cks.finite_max(out))
+    tol1 = cks.threshold(ops, out.dtype, scale_tiles * fmax)
+    tol2 = cks.threshold(ops, out.dtype, scale_tiles * scale_tiles * fmax)
+    d = cks.row_checksums(err, nb).abs()
+    return max(float(d[:nb].max()) / tol1, float(d[nb:].max()) / tol2)
+
+
+def fault_fields(f):
+    return [f.k, f.phase, f.ti, f.tj, f.r, f.c, f.mode, f.value]
+
+
+def mesh_gemm_ft_phase(dtype, kernels, mp, torch):
+    """gemm_ft (virtual 2 x 4, nb = 256) at n = 16384 f32 / 8192 f64 against
+    the plain gemm_mesh of the same operands: a clean Detect run (clean
+    report, the online discrepancy and its threshold, one ft_summa_update
+    launch per k-step, seconds and the overhead over gemm_mesh), gemm_mesh
+    with FaultTolerance off bitwise equal to gemm_mesh, then the seeded
+    trailing (21) and bcast (22) faults under Correct.  A detected fault
+    must end corrected (trailing) or corrected / recomputed (bcast), its
+    detections naming the injected tile row or column, the result within
+    the plain gemm's gate.  slate_tpu's threshold is 64 ops eps mt max|C|
+    (16 max|C| in f32 at n = 16384), so an f32 fault stays below it (the
+    threshold grows with max|C| of the faulty output, so no f32 fault there
+    is seen): its error's tile-column sums must read < 1 of the threshold
+    (floor_ratio), the reference's own decision.  The f64 faults and the
+    f32 seeded trailing fault at n = 2048 (0.25 max|C|) must be detected
+    and corrected."""
+    from slate_tpu_torch.ft import FaultPlan, FtPolicy, abft, checksum, fault_scope, inject
+    from slate_tpu_torch.obs import REGISTRY
+    from slate_tpu_torch.types import Option
+
+    name = dname(dtype)
+    n = FT_GEMM_N[name]
+    mt, kt, _, _ = ft_shape(n)
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    aw = randn((FT_WARMUP_N, FT_WARMUP_N), dtype, SEED + 100, torch)
+    abft.gemm_ft(1.0, aw, aw, mesh, NB, policy=FtPolicy.Detect)  # handles, allocator, kernel loads
+    del aw
+    a = randn((n, n), dtype, SEED + 101, torch)
+    b = randn((n, n), dtype, SEED + 102, torch)
+    ref = torch.matmul(a, b)  # full precision (TF32 off)
+    rmax = float(ref.abs().max())
+    gate = 4 * math.sqrt(n) * torch.finfo(dtype).eps  # mesh_gemm_phase's gate
+
+    def rel(c):
+        return float((c - ref).abs().max()) / rmax
+
+    plain, plain_s = timed(lambda: mp.gemm_mesh(1.0, a, b, mesh, NB), torch)
+    off = mp.gemm_mesh(1.0, a, b, mesh, NB, opts={Option.FaultTolerance: "off"})
+    off_bitwise = bool(torch.equal(off, plain))
+    del off
+    reset_counts(kernels)
+    REGISTRY.reset()
+    torch.cuda.reset_peak_memory_stats()
+    (c, rep), ft_s = timed(lambda: abft.gemm_ft(1.0, a, b, mesh, NB, policy=FtPolicy.Detect), torch)
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    disc = REGISTRY.gauge_value("ft.online_disc", op="gemm")
+    cmax = max(1.0, float(c.abs().max()))
+    tol1 = checksum.threshold((kt + mt) * NB, dtype, mt * cmax)
+    clean = {"report_clean": rep.clean, "online_disc": disc, "threshold": tol1,
+             "threshold_over_max_abs_c": tol1 / cmax, "rel_err": rel(c), "rel_err_plain": rel(plain),
+             "max_abs_diff_vs_gemm_mesh": float((c - plain).abs().max()),
+             "bitwise_gemm_mesh": bool(torch.equal(c, plain)), "seconds": ft_s,
+             "gemm_mesh_seconds": plain_s, "overhead": ft_s / plain_s, "peak_mem_bytes": peak}
+    del c
+    faults = {}
+    plan = [("seeded_trailing", inject.seeded_fault(21, "gemm", kt, (P, Q), phase="trailing")),
+            ("seeded_bcast", inject.seeded_fault(22, "gemm", kt, (P, Q), phase="bcast"))]
+    for label, f in plan:
+        with fault_scope(FaultPlan([f])):
+            (c, rep), s = timed(lambda: abft.gemm_ft(1.0, a, b, mesh, NB, policy=FtPolicy.Correct),
+                                torch)
+        wheres = [tuple(d["where"]) for d in rep.detections]
+        faults[label] = {"fault": fault_fields(f), "action": rep.action, "detections": wheres,
+                         "rel_err": rel(c), "seconds": s,
+                         "names_tile": any(f.ti in w or f.tj in w for w in wheres),
+                         "floor_ratio": floor_ratio(c - plain, c, (kt + mt) * NB, mt, NB, checksum)}
+        del c
+    if dtype == torch.float32:
+        # the f32 correction path where the reference's threshold (0.25
+        # max|C| at n = 2048) sees the seeded fault
+        m = FT_WARMUP_N
+        a2 = randn((m, m), dtype, SEED + 103, torch)
+        b2 = randn((m, m), dtype, SEED + 104, torch)
+        ref2 = torch.matmul(a2, b2)
+        f = inject.seeded_fault(21, "gemm", m // NB, (P, Q), phase="trailing")
+        with fault_scope(FaultPlan([f])):
+            c, rep = abft.gemm_ft(1.0, a2, b2, mesh, NB, policy=FtPolicy.Correct)
+        wheres = [tuple(d["where"]) for d in rep.detections]
+        faults[f"seeded_trailing_n{m}"] = {
+            "fault": fault_fields(f), "action": rep.action, "detections": wheres,
+            "rel_err": float((c - ref2).abs().max()) / float(ref2.abs().max()),
+            "gate": 4 * math.sqrt(m) * torch.finfo(dtype).eps,
+            "names_tile": any(f.ti in w or f.tj in w for w in wheres)}
+        del a2, b2, ref2, c
+    emit({"phase": f"mesh_gemm_ft_{name}", "n": n, "nb": NB, "grid": [P, Q], "kt": kt,
+          "gate": gate, "clean": clean, "ft_off_bitwise": off_bitwise, "faults": faults,
+          "launches": counts})
+    check(off_bitwise, f"gemm_ft {name}: FaultTolerance off is not bitwise gemm_mesh")
+    check(clean["report_clean"] and disc is not None and 0 <= disc < 1e-2 * tol1,
+          f"gemm_ft {name}: clean run {clean}")
+    check(clean["rel_err"] < gate and clean["rel_err_plain"] < gate, f"gemm_ft {name}: {clean}")
+    check(counts["ft_summa_update"] == kt,
+          f"gemm_ft {name}: {counts['ft_summa_update']} ft_summa_update launches, expected {kt}")
+    for label, v in faults.items():
+        if v["action"] == "clean":  # below the reference's threshold: its decision too
+            check(v["floor_ratio"] < 1, f"gemm_ft {name} {label}: undetected at floor ratio {v}")
+            continue
+        ok = v["action"] == "corrected" or ("bcast" in label and v["action"] == "recomputed")
+        check(ok and v["names_tile"] and v["rel_err"] < v.get("gate", gate),
+              f"gemm_ft {name} {label}: {v}")
+    # f64 (threshold ~1e-8 max|C|) and f32 at n = 2048 (0.25 max|C|) see
+    # their seeded faults; f32 at n = 16384 (16 max|C|) does not
+    seen = [k for k in faults if dtype == torch.float64 or k.endswith(f"_n{FT_WARMUP_N}")]
+    check(all(faults[k]["action"] != "clean" for k in seen), f"gemm_ft {name}: {faults}")
+    del a, b, ref, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def factor_ratio(a, fac, form, n, torch):
+    """The factor against A in f64: L L^T (potrf) or L U (LU).  Returns
+    (normwise, elementwise): max|F1 F2 - A| / (n eps n max|F1| max|F2|),
+    the backward-error bound gamma_n |F1||F2| <= (n u) n max|F1| max|F2|
+    with room 2 (<= 1 passes), and the elementwise reading over
+    3 n eps |F1||F2| (reported: a repaired tile carries the rounding of
+    its column's checksum, the scale of the whole column, so its small
+    entries can sit above their own elementwise bound; the repair itself
+    is held by repair_limit)."""
+    eps = torch.finfo(a.dtype).eps
+    f64 = fac.double()
+    if form == "potrf":
+        f1 = f64.tril()
+        del f64
+        f2 = f1.T
+    else:
+        f1, f2 = f64.tril(-1), f64.triu()
+        del f64
+        f1.diagonal().fill_(1)
+    res = (f1 @ f2 - a.double()).abs().max()
+    norm = float(res) / (n * eps * n * float(f1.abs().max()) * float(f2.abs().max()))
+    return norm, residual_ratio(f1, f2, a.double(), n, eps, torch)
+
+
+def repair_limit(nt, dtype, fmax, torch):
+    """How far a repaired factor may lie from the clean run's factor: a few
+    ulps of its column checksum's scale, 4 mt eps mt max|F| (mt = nt data
+    tile rows).  The repair is the carried checksum minus the recomputed
+    tile sums, exact up to that rounding; the limit sits far below the
+    detection threshold (64 n eps mt max|F|)."""
+    return 4 * nt * nt * torch.finfo(dtype).eps * fmax
+
+
+def misrepair_diff(dense, clean, f, corrupt):
+    """max|mutant - clean| for a mutant whose repair block at the fault's
+    tile is scaled by 1 + 1e-6 (off by 1e-6 of the fault it undoes); the
+    rest of the factor is the repaired one."""
+    blk = (slice(f.ti * NB, (f.ti + 1) * NB), slice(f.tj * NB, (f.tj + 1) * NB))
+    tile = dense[blk]
+    faulty = tile.clone()
+    corrupt(faulty, f.mode, f.value)
+    mutant = tile + 1e-6 * (tile - faulty)
+    return max(float((dense - clean).abs().max()), float((mutant - clean[blk]).abs().max()))
+
+
+def expected_ft_launches(form, nt, la):
+    """Launches of one unfaulted factor run: the full-view loop (one
+    bucket).  potrf: nt chol_panel_tiles, the updates torch.matmul; LU:
+    nt panels and rows, and 3 nt - 2 lu_trailing_update at lookahead 1."""
+    if form == "potrf":
+        return {"chol_panel_tiles": nt, "chol_trailing_update": 0}
+    return {"lu_panel_tiles": nt, "lu_rowsolve_tiles": nt,
+            "lu_trailing_update": (3 * nt - 2) if la >= 1 else nt}
+
+
+def mesh_factor_ft_phase(form, dtype, kernels, mp, torch):
+    """potrf_ft / getrf_nopiv_ft at n = 16384 (virtual 2 x 4, nb = 256): a
+    clean run, then under Correct the seeded panel-store fault (12) and
+    the launches of that run derived from the loop; in f64 also a
+    panel-store flip of 10 thresholds, and for the f64 potrf the seeded
+    trailing fault (14).  slate_tpu's threshold is 64 N eps mt max|F|,
+    max|F| the largest entry of the packed factor (U's diagonal, ~n, for
+    the LU): 8 max|F| in f32 (it grows with the fault, so no f32 fault is
+    seen there), ~1.5e-8 max|F| in f64.  A detected fault must end
+    corrected (panel) / recomputed (trailing) with info 0, the factor equal
+    to A by reconstruction in f64 (factor_ratio's normwise bound) and a
+    corrected factor within repair_limit of the clean run's, where a
+    mis-repaired tile (misrepair_diff, for a zeroed or scaled tile, whose
+    repair block is the tile itself) must fail that limit.  A panel fault
+    the reference's rule does not flag (final data: its discrepancy is its
+    own tile sums) must read floor_ratio < 1."""
+    from slate_tpu_torch.ft import Fault, FaultPlan, FtPolicy, abft, checksum, fault_scope, inject
+
+    name = dname(dtype)
+    n = FT_FACTOR_N
+    nt = n // NB
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    op = "potrf" if form == "potrf" else "getrf_nopiv"
+    run = abft.potrf_ft if form == "potrf" else abft.getrf_nopiv_ft
+    make = (lambda m, s: dominant_spd(m, dtype, s, torch)) if form == "potrf" else \
+        (lambda m, s: lu_matrix("nopiv", m, dtype, s, torch))
+    aw = make(FT_WARMUP_N, SEED + 110)
+    run(aw, mesh, NB, policy=FtPolicy.Detect)  # handles, allocator, kernel loads
+    del aw
+    a = make(n, SEED + 111)
+    out = {"phase": f"mesh_{op}_ft_{name}", "n": n, "nb": NB, "grid": [P, Q]}
+    (fac, info, rep), s = timed(lambda: run(a, mesh, NB, policy=FtPolicy.Detect), torch)
+    clean = mp.to_dense(fac)
+    del fac
+    fmax = max(1.0, float(clean.abs().max()))
+    tol1 = checksum.threshold(n, dtype, nt * fmax)
+    limit = repair_limit(nt, dtype, fmax, torch)
+    out["clean"] = {"action": rep.action, "info": int(info), "seconds": s, "threshold": tol1,
+                    "threshold_over_max_abs_factor": tol1 / fmax, "repair_limit": limit}
+    lside = (lambda x: x.tril()) if form == "potrf" else (lambda x: x.tril(-1))
+    k = nt - 4
+    flip = Fault(op, k=k, phase="panel", ti=nt - 2, tj=k, r=(nt - 2) % P, c=k % Q,
+                 mode=inject.MODE_FLIP, value=10 * tol1)
+    # (label, fault, the action a detection must end in, must it be detected)
+    cases = [("panel", inject.seeded_fault(12, op, nt, (P, Q), phase="panel"), "corrected", False)]
+    if dtype == torch.float64:
+        cases.append(("flip_10x_threshold", flip, "corrected", True))
+    if form == "potrf" and dtype == torch.float64:
+        # live-data damage: its discrepancy is not E's tile sums (no
+        # floor_ratio), so only where the threshold sees it
+        cases.append(("trailing", inject.seeded_fault(14, op, nt, (P, Q), phase="trailing"),
+                      "recomputed", True))
+    want = expected_ft_launches(form, nt, 1)
+    for label, f, expect, must_see in cases:
+        reset_counts(kernels)
+        with fault_scope(FaultPlan([f])):
+            (fac, info, rep), s = timed(lambda: run(a, mesh, NB, policy=FtPolicy.Correct), torch)
+        counts = read_counts(kernels)
+        dense = mp.to_dense(fac)
+        del fac
+        res = {"fault": fault_fields(f), "action": rep.action, "info": int(info),
+               "detections": [tuple(d["where"]) for d in rep.detections], "seconds": s,
+               "launches": counts}
+        if rep.action == "clean":
+            res["floor_ratio"] = floor_ratio(lside(dense) - lside(clean), dense, n, nt, NB,
+                                             checksum)
+        else:
+            res["reconstruction_ratio"], res["elementwise_ratio"] = factor_ratio(a, dense, form, n,
+                                                                                 torch)
+            res["diff_vs_clean_over_limit"] = float((dense - clean).abs().max()) / limit
+            if rep.action == "corrected" and f.mode != inject.MODE_FLIP:
+                res["misrepair_over_limit"] = misrepair_diff(dense, clean, f, abft._corrupt) / limit
+        del dense
+        out[f"{label}_fault"] = res
+        if label == "panel":
+            out["expected_launches"] = want
+            if rep.action != "recomputed":  # one run: the launches of one factor
+                for key, v in want.items():
+                    check(counts[key] == v, f"{op}_ft {name}: {counts[key]} {key} launches, "
+                                            f"expected {v}")
+        if rep.action == "clean":  # below the reference's threshold: its decision too
+            check(not must_see and res["floor_ratio"] < 1 and int(info) == 0,
+                  f"{op}_ft {name} {label}: undetected {res}")
+        else:
+            check(rep.action == expect and int(info) == 0 and res["reconstruction_ratio"] <= 1
+                  and res["diff_vs_clean_over_limit"] <= 1
+                  and res.get("misrepair_over_limit", 2) > 1, f"{op}_ft {name} {label}: {res}")
+    emit(out)
+    check(out["clean"]["action"] == "clean" and out["clean"]["info"] == 0,
+          f"{op}_ft {name}: {out['clean']}")
+    check(form != "potrf" or dtype != torch.float64
+          or "misrepair_over_limit" in out["panel_fault"],
+          f"{op}_ft {name}: the seeded panel fault was not repaired, so no mis-repair was held")
+    del a, clean
+    torch.cuda.empty_cache()
+    return out
+
+
+def ft_drivers_phase(mp, torch):
+    """Option.FaultTolerance through the mesh drivers, f32 at n = 16384:
+    posv_mesh (eta gate, info 0) and gesv_nopiv_mesh (eta and omega gates,
+    info 0) under ``correct``; a persistent double fault (two trailing
+    tiles scaled by 3 on every run) in the f64 LU at n = 4096 raises
+    FtError."""
+    from slate_tpu_torch.ft import Fault, FaultPlan, FtError, fault_scope
+    from slate_tpu_torch.types import Option
+
+    dtype = torch.float32
+    n = FT_FACTOR_N
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    opts = {Option.FaultTolerance: "correct"}
+    b = randn((n, NRHS), dtype, SEED + 121, torch)
+    gate = 100 * n * torch.finfo(dtype).eps
+    out = {"phase": "ft_drivers", "n": n, "nrhs": NRHS}
+    a = dominant_spd(n, dtype, SEED + 120, torch)
+    (x, info), s = timed(lambda: mp.posv_mesh(a, b, mesh, NB, opts=opts), torch)
+    out["posv_mesh"] = {"info": int(info), "eta": eta(a, x, b, torch), "eta_gate": gate,
+                        "seconds": s}
+    del a, x
+    torch.cuda.empty_cache()
+    a = lu_matrix("nopiv", n, dtype, SEED + 122, torch)
+    (x, info), s = timed(lambda: mp.gesv_nopiv_mesh(a, b, mesh, NB, opts=opts), torch)
+    out["gesv_nopiv_mesh"] = {"info": int(info), "eta": eta(a, x, b, torch), "eta_gate": gate,
+                              "omega": omega(a, x, b, torch),
+                              "omega_gate": omega_gate(n, dtype, torch), "seconds": s}
+    del a, x
+    torch.cuda.empty_cache()
+    # in f64: the f32 threshold at this size sits above these mild faults
+    nd = FT_DOUBLE_N
+    a = lu_matrix("nopiv", nd, torch.float64, SEED + 123, torch)
+    faults = [Fault("getrf_nopiv", k=1, phase="trailing", ti=4, tj=5, r=4 % P, c=5 % Q, mode=2,
+                    value=3.0, persist=True),
+              Fault("getrf_nopiv", k=2, phase="trailing", ti=6, tj=4, r=6 % P, c=4 % Q, mode=2,
+                    value=3.0, persist=True)]
+    try:
+        with fault_scope(FaultPlan(faults)):
+            mp.getrf_nopiv_mesh(a, mesh, NB, opts=opts)
+        out["double_fault"] = {"n": nd, "raised": False}
+    except FtError as e:
+        out["double_fault"] = {"n": nd, "raised": True, "reason": e.reason,
+                               "detections": len(e.detections)}
+    emit(out)
+    for k in ("posv_mesh", "gesv_nopiv_mesh"):
+        check(out[k]["info"] == 0 and out[k]["eta"] < gate, f"ft drivers {k}: {out[k]}")
+    check(out["gesv_nopiv_mesh"]["omega"] < out["gesv_nopiv_mesh"]["omega_gate"],
+          f"ft drivers gesv_nopiv_mesh: {out['gesv_nopiv_mesh']}")
+    check(out["double_fault"]["raised"], f"ft drivers: persistent double fault gave no FtError")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def ft_smoke_phase():
+    """``python -m slate_tpu_torch.ft.smoke --device cuda``'s run."""
+    from slate_tpu_torch.ft import smoke
+
+    res = smoke.run_smoke("cuda")
+    emit({"phase": "ft_smoke", **res})
+    check(res["ok"], f"ft smoke failed: {res['scenarios']}")
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -1306,6 +1768,7 @@ def main():
     from slate_tpu_torch import parallel as mp
     from slate_tpu_torch.parallel.comm import bucket_plan, local_indices
     from slate_tpu_torch.parallel.dryrun import posv_chain
+    from slate_tpu_torch.utils import testing
 
     # 1. card
     kind = torch.cuda.get_device_name(0)
@@ -1389,12 +1852,27 @@ def main():
         check(row["launches"], f"{row['name']}: no launch on its path")
     rows += list(qr_rows.values())
 
-    # 19-21. invariants and the dryrun
+    # 19-23. the FT kernel vs its twin, then the ABFT mesh paths; every count
+    # is read right after its path: ft_summa_update's rows take the clean
+    # gemm_ft runs
+    ft_rows = {dt: kernel_ft_summa_phase(dt, kernels, testing, local_indices, torch)
+               for dt in (torch.float32, torch.float64)}
+    for dt, row in ft_rows.items():
+        row["launches"] = mesh_gemm_ft_phase(dt, kernels, mp, torch)["ft_summa_update"]
+        check(row["launches"], f"{row['name']}: no launch on its path")
+    rows += list(ft_rows.values())
+    for form in ("potrf", "lu"):
+        for dt in (torch.float32, torch.float64):
+            mesh_factor_ft_phase(form, dt, kernels, mp, torch)
+    ft_drivers_phase(mp, torch)
+    ft_smoke_phase()
+
+    # 24-26. invariants and the dryrun
     mesh_invariants_phase(mp, posv_chain, torch)
     lu_invariants_phase(mp, torch)
     dryrun_phase()
 
-    # 22. kernels line, card line, result
+    # 27. kernels line, card line, result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,25 +1,51 @@
-"""Simplified verb-named API of the port (the Cholesky and QR verbs).
+"""Simplified verb-named API of the port (multiply, the Cholesky and QR
+verbs).
 
-Counterpart of ``chol_factor`` / ``chol_solve`` / ``chol_solve_using_factor``
-and ``least_squares_solve`` / ``qr_factor`` / ``qr_multiply_by_q`` /
-``lq_factor`` / ``lq_multiply_by_q`` in ``slate_tpu/api.py``; the other verbs
-come with their slices.  Each verb
+Counterpart of ``multiply``, ``chol_factor`` / ``chol_solve`` /
+``chol_solve_using_factor`` and ``least_squares_solve`` / ``qr_factor`` /
+``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` in
+``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
 computes on ``operand_device(first operand, device)``: tensors where they
 lie, anything else on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from .blas3 import blas3
 from .core.matrix import BaseMatrix, operand_device
 from .linalg import chol, qr
-from .types import Op, Side, Uplo
+from .types import Op, Option, Options, Side, Uplo, get_option
 
 ArrayLike = Union[torch.Tensor, BaseMatrix]
+
+
+def multiply(alpha, a: ArrayLike, b: ArrayLike, beta=0.0, c: Optional[ArrayLike] = None,
+             opts: Optional[Options] = None, device=None):
+    """C = alpha A B + beta C (slate::multiply -> gemm), on
+    ``operand_device(a, device)``.  Option.Precision in ``opts`` selects
+    the accumulation tier.  Option.FaultTolerance (an ABFT policy) routes
+    this single-array form through ``ft.abft.gemm_checked``: the product
+    and its row/column checksums are computed by independent products and
+    compared, with single-tile damage repaired under ``correct``, on tiles
+    of Option.BlockSize (default 32 here)."""
+    from .ft.policy import FtPolicy, resolve_policy
+
+    dev = operand_device(a, device)
+    policy = resolve_policy(opts)
+    if policy != FtPolicy.Off:
+        from .ft.abft import gemm_checked
+
+        nb = int(get_option(opts, Option.BlockSize, default=32))
+        return gemm_checked(alpha, blas3._arr(a, dev), blas3._arr(b, dev), beta,
+                            None if c is None else blas3._arr(c, dev), nb=nb, policy=policy)
+    if c is None:
+        am, bm = blas3._arr(a, dev), blas3._arr(b, dev)
+        c = torch.zeros((am.shape[0], bm.shape[1]), dtype=am.dtype, device=dev)
+    return blas3.gemm(alpha, a, b, beta, c, opts=opts, device=dev)
 
 
 def _data(a: ArrayLike, device: torch.device) -> torch.Tensor:

@@ -29,7 +29,12 @@ Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This module holds:
   batch of panels in one cooperative launch, with their twins
   :func:`qr_panel_plain` and :func:`qr_panel_offset_plain` (the
   ``_panel_qr`` + ``_larft`` and ``_panel_qr_offset`` + ``_larft_v``
-  pairs, ``slate_tpu/linalg/qr.py``'s Householder loops op for op).
+  pairs, ``slate_tpu/linalg/qr.py``'s Householder loops op for op);
+- the checksum-carrying SUMMA step on ``csrc/ft_summa_update.cu``:
+  :func:`ft_summa_update` (``ft_summa_update_pallas``: the tile update and
+  the Huang-Abraham weighted row sums in one pass), with its twin
+  :func:`ft_summa_update_plain`.  ``ft.abft`` gates it by
+  ``Option.PanelImpl`` (:func:`panel_engaged`), as ``slate_tpu`` does.
 
 Dispatch: ``pallas`` and ``auto`` take the CUDA kernel for a CUDA tensor and
 the plain twin for a CPU tensor (the wrapper decides by the tensor's
@@ -40,7 +45,7 @@ the twin: the kernel builds and launches, or the call raises.  The update
 wrappers work in place, where ``slate_tpu``'s return a new array.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call (the twin) does not count.  The other 5 Pallas kernels of
+call (the twin) does not count.  The other 4 Pallas kernels of
 ``pallas_ops.py`` / ``matmul.py`` are not ported yet (ROADMAP.md, kernel
 queue).
 """
@@ -834,3 +839,88 @@ def qr_panel_offset(a: torch.Tensor, row0
 
 
 qr_panel_offset.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the checksum-carrying SUMMA step: csrc/ft_summa_update.cu
+# ---------------------------------------------------------------------------
+
+_FT_SUMMA_DTYPES = {torch.float32: "ft_summa_update_f32", torch.float64: "ft_summa_update_f64"}
+
+
+def _ft_summa_fn(dtype: torch.dtype):
+    lib = _build.load("ft_summa_update")
+    fn = getattr(lib, _FT_SUMMA_DTYPES[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ft_summa_update_plain(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
+                          w1: torch.Tensor, w2: torch.Tensor, part: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of :func:`ft_summa_update`: one batched matmul of every
+    tile pair, added to ``acc``, and its unit / ramp weighted sums over
+    the tile rows added to ``part``, in place."""
+    upd = torch.matmul(pan.unsqueeze(-3), urow.unsqueeze(-4))  # (R, Q, I, J, nb, nb)
+    acc.add_(upd)
+    for s, w in enumerate((w1, w2)):
+        part[:, :, s].add_((w[..., None, None, None] * upd).sum(2))
+    return acc, part
+
+
+def ft_summa_update(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
+                    w1: torch.Tensor, w2: torch.Tensor, part: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One checksum-carrying SUMMA step over the virtual mesh, in place:
+    ``acc[r,c,i,j] += pan[r,c,i] @ urow[r,c,j]`` and ``part[r,c,s,j] +=
+    sum_i w_s[r,c,i] (pan[r,c,i] @ urow[r,c,j])`` for s = 0, 1 (``w1``,
+    ``w2``).  ``acc`` is (R, Q, I, J, nb, nb), ``part`` (R, Q, 2, J, nb,
+    nb), any strides; ``pan`` / ``urow`` broadcast to (R, Q, I|J, nb, nb)
+    and the weights to (R, Q, I), read through stride 0.  CPU tensors take
+    :func:`ft_summa_update_plain`; CUDA tensors launch
+    ``csrc/ft_summa_update.cu`` once (``ft_summa_update.launches``) or the
+    call raises: on a CPU/CUDA mix, a dtype other than f32/f64, a
+    non-square tile or shapes that do not broadcast."""
+    ops = (acc, pan, urow, w1, w2, part)
+    if all(t.device.type == "cpu" for t in ops):
+        return ft_summa_update_plain(*ops)
+    who = "ft_summa_update"
+    dev = acc.device
+    if any(t.device != dev for t in ops) or dev.type != "cuda":
+        raise ValueError(f"{who}: operands must all lie on one CUDA device, got "
+                         f"{[str(t.device) for t in ops]}")
+    if acc.dtype not in _FT_SUMMA_DTYPES:
+        raise TypeError(f"{who}: dtype {acc.dtype} not supported on CUDA (f32, f64)")
+    if any(t.dtype != acc.dtype for t in ops):
+        raise ValueError(f"{who}: operands must share one dtype, got {[t.dtype for t in ops]}")
+    if acc.dim() != 6 or part.dim() != 6 or pan.dim() != 5 or urow.dim() != 5:
+        raise ValueError(f"{who}: need acc (R,Q,I,J,nb,nb), pan (R,Q,I,nb,nb), urow "
+                         f"(R,Q,J,nb,nb), part (R,Q,2,J,nb,nb); got {tuple(acc.shape)}, "
+                         f"{tuple(pan.shape)}, {tuple(urow.shape)}, {tuple(part.shape)}")
+    R, Q, I, J, nb, nb2 = acc.shape
+    if nb != nb2:
+        raise ValueError(f"{who}: tiles must be square, got {nb} x {nb2}")
+    if tuple(part.shape) != (R, Q, 2, J, nb, nb):
+        raise ValueError(f"{who}: part {tuple(part.shape)} must be {(R, Q, 2, J, nb, nb)}")
+    try:
+        pan = pan.expand(R, Q, I, nb, nb)
+        urow = urow.expand(R, Q, J, nb, nb)
+        w1 = w1.expand(R, Q, I)
+        w2 = w2.expand(R, Q, I)
+    except RuntimeError as e:
+        raise ValueError(f"{who}: operand shapes do not broadcast to the tile grid: {e}") from e
+    geom = (ctypes.c_longlong * 33)(R, Q, I, J, nb, *pan.stride(), *urow.stride(), *acc.stride(),
+                                    *w1.stride(), *w2.stride(), *part.stride())
+    fn = _ft_summa_fn(acc.dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(pan.data_ptr(), urow.data_ptr(), acc.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                part.data_ptr(), geom, stream)
+    if rc != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error {rc}")
+    ft_summa_update.launches += 1
+    return acc, part
+
+
+ft_summa_update.launches = 0

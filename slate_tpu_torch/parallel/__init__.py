@@ -1,12 +1,14 @@
 """The mesh layer of the port: a virtual (p, q) process grid on one card,
 the block-cyclic DistMatrix, the communication verbs, the distributed
 Cholesky, LU (no-pivot, tournament and partial pivot), triangular solve and
-GEMM, CAQR, and the LU and least-squares drivers -- ``slate_tpu.parallel``'s
-names for the slices that run the distributed SPD solve (potrf_dist ->
-trsm_dist -> gemm_summa), the distributed LU solves (gesv_mesh,
-gesv_nopiv_mesh, gesv_tntpiv_mesh) and the distributed least squares
-(geqrf_mesh, gels_mesh: geqrf_dist -> unmqr_dist -> trsm_dist).  The other
-mesh drivers come with their slices."""
+GEMM, CAQR, and the gemm, Cholesky, LU and least-squares drivers --
+``slate_tpu.parallel``'s names for the slices that run the distributed SPD
+solve (posv_mesh: potrf_dist -> trsm_dist), the mesh gemm (gemm_mesh:
+gemm_summa), the distributed LU solves (gesv_mesh, gesv_nopiv_mesh,
+gesv_tntpiv_mesh) and the distributed least squares (geqrf_mesh,
+gels_mesh: geqrf_dist -> unmqr_dist -> trsm_dist), with
+Option.FaultTolerance routing to ``ft.abft``.  The other mesh drivers come
+with their slices."""
 
 from .mesh import COL_AXIS, ROW_AXIS, VirtualMesh, make_mesh, mesh_shape
 from .dist import DistMatrix, empty_like, from_dense, local_view, padded_tiles, to_dense
@@ -18,6 +20,7 @@ from .dist_qr import DistQR, geqrf_dist, unmqr_dist
 from .dist_refine import MIXED_ENV, MIXED_MODES, resolve_mixed, use_mixed
 from .drivers import (
     gels_mesh,
+    gemm_mesh,
     geqrf_mesh,
     gesv_mesh,
     gesv_nopiv_mesh,
@@ -25,4 +28,6 @@ from .drivers import (
     getrf_mesh,
     getrf_nopiv_mesh,
     getrf_tntpiv_mesh,
+    posv_mesh,
+    potrf_mesh,
 )

@@ -102,6 +102,8 @@ def from_dense(
             d = torch.arange(min(m, n), min(mp, np_), device=a.device)
             a[d, d] = 1
     t = to_cyclic(to_tiles(a, nb), *mesh_shape(mesh))
+    if t.untyped_storage().data_ptr() == a.untyped_storage().data_ptr():
+        t = t.clone()  # a 1 x 1 grid's reorder is a view: never alias the caller's a
     no_pad = mp == m and np_ == n
     return DistMatrix(tiles=t, m=m, n=n, nb=nb, mesh=mesh, diag_pad=diag_pad_one or no_pad)
 

@@ -90,7 +90,9 @@ class _Update:
     """A step's deferred trailing update: ``pan`` (p, 1, I, nb, nb), each
     mesh row's solved panel column (zeros off the rows below the step),
     and ``urow`` (1, q, J, nb, nb), each mesh column's solved panel row.
-    The ``torch.matmul`` form computes their full-grid product once
+    ``pan`` may also hold every device's own received copy, (p, q, I, nb,
+    nb) (``ft.abft`` materializes it on a step a broadcast fault is armed
+    for).  The ``torch.matmul`` form computes their full-grid product once
     (:meth:`product`) and subtracts it in shares."""
 
     def __init__(self, pan: torch.Tensor, urow: torch.Tensor):
@@ -102,9 +104,9 @@ class _Update:
         one product of each mesh row's (I nb, nb) panel with each mesh
         column's (nb, J nb) row, batched over the grid."""
         if self._prod is None:
-            p, _, i_n, nb, _ = self.pan.shape
+            p, pq, i_n, nb, _ = self.pan.shape
             q, j_n = self.urow.shape[1], self.urow.shape[2]
-            a = self.pan.reshape(p, 1, i_n * nb, nb)
+            a = self.pan.reshape(p, pq, i_n * nb, nb)
             b = self.urow.permute(0, 1, 3, 2, 4).reshape(1, q, nb, j_n * nb)
             prod = torch.matmul(a, b)  # (p, q, I nb, J nb)
             self._prod = prod.view(p, q, i_n, nb, j_n, nb).permute(0, 1, 2, 4, 3, 5)

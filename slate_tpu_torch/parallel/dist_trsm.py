@@ -92,8 +92,11 @@ def _solve_row(b_loc, dtile, k, p, eff_lower, unit):
     return bcast_from_row(brow, r0, p)
 
 
-def _trsm_b(at, bt, p, q, nt, uplo, op, diag, la):
-    """TrsmB (``slate_tpu``'s ``_trsm_jit``), in place on B's tile copy."""
+def _trsm_b(at, bt, p, q, nt, uplo, op, diag, la, on_pan=None, on_step=None):
+    """TrsmB (``slate_tpu``'s ``_trsm_jit``), in place on B's tile copy.
+    ``on_pan(k, pan) -> pan`` and ``on_step(k, b_loc)`` are the fault hooks
+    of ``ft.abft.trsm_ft``: after step k's panel is received, and after
+    step k's update lands (None: the plain solve)."""
     trans, conj, eff_lower, forward, unit = _flags(uplo, op, diag)
     a_loc, b_loc = local_view(at, p, q), local_view(bt, p, q)
     mtl, ntl = a_loc.shape[2], a_loc.shape[3]
@@ -117,6 +120,8 @@ def _trsm_b(at, bt, p, q, nt, uplo, op, diag, la):
             arow = bcast_from_row(a_loc[k % p:k % p + 1, :, k // p], k % p, p)
             allrow = all_gather_a(arow, COL_AXIS, q)[0, 0]  # (q, ntl, nb, nb)
             pan = torch.where(remaining, opt(allrow[i_log % q, i_log // q]), 0)
+        if on_pan is not None:
+            pan = on_pan(k, pan)
         return dtile, pan
 
     def consume(s, panels, b_loc):
@@ -124,6 +129,8 @@ def _trsm_b(at, bt, p, q, nt, uplo, op, diag, la):
         dtile, pan = panels
         xrow = _solve_row(b_loc, dtile, k, p, eff_lower, unit)
         b_loc -= torch.matmul(pan.unsqueeze(-3), xrow.unsqueeze(-4))
+        if on_step is not None:
+            on_step(k, b_loc)
         return b_loc
 
     prefetch_bcast(nt, la, fetch, consume, b_loc)

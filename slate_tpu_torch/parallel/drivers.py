@@ -1,22 +1,33 @@
-"""Mesh-level drivers: dense-in / dense-out distributed LU solves and
-least squares.
+"""Mesh-level drivers: dense-in / dense-out distributed gemm, Cholesky, LU
+solves and least squares.
 
-Counterpart of the LU and QR drivers of ``slate_tpu/parallel/drivers.py``
-(the reference's ``src/gesv.cc``, ``getrf*.cc``, ``geqrf.cc`` and
-``gels_qr.cc`` run with a 2D block-cyclic distribution): ``getrf_nopiv_mesh``
-/ ``gesv_nopiv_mesh`` (no pivoting), ``getrf_tntpiv_mesh`` /
-``gesv_tntpiv_mesh`` (tournament pivoting, CALU), ``getrf_mesh`` /
-``gesv_mesh`` (partial pivoting, the reference's default
+Counterpart of ``slate_tpu/parallel/drivers.py`` (the reference's
+``src/gemm.cc``, ``src/posv.cc``, ``src/gesv.cc``, ``getrf*.cc``,
+``geqrf.cc`` and ``gels_qr.cc`` run with a 2D block-cyclic distribution):
+``gemm_mesh`` (SUMMA), ``potrf_mesh`` / ``posv_mesh`` (Cholesky),
+``getrf_nopiv_mesh`` / ``gesv_nopiv_mesh`` (no pivoting),
+``getrf_tntpiv_mesh`` / ``gesv_tntpiv_mesh`` (tournament pivoting, CALU),
+``getrf_mesh`` / ``gesv_mesh`` (partial pivoting, the reference's default
 ``MethodLU::PartialPiv``) and ``geqrf_mesh`` / ``gels_mesh`` (CAQR), with
-the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs are padded with an identity diagonal block
-(``from_dense(..., diag_pad_one=True)``), so padded runs stay exact.
+the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs are padded
+with an identity diagonal block (``from_dense(..., diag_pad_one=True)``),
+so padded runs stay exact.
+
+``Option.FaultTolerance`` (``ft.policy.FtPolicy``; off by default) reroutes
+``gemm_mesh``, ``potrf_mesh`` (and so ``posv_mesh``) and
+``getrf_nopiv_mesh`` (and so ``gesv_nopiv_mesh``) to the checksum-carrying
+drivers of ``ft/abft.py``; off runs the plain kernels untouched.  As in
+``slate_tpu``, the pivoted LU and QR drivers have no ABFT form and run
+plain under an active policy, and FaultTolerance together with
+``Option.Checkpoint`` raises ``ValueError``.
 
 Not ported yet, and refused with ``NotImplementedError``:
-``Option.FaultTolerance`` and ``Option.Checkpoint`` (the ABFT and
-checkpointed factor loops, ``geqrf_ckpt`` among them, slice 9) and the ``Option.MixedPrecision``
-ladder of an f64 ``gesv_mesh`` with a 2-D right-hand side (slice 4; the
-direct path runs under ``MixedPrecision=off`` and for f32).  The other
-drivers of ``slate_tpu.parallel.drivers`` come with their slices.
+``Option.Checkpoint`` (the checkpointed factor loops of ``ft/ckpt.py``,
+``geqrf_ckpt`` among them: a later PR of slice 9) and the
+``Option.MixedPrecision`` ladder of an f64 ``posv_mesh`` / ``gesv_mesh``
+with a 2-D right-hand side (slice 4; the direct path runs under
+``MixedPrecision=off`` and for f32).  The other drivers of
+``slate_tpu.parallel.drivers`` come with their slices.
 """
 
 from __future__ import annotations
@@ -29,11 +40,13 @@ import torch
 
 from ..types import Diag, Op, Option, Options, Uplo, get_option
 from .dist import DistMatrix, from_dense, to_dense
+from .dist_chol import potrf_dist
 from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
 from .dist_qr import DistQR, geqrf_dist, unmqr_dist
 from .dist_refine import resolve_mixed
 from .dist_trsm import trsm_dist
 from .mesh import VirtualMesh
+from .summa import gemm_summa
 
 _DEFAULT_NB = 256
 CKPT_ENV = "SLATE_TPU_CKPT"
@@ -64,21 +77,108 @@ def _nm(opts: Optional[Options]):
     return get_option(opts, Option.NumMonitor)
 
 
-def _resilience(opts: Optional[Options]) -> None:
-    """Refuse an active Option.FaultTolerance policy or Option.Checkpoint
-    interval (explicit > ``SLATE_TPU_CKPT`` > off, as ``slate_tpu``)."""
-    ft = get_option(opts, Option.FaultTolerance)
-    if ft is not None and str(getattr(ft, "value", ft)) != "off":
-        raise NotImplementedError(
-            f"Option.FaultTolerance={ft!r}: the ABFT mesh factorizations are not "
-            "ported yet; they come with slice 9 (ft)")
+def _ft_on(opts: Optional[Options]) -> bool:
+    """True when Option.FaultTolerance selects an active ABFT policy (also
+    validates the value, so a mistyped policy fails loudly instead of
+    running unprotected)."""
+    from ..ft.policy import FtPolicy, resolve_policy
+
+    return resolve_policy(opts) != FtPolicy.Off
+
+
+def _ckpt_every(opts: Optional[Options]):
+    """Option.Checkpoint resolved as ``slate_tpu``'s ``resolve_checkpoint``:
+    explicit > ``SLATE_TPU_CKPT`` > off.  The snapshot interval, or None."""
     every = get_option(opts, Option.Checkpoint)
     if every is None:
-        every = os.environ.get(CKPT_ENV, "").strip() or None
-    if every not in (None, 0, False) and str(every) not in ("0", "off"):
+        env = os.environ.get(CKPT_ENV, "").strip()
+        if env in ("", "0", "off"):
+            return None
+        every = env
+    if every in (None, 0, False) or str(every) in ("0", "off"):
+        return None
+    return every
+
+
+def _resilience(opts: Optional[Options]) -> bool:
+    """Whether an active FaultTolerance policy reroutes the driver.  Arming
+    it together with Option.Checkpoint raises ``ValueError`` (as
+    ``slate_tpu``: the ABFT kernels are not checkpointed); a Checkpoint
+    interval alone raises ``NotImplementedError`` until the checkpointed
+    loops are ported."""
+    ft_on = _ft_on(opts)
+    every = _ckpt_every(opts)
+    if ft_on and every is not None:
+        raise ValueError(
+            "Option.FaultTolerance and Option.Checkpoint cannot be combined (the ABFT "
+            "kernels are not checkpointed); arm one of them")
+    if every is not None:
         raise NotImplementedError(
-            f"Option.Checkpoint={every!r}: the checkpointed mesh factorizations are "
-            "not ported yet; they come with slice 9 (ft)")
+            f"Option.Checkpoint={every!r}: the checkpointed mesh factorizations "
+            "(ft/ckpt.py) are not ported yet; they come with a later PR of slice 9 (ft)")
+    return ft_on
+
+
+def gemm_mesh(
+    alpha, a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0, c=None,
+    opts: Optional[Options] = None,
+) -> torch.Tensor:
+    """Distributed C = alpha A B (+ beta C) via SUMMA (src/gemmC.cc).
+    ``opts`` carries Option.Lookahead, Option.BcastImpl, Option.UpdateImpl
+    and Option.FaultTolerance (any active policy reroutes to the
+    checksum-carrying SUMMA of ft/abft.py)."""
+    if _ft_on(opts):
+        from ..ft.abft import gemm_mesh_ft
+
+        return gemm_mesh_ft(alpha, a, b, mesh, nb, beta, c, opts)
+    ad = from_dense(a, mesh, nb)
+    bd = from_dense(b, mesh, nb)
+    cd = from_dense(c, mesh, nb) if c is not None else None
+    return to_dense(gemm_summa(alpha, ad, bd, beta, cd, lookahead=_la(opts),
+                               bcast_impl=_bi(opts), update_impl=_ui(opts)))
+
+
+def potrf_mesh(
+    a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[DistMatrix, torch.Tensor]:
+    """Distributed lower Cholesky (src/potrf.cc): (L, info); ``a`` is the
+    full or lower Hermitian matrix.  Option.FaultTolerance reroutes to the
+    checksum-carrying mesh loop (ft/abft.py)."""
+    if _resilience(opts):
+        from ..ft.abft import potrf_mesh_ft
+
+        return potrf_mesh_ft(a, mesh, nb, opts)
+    return potrf_dist(
+        from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
+        bcast_impl=_bi(opts), panel_impl=_pi(opts), update_impl=_ui(opts),
+        num_monitor=_nm(opts), overwrite_a=True,
+    )
+
+
+def _posv_mesh_plain(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The direct SPD solve at the data's dtype: potrf, then the two
+    triangular sweeps."""
+    la, bi = _la(opts), _bi(opts)
+    l, info = potrf_mesh(a, mesh, nb, opts)
+    bd = from_dense(b, mesh, nb)
+    y = trsm_dist(l, bd, Uplo.Lower, Op.NoTrans, lookahead=la, bcast_impl=bi)
+    x = trsm_dist(l, y, Uplo.Lower, Op.ConjTrans, lookahead=la, bcast_impl=bi)
+    return to_dense(x), info
+
+
+def posv_mesh(
+    a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed SPD solve (src/posv.cc).  Returns (X dense, info).  In
+    ``slate_tpu`` an f64 system with a 2-D B goes through the
+    Option.MixedPrecision ladder by default; that ladder comes with slice
+    4, so here such a call raises ``NotImplementedError`` unless the mode
+    resolves to ``off``.  Option.FaultTolerance protects the factorization
+    (through ``potrf_mesh``); the sweeps run unprotected."""
+    _refuse_mixed("posv_mesh", a, b, opts)
+    return _posv_mesh_plain(a, b, mesh, nb, opts)
 
 
 def _solve(lu: DistMatrix, b, mesh: VirtualMesh, nb: int, perm, opts) -> torch.Tensor:
@@ -95,8 +195,13 @@ def _solve(lu: DistMatrix, b, mesh: VirtualMesh, nb: int, perm, opts) -> torch.T
 def getrf_nopiv_mesh(
     a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[DistMatrix, torch.Tensor]:
-    """Distributed LU without pivoting (src/getrf_nopiv.cc): (LU, info)."""
-    _resilience(opts)
+    """Distributed LU without pivoting (src/getrf_nopiv.cc): (LU, info).
+    Option.FaultTolerance reroutes to the checksum-carrying LU-nopiv mesh
+    loop (ft/abft.py)."""
+    if _resilience(opts):
+        from ..ft.abft import getrf_nopiv_mesh_ft
+
+        return getrf_nopiv_mesh_ft(a, mesh, nb, opts)
     return getrf_nopiv_dist(
         from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
         bcast_impl=_bi(opts), panel_impl=_pi(opts), update_impl=_ui(opts),
@@ -108,7 +213,9 @@ def gesv_nopiv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Distributed LU solve without pivoting: factor, then the two
-    triangular sweeps.  Returns (X dense, info)."""
+    triangular sweeps.  Returns (X dense, info).  Option.FaultTolerance
+    protects the factorization (through ``getrf_nopiv_mesh``); the sweeps
+    run unprotected."""
     lu, info = getrf_nopiv_mesh(a, mesh, nb, opts)
     return _solve(lu, b, mesh, nb, None, opts), info
 
@@ -118,7 +225,7 @@ def getrf_tntpiv_mesh(
 ) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
     """Distributed tournament-pivoted LU (src/getrf_tntpiv.cc): P A = L U.
     Returns (LU, perm over the padded row space, info)."""
-    _resilience(opts)
+    _resilience(opts)  # no ABFT form, as in slate_tpu: an active policy runs plain
     return getrf_tntpiv_dist(
         from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
         bcast_impl=_bi(opts), panel_impl=_pi(opts), num_monitor=_nm(opts),
@@ -140,7 +247,7 @@ def getrf_mesh(
 ) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
     """Distributed partial-pivot LU, the reference's default getrf
     (src/getrf.cc:23-200): (LU, perm over the padded row space, info)."""
-    _resilience(opts)
+    _resilience(opts)  # no ABFT form, as in slate_tpu: an active policy runs plain
     return getrf_pp_dist(
         from_dense(a, mesh, nb, diag_pad_one=True), lookahead=_la(opts),
         bcast_impl=_bi(opts), panel_impl=_pi(opts), num_monitor=_nm(opts),
@@ -162,6 +269,17 @@ def _is_f64(x) -> bool:
     return dt == torch.float64 or (isinstance(dt, np.dtype) and dt == np.float64)
 
 
+def _refuse_mixed(who: str, a, b, opts) -> None:
+    """Raise where ``slate_tpu`` would route the mixed-precision ladder
+    (an f64 system, a 2-D B, the mode not ``off``)."""
+    mode = resolve_mixed(opts)
+    if mode != "off" and _is_f64(a) and getattr(b, "ndim", 0) == 2:
+        raise NotImplementedError(
+            f"{who}: Option.MixedPrecision={mode!r} on an f64 system routes through the "
+            "mixed-precision ladder, which comes with slice 4; pass "
+            "{Option.MixedPrecision: 'off'} for the direct f64 solve")
+
+
 def gesv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -171,12 +289,7 @@ def gesv_mesh(
     by default; that ladder comes with slice 4, so here such a call
     raises ``NotImplementedError`` unless the mode resolves to ``off``.
     f32, and f64 under ``off``, run the direct path."""
-    mode = resolve_mixed(opts)
-    if mode != "off" and _is_f64(a) and getattr(b, "ndim", 0) == 2:
-        raise NotImplementedError(
-            f"gesv_mesh: Option.MixedPrecision={mode!r} on an f64 system routes through the "
-            "mixed-precision ladder, which comes with slice 4; pass "
-            "{Option.MixedPrecision: 'off'} for the direct f64 solve")
+    _refuse_mixed("gesv_mesh", a, b, opts)
     return _gesv_mesh_plain(a, b, mesh, nb, opts)
 
 

@@ -7,10 +7,12 @@ only, seeded identically), so both packages compute on the same operands.
 ``dist_from_numpy`` rebuilds a mesh matrix from another package's tile
 stack (so a test can feed one package's factor to the other's solves), and
 ``distqr_from_numpy`` rebuilds CAQR factors the same way.
+``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
@@ -291,3 +293,29 @@ def gels_omega(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, chunk: int = 2
 def gels_omega_gate(m: int, dtype: torch.dtype) -> float:
     """The gate of :func:`gels_omega`: 20 eps / sqrt(m)."""
     return 20 * torch.finfo(dtype).eps / float(np.sqrt(m))
+
+
+def ft_summa_check(acc0, pan, urow, w1, w2, part0, got, want) -> dict:
+    """Readings of one ``ft_summa_update`` step against its twin.  ``acc0`` /
+    ``part0`` are the inputs, ``got`` / ``want`` the (acc, part) pairs of
+    the kernel and the twin.  acc holds to the tile-update limit of the
+    other update kernels: two k-ordered FMA sums of nb products, a few
+    sqrt(nb) eps max|pan| max|urow|, plus one rounding each of the final
+    add (2 eps max|acc|).  part[s] holds to that product limit scaled by
+    sum_i |w_s[i]| (each product enters with its weight), plus the two
+    sums over the I tile rows taken in different orders, I eps each of
+    max|part| (2 I eps).  A TF32 product (~4e3 f32 eps per product) lies
+    far outside both.  Readings are err / limit: <= 1 passes."""
+    nb = acc0.shape[-1]
+    eps = torch.finfo(acc0.dtype).eps
+    prod = 8 * math.sqrt(nb) * eps * float(pan.abs().max()) * float(urow.abs().max())
+    out = {}
+    amax = max(float(acc0.abs().max()), float(want[0].abs().max()))
+    out["acc"] = float((got[0] - want[0]).abs().max()) / (prod + 2 * eps * amax)
+    n_i = acc0.shape[2]
+    for s, w in enumerate((w1, w2)):
+        wsum = float(w.expand(*acc0.shape[:3]).abs().sum(-1).max())
+        pmax = max(float(part0[:, :, s].abs().max()), float(want[1][:, :, s].abs().max()))
+        lim = wsum * prod + 2 * n_i * eps * pmax
+        out[f"part{s}"] = float((got[1][:, :, s] - want[1][:, :, s]).abs().max()) / lim
+    return out

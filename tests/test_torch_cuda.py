@@ -530,3 +530,123 @@ def test_half_gels_launches_the_kernel(card, dtype):
     xm, info = gels_mesh(a, b, make_mesh(2, 4, device="cuda"), nb)
     assert tk.qr_panel_offset.launches - before == n // nb and int(info) == 0
     assert float((xm.float() - x32).abs().max()) < 10 * heps * float(x32.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the checksum-carrying SUMMA step (csrc/ft_summa_update.cu) and gemm_ft
+# ---------------------------------------------------------------------------
+
+
+def _ft_step(shape, dtype, seed, mt):
+    """One ft_summa_update step's operands on a (2, 4) grid: acc (2, 4, I,
+    J, nb, nb), stride-0 panels pan (2, 1, I) and urow (1, 4, J), and the
+    weights of an augmented grid whose logical tile rows >= mt are checksum
+    or pad rows (weight 0)."""
+    I, J, nb = shape
+    acc = _randn((2, 4, I, J, nb, nb), dtype, seed)
+    pan = _randn((2, 1, I, nb, nb), dtype, seed + 1)
+    urow = _randn((1, 4, J, nb, nb), dtype, seed + 2)
+    part = _randn((2, 4, 2, J, nb, nb), dtype, seed + 3)
+    _, _, i_log, _ = comm.local_indices(2, 4, I, J, "cuda")
+    data = i_log < mt
+    return acc, pan, urow, data.to(dtype), ((i_log + 1) * data).to(dtype), part
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mt", [((6, 3, 64), 10), ((1, 3, 256), 2), ((5, 1, 72), 8),
+                                      ((34, 17, 256), 64)],
+                         ids=["small", "I1", "ragged72", "path"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ft_summa_update_matches_twin(card, shape, mt, dtype):
+    from slate_tpu_torch.utils.testing import ft_summa_check
+
+    if shape[0] == 34 and dtype == torch.float64:
+        shape = (18, 9, 256)  # the f64 path shape (n = 8192)
+        mt = 32
+    acc, pan, urow, w1, w2, part = _ft_step(shape, dtype, 7, mt)
+    assert bool((w1 == 0).any()) or shape[0] * 2 <= mt  # checksum rows carry weight 0
+    before = tk.ft_summa_update.launches
+    got = tuple(x.clone() for x in tk.ft_summa_update(acc.clone(), pan, urow, w1, w2, part.clone()))
+    torch.cuda.synchronize()
+    assert tk.ft_summa_update.launches == before + 1
+    want = tk.ft_summa_update_plain(acc.clone(), pan, urow, w1, w2, part.clone())
+    readings = ft_summa_check(acc, pan, urow, w1, w2, part, got, want)
+    assert all(v <= 1 for v in readings.values()), readings
+    # a zeroed part fails its reading
+    zero = (got[0], torch.zeros_like(got[1]))
+    bad = ft_summa_check(acc, pan, urow, w1, w2, part, zero, want)
+    assert bad["part0"] > 1 and bad["part1"] > 1
+
+
+@pytest.mark.cuda
+def test_ft_summa_update_raises_instead_of_falling_back(card):
+    acc, pan, urow, w1, w2, part = _ft_step((2, 2, 16), torch.float32, 3, 3)
+    with pytest.raises(TypeError, match="not supported on CUDA"):
+        tk.ft_summa_update(acc.bfloat16(), pan.bfloat16(), urow.bfloat16(), w1.bfloat16(),
+                           w2.bfloat16(), part.bfloat16())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tk.ft_summa_update(acc.cpu(), pan, urow, w1, w2, part)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tk.ft_summa_update(acc, pan.cpu(), urow, w1, w2, part)
+    with pytest.raises(ValueError, match="square"):
+        tk.ft_summa_update(acc[..., :8], pan, urow, w1, w2, part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_gemm_ft_launches_the_kernel(card, dtype):
+    """A bf16/f16 gemm_ft reaches the kernel in f32 (no plain product on the
+    card): one ft_summa_update launch per k-step, the online discrepancy
+    recorded, the result in the input dtype within 2 eps_half max|C| of the
+    f32 product of the same rounded operands."""
+    from slate_tpu_torch.ft import FtPolicy, abft
+    from slate_tpu_torch.obs import REGISTRY
+
+    n, nb = 1000, 64  # 16 k-steps
+    a = torch.from_numpy(generate("randn", n, seed=23)).to(dtype).cuda()
+    b = torch.from_numpy(generate("randn", n, seed=24)).to(dtype).cuda()
+    REGISTRY.reset()
+    before = tk.ft_summa_update.launches
+    c, rep = abft.gemm_ft(1.0, a, b, make_mesh(2, 4, device="cuda"), nb, policy=FtPolicy.Detect)
+    torch.cuda.synchronize()
+    assert tk.ft_summa_update.launches - before == 16
+    assert rep.clean and c.dtype == dtype
+    assert REGISTRY.gauge_value("ft.online_disc", op="gemm") >= 0
+    ref = a.float() @ b.float()
+    assert float((c.float() - ref).abs().max()) <= 2 * _eps(dtype) * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemm_ft_on_card(card, dtype):
+    """gemm_ft on the card: bitwise the same C at lookahead 0 and 2, one
+    ft_summa_update launch per k-step, the online discrepancy far below the
+    host threshold, and a trailing fault corrected to the clean result's
+    tolerance."""
+    from slate_tpu_torch.ft import FaultPlan, FtPolicy, abft, fault_scope, inject
+    from slate_tpu_torch.ft.checksum import threshold
+    from slate_tpu_torch.obs import REGISTRY
+
+    n, nb = 1000, 64  # 16 tiles, padded from 15.6
+    mesh = make_mesh(2, 4, device="cuda")
+    a = torch.from_numpy(generate("randn", n, seed=21)).to(dtype).cuda()
+    b = torch.from_numpy(generate("randn", n, seed=22)).to(dtype).cuda()
+    outs = []
+    for la in (0, 2):
+        before = tk.ft_summa_update.launches
+        c, rep = abft.gemm_ft(1.0, a, b, mesh, nb, policy=FtPolicy.Detect, lookahead=la)
+        torch.cuda.synchronize()
+        assert rep.clean and tk.ft_summa_update.launches - before == 16
+        outs.append(c)
+    assert torch.equal(outs[0], outs[1])
+    kt = 16
+    tol = threshold((kt + 18) * nb, dtype, 18 * float(outs[0].abs().max()))
+    assert 0 <= REGISTRY.gauge_value("ft.online_disc", op="gemm") < 1e-2 * tol
+    ref = a.double() @ b.double()
+    gate = 4 * math.sqrt(n) * _eps(dtype) * float(ref.abs().max())
+    assert float((outs[0].double() - ref).abs().max()) < gate
+    f = inject.seeded_fault(21, "gemm", kt, (2, 4), phase="trailing")
+    with fault_scope(FaultPlan([f])):
+        c, rep = abft.gemm_ft(1.0, a, b, mesh, nb, policy=FtPolicy.Correct)
+    assert rep.action == "corrected" and rep.detections
+    assert float((c.double() - ref).abs().max()) < gate

@@ -459,3 +459,38 @@ def test_qr_build_raises_without_nvcc(monkeypatch, tmp_path):
         with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
             tk._qr_fns(dtype)
     assert os.path.exists(os.path.join(_build.CSRC_DIR, "qr_panel.cu"))
+
+
+# ---------------------------------------------------------------------------
+# the checksum-carrying SUMMA step: ft_summa_update_plain against slate_tpu's
+# interpreted ft_summa_update_pallas (test_pallas_panels.py's shapes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["one-device", "virtual-2x4"])
+def test_ft_summa_update_plain_matches_pallas(grid):
+    rng = np.random.default_rng(42)
+    I, J, nb = 4, 3, 8
+    acc = rng.standard_normal((I, J, nb, nb))
+    pan = rng.standard_normal((I, nb, nb))
+    urow = rng.standard_normal((J, nb, nb))
+    w1, w2 = rng.standard_normal(I), rng.standard_normal(I)
+    part0 = rng.standard_normal((2, J, nb, nb))
+    out_ref, part_ref = (np.asarray(v) for v in po.ft_summa_update_pallas(
+        *(jnp.asarray(x) for x in (acc, pan, urow, w1, w2, part0))))
+    t = torch.from_numpy
+    if grid:
+        # the same step on every device of a 2 x 4 grid: the panels and the
+        # weights read through stride 0, one launch's worth of tiles
+        acc_t = t(acc)[None, None].repeat(2, 4, 1, 1, 1, 1)
+        part_t = t(part0)[None, None].repeat(2, 4, 1, 1, 1, 1)
+        args = (t(pan)[None, None].expand(2, 1, I, nb, nb), t(urow)[None, None].expand(1, 4, J, nb, nb),
+                t(w1).view(1, 1, I), t(w2).view(1, 1, I))
+    else:
+        acc_t, part_t = t(acc.copy())[None, None], t(part0.copy())[None, None]
+        args = (t(pan)[None, None], t(urow)[None, None], t(w1)[None, None], t(w2)[None, None])
+    out, part = tk.ft_summa_update(acc_t, args[0], args[1], args[2], args[3], part_t)
+    assert tk.ft_summa_update.launches == 0  # CPU tensors take the twin
+    # f64, two frameworks' sums of nb products: atol 1e-12 as the Pallas test
+    np.testing.assert_allclose(out.numpy(), np.broadcast_to(out_ref, out.shape), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(part.numpy(), np.broadcast_to(part_ref, part.shape), rtol=0, atol=1e-12)

@@ -325,8 +325,13 @@ def test_mixed_resolution_chain(monkeypatch):
 @pytest.mark.parametrize("form", FORMS)
 def test_unported_options_raise(form, monkeypatch):
     a, _ = _operands(form, 64, np.float32)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        _T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.FaultTolerance: "detect"})
+    # FaultTolerance is ported: nopiv reroutes to the ABFT LU, the pivoted
+    # forms have no ABFT form and run plain (both as slate_tpu); with
+    # Checkpoint it is refused as in slate_tpu
+    assert int(_T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.FaultTolerance: "detect"})[-1]) == 0
+    with pytest.raises(ValueError, match="cannot be combined"):
+        _T_GETRF[form](_t(a), _tmesh(), NB,
+                       opts={tt.Option.FaultTolerance: "detect", tt.Option.Checkpoint: 4})
     with pytest.raises(NotImplementedError, match="slice 9"):
         _T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.Checkpoint: 4})
     monkeypatch.setenv("SLATE_TPU_CKPT", "2")
