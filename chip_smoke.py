@@ -101,10 +101,33 @@ printing one JSON line before the next starts (any failure exits non-zero):
 25. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
    bitwise across lookahead 0/1/2 and psum/ring/doubling, and a zero
    column j giving info j + 1;
-26. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
+26. kernel_tile: transpose_tiles, geadd_tiles and genorm_max_tiles against
+   their twins, f32 and bf16, at the (16384, 256, 256) tile stack of an
+   n = 32768 matrix and a small mb != nb stack with a NaN tile (transpose
+   and genorm_max bitwise, NaN included; geadd within eps (|alpha a| +
+   |beta b|)), with kernel, twin and library times and the bound;
+27. tile_transpose: slate_tpu_torch.ops.transpose on that stack, f32 and
+   bf16: one transpose_tiles launch each, bitwise the swapped axes; a k = 4
+   stack (below the gate) launches nothing;
+28. gesv: gesv_array with 32 right-hand sides on uniform[-1, 1), f32 at
+   n = 32768 (the recursive form), f64 at n = 16384 (on the card, the
+   scanned form) and at n = 8192 (the left-looking form), each after a
+   warm-up at n = 2048: info, eta, omega (f64 residual), the form taken,
+   seconds, peak memory;
+29. gesv_methods: MethodLU.NoPiv and CALU, f32 at n = 8192, the same gates;
+30. mixed: gesv_mixed_array and posv_mixed_array f64 at n = 16384 against
+   the full f64 solves of the same matrices, and gesv_mixed_gmres_array at
+   n = 4096 (uniform[-1, 1) + n I, residual norm under GMRES's tolerance):
+   iterations, converged, eta and the refinement's own gate;
+31. lu_misc: getri_array f64 at n = 4096, gecondest against the exact
+   1 / kappa_1 of a 256 x 256 matrix, and a zero column giving info j + 1
+   in the f32 and f64 forms;
+32. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
    half; n = 64, nb = 8, 2 x 4);
-27. kernels: the line of every ported kernel (one row per kernel and
-   dtype), then the card line and, last, {"ok": true, "device": {...}}.
+33. kernels: the line of every ported kernel (one row per kernel and
+   dtype; geadd_tiles and genorm_max_tiles, which no driver reaches, count
+   the launches of their timed calls in phase 26), then the card line and,
+   last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -127,6 +150,8 @@ SEED = 0
 # the FP64 tensor cores (DMMA, IEEE double)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {"float32": 67e12, "float64": 67e12}
+# the tile kernels compute bf16 stacks in f32 on the CUDA cores
+PEAK_FLOPS_S["bfloat16"] = PEAK_FLOPS_S["float32"]
 # the mesh path: a virtual 2 x 4 grid; f64 runs at half the f32 size
 P, Q = 2, 4
 MESH_N = {"float32": 32768, "float64": 16384}
@@ -521,7 +546,8 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
 
 COUNTED = ("chol_diag_inv", "chol_panel_tiles", "chol_trailing_update", "summa_update",
            "lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update", "qr_panel",
-           "qr_panel_offset", "ft_summa_update")
+           "qr_panel_offset", "ft_summa_update", "transpose_tiles", "geadd_tiles",
+           "genorm_max_tiles")
 
 
 def reset_counts(kernels):
@@ -1731,6 +1757,378 @@ def ft_drivers_phase(mp, torch):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# slice 4a: the three tile kernels, ops.transpose, the single-chip LU family
+# and mixed-precision refinement
+# ---------------------------------------------------------------------------
+
+# the nb = 256 tile stack of an n = 32768 matrix: 4,294,967,296 B in f32
+TILE_SHAPE = (16384, 256, 256)
+TILE_SMALL = (9, 100, 300)  # mb != nb, ragged against the 32 x 32 tiles, a NaN tile
+TILE_BITS = {"float32": "int32", "bfloat16": "int16"}
+TILE_ALPHA, TILE_BETA = 0.3, -1.7
+# gesv_array: f32 takes the recursive form at every size; f64 on the card
+# the scanned form above 8192 and the left-looking one from 4096 to 8192
+GESV_CASES = (("float32", 32768, "_getrf_rec"), ("float64", 16384, "getrf_scan_array"),
+              ("float64", 8192, "_getrf_left_looking"))
+METHODS_N = 8192
+MIXED_N = 16384
+GMRES_N = 4096
+GETRI_N = 4096
+
+
+def tile_stacks(shape, dtype, seed, torch):
+    a = randn(shape, torch.float32, seed, torch).to(dtype)
+    b = randn(shape, torch.float32, seed + 1, torch).to(dtype)
+    return a, b
+
+
+def geadd_excess(g, gp, a, b, dtype, torch, chunk=1024):
+    """max over entries of |g - gp| / (eps (|alpha a| + |beta b|)), alpha
+    and beta rounded to the dtype, in f64 over chunks of tiles; with the
+    largest |g - gp|.  <= 1 passes."""
+    al, be = (float(torch.tensor(x, dtype=dtype)) for x in (TILE_ALPHA, TILE_BETA))
+    eps = torch.finfo(dtype).eps
+    worst = err = 0.0
+    for k0 in range(0, a.shape[0], chunk):
+        sl = slice(k0, k0 + chunk)
+        scale = (al * a[sl].double()).abs() + (be * b[sl].double()).abs()
+        diff = (g[sl].double() - gp[sl].double()).abs()
+        ok = torch.isfinite(scale)
+        worst = max(worst, float((diff[ok] / (eps * scale[ok])).nan_to_num(0.0).max()))
+        err = max(err, float(diff[ok].max()))
+        check(torch.equal(torch.isnan(g[sl]), torch.isnan(gp[sl])), "geadd_tiles: NaN pattern")
+    return worst, err
+
+
+def tile_checks(kernels, a, b, dtype, torch):
+    """The three kernels against their twins on one stack: (transpose and
+    genorm_max equal as bits / NaN patterns, geadd excess, max abs errs)."""
+    bits = getattr(torch, TILE_BITS[dname(dtype)])
+    t, tp = kernels.transpose_tiles(a), kernels.transpose_tiles_plain(a)
+    same_t = bool(torch.equal(t.view(bits), tp.view(bits)))
+    del t, tp
+    n, np_ = kernels.genorm_max_tiles(a), kernels.genorm_max_tiles_plain(a)
+    same_n = bool(torch.equal(torch.isnan(n), torch.isnan(np_))
+                  and torch.equal(n.nan_to_num(), np_.nan_to_num()))
+    nan_tiles = int(torch.isnan(n).sum())
+    g = kernels.geadd_tiles(TILE_ALPHA, a, TILE_BETA, b)
+    gp = kernels.geadd_tiles_plain(TILE_ALPHA, a, TILE_BETA, b)
+    torch.cuda.synchronize()
+    excess, err = geadd_excess(g, gp, a, b, dtype, torch)
+    return {"transpose_bitwise": same_t, "genorm_max_bitwise": same_n, "nan_tiles": nan_tiles,
+            "geadd_excess": excess, "geadd_max_abs_err": err}
+
+
+def kernel_tile_phase(dtype, kernels, torch):
+    """The tile kernels against their twins at the (16384, 256, 256) stack
+    and a small mb != nb stack with a NaN tile; kernel, twin and library ms
+    (CUDA events, L2 warm) and the bound.  geadd_tiles and genorm_max_tiles
+    have no consumer on a driver path (as in slate_tpu): their launches are
+    those of this phase's timed calls."""
+    name = dname(dtype)
+    small_a, small_b = tile_stacks(TILE_SMALL, dtype, SEED + 92, torch)
+    small_a[4, 7, 11] = float("nan")
+    small = tile_checks(kernels, small_a, small_b, dtype, torch)
+    a, b = tile_stacks(TILE_SHAPE, dtype, SEED + 90, torch)
+    big = tile_checks(kernels, a, b, dtype, torch)
+    k, mb, nb = TILE_SHAPE
+    s = a.element_size()
+    elems = k * mb * nb
+    specs = {  # kernel, twin, library, bytes (inputs read once, output written once), ops
+        "transpose_tiles": (lambda: kernels.transpose_tiles(a),
+                            lambda: kernels.transpose_tiles_plain(a),
+                            lambda: a.transpose(-1, -2).contiguous(), 2 * elems * s, 0,
+                            ":89", "transpose_bitwise"),
+        "geadd_tiles": (lambda: kernels.geadd_tiles(TILE_ALPHA, a, TILE_BETA, b),
+                        lambda: kernels.geadd_tiles_plain(TILE_ALPHA, a, TILE_BETA, b),
+                        lambda: torch.add(TILE_BETA * b, a, alpha=TILE_ALPHA), 3 * elems * s,
+                        3 * elems, ":107", None),
+        "genorm_max_tiles": (lambda: kernels.genorm_max_tiles(a),
+                             lambda: kernels.genorm_max_tiles_plain(a),
+                             lambda: a.abs().amax(dim=(-2, -1)), elems * s + k * s, elems,
+                             ":139", "genorm_max_bitwise"),
+    }
+    rows, times = [], {}
+    for kname, (kern, plain, lib, nbytes, ops, line, bitwise_key) in specs.items():
+        ms = cuda_ms(kern, 10, torch)
+        plain_ms = cuda_ms(plain, 3, torch)
+        library_ms = cuda_ms(lib, 10, torch)
+        kernels_obj = getattr(kernels, kname)
+        kernels_obj.launches = 0
+        kern()
+        torch.cuda.synchronize()
+        timed_launches = kernels_obj.launches
+        if bitwise_key:
+            err = 0.0 if small[bitwise_key] and big[bitwise_key] else float("inf")
+        else:
+            err = max(small["geadd_max_abs_err"], big["geadd_max_abs_err"])
+        row = row_of(kname, dtype, "slate_tpu_torch/csrc/tile_ops.cu",
+                     f"slate_tpu/ops/pallas_ops.py{line}", err, ms, plain_ms, library_ms,
+                     nbytes, ops)
+        row["launches"] = timed_launches
+        rows.append(row)
+        times[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+    emit({"phase": f"kernel_tile_{name}", "shape": list(TILE_SHAPE), "small": small, "big": big,
+          "times": times})
+    for part in (small, big):
+        check(part["transpose_bitwise"], f"transpose_tiles {name}: not the twin's bits")
+        check(part["genorm_max_bitwise"], f"genorm_max_tiles {name}: not the twin's maxima")
+        check(part["geadd_excess"] <= 1.0, f"geadd_tiles {name}: {part['geadd_excess']} eps scale")
+    check(small["nan_tiles"] == 1, f"genorm_max_tiles {name}: {small['nan_tiles']} NaN tiles")
+    del a, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tile_transpose_phase(dtype, kernels, torch):
+    """slate_tpu_torch.ops.transpose on the (16384, 256, 256) stack: one
+    transpose_tiles launch, the result bitwise the swapped axes; a stack
+    below the gate (k = 4) launches nothing.  Returns the launches."""
+    from slate_tpu_torch import ops
+
+    name = dname(dtype)
+    bits = getattr(torch, TILE_BITS[name])
+    a = randn(TILE_SHAPE, torch.float32, SEED + 93, torch).to(dtype)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    out = ops.transpose(a)
+    torch.cuda.synchronize()
+    launches = kernels.transpose_tiles.launches
+    same = bool(torch.equal(out.view(bits), a.transpose(-1, -2).contiguous().view(bits)))
+    below = ops.transpose(a[:4])
+    launches_below = kernels.transpose_tiles.launches - launches
+    same_below = bool(torch.equal(below, a[:4].transpose(-1, -2)))
+    emit({"phase": f"tile_transpose_{name}", "shape": list(TILE_SHAPE), "launches": launches,
+          "bitwise": same, "below_gate_launches": launches_below, "below_gate_equal": same_below})
+    check(launches == 1 and same, f"ops.transpose {name}: {launches} launches, bitwise {same}")
+    check(launches_below == 0 and same_below, f"ops.transpose {name}: k = 4 launched")
+    del a, out, below
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _first_form(lu, fn):
+    """fn() with getrf_array's three forms recorded; returns (fn's result,
+    the first form called)."""
+    names = ("_getrf_rec", "_getrf_left_looking", "getrf_scan_array")
+    orig = {k: getattr(lu, k) for k in names}
+    calls = []
+
+    def wrap(k):
+        def inner(*args, **kw):
+            calls.append(k)
+            return orig[k](*args, **kw)
+        return inner
+
+    try:
+        for k in names:
+            setattr(lu, k, wrap(k))
+        out = fn()
+    finally:
+        for k, v in orig.items():
+            setattr(lu, k, v)
+    return out, (calls[0] if calls else None)
+
+
+def lu_solve_gates(a, x, b, info, who, torch):
+    n = a.shape[0]
+    dtype = a.dtype
+    e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+    w, w_gate = omega(a, x, b, torch), omega_gate(n, dtype, torch)
+    check(int(info) == 0, f"{who}: info {int(info)}")
+    check(tuple(x.shape) == tuple(b.shape) and bool(torch.isfinite(x).all()),
+          f"{who}: bad solution")
+    check(e < gate, f"{who}: eta {e} >= {gate}")
+    check(w < w_gate, f"{who}: omega {w} >= {w_gate}")
+    return {"info": int(info), "eta": e, "eta_gate": gate, "omega": w, "omega_gate": w_gate}
+
+
+def timed_solve(fn, torch):
+    """(fn()'s result, seconds, peak bytes), the clock and the peak around
+    fn alone."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def gesv_phase(torch):
+    """gesv_array (partial pivoting) on uniform[-1, 1) with 32 right-hand
+    sides: f32 at n = 32768 and the two f64 forms on the card, each after a
+    warm-up solve at n = 2048; info, eta, omega (f64 residual), seconds,
+    peak memory and the form getrf_array took.  Returns the f64 n = 16384
+    seconds (the full solve the mixed phase compares with)."""
+    from slate_tpu_torch.linalg import lu
+
+    out = {}
+    for name, n, form in GESV_CASES:
+        dtype = getattr(torch, name)
+        aw = lu_matrix("pp", WARMUP_N, dtype, SEED + 100, torch)
+        xw, fw = lu.gesv_array(aw, aw[:, :NRHS].clone())
+        check(int(fw.info) == 0 and bool(torch.isfinite(xw).all()), f"gesv {name}: warm-up failed")
+        del aw, xw, fw
+        a = lu_matrix("pp", n, dtype, SEED + 101 + n, torch)
+        b = randn((n, NRHS), dtype, SEED + 102 + n, torch)
+        ((x, f), took), seconds, peak = timed_solve(
+            lambda: _first_form(lu, lambda: lu.gesv_array(a, b)), torch)
+        info = f.info
+        del f
+        res = {"n": n, "form": took, "seconds": seconds, "peak_mem_bytes": peak,
+               **lu_solve_gates(a, x, b, info, f"gesv {name} n = {n}", torch)}
+        out[f"{name}_{n}"] = res
+        check(took == form, f"gesv {name} n = {n}: getrf_array took {took}, expected {form}")
+        del a, b, x
+        torch.cuda.empty_cache()
+    emit({"phase": "gesv", "nrhs": NRHS, **out})
+    return out[f"float64_{MIXED_N}"]["seconds"]
+
+
+def gesv_methods_phase(torch):
+    """gesv_array with MethodLU.NoPiv (on uniform[-1, 1) + n I) and CALU (on
+    uniform[-1, 1)), f32 at n = 8192: the same gates and seconds."""
+    from slate_tpu_torch.linalg import lu
+    from slate_tpu_torch.types import MethodLU
+
+    out = {}
+    n = METHODS_N
+    for method, form in ((MethodLU.NoPiv, "nopiv"), (MethodLU.CALU, "pp")):
+        a = lu_matrix(form, n, torch.float32, SEED + 110, torch)
+        b = randn((n, NRHS), torch.float32, SEED + 111, torch)
+        wa = lu_matrix(form, WARMUP_N, torch.float32, SEED + 112, torch)
+        lu.gesv_array(wa, wa[:, :NRHS].clone(), method)
+        del wa
+        (x, f), seconds, peak = timed_solve(lambda: lu.gesv_array(a, b, method), torch)
+        out[method.name] = {"seconds": seconds, "peak_mem_bytes": peak,
+                            **lu_solve_gates(a, x, b, f.info, f"gesv {method.name}", torch)}
+        del a, b, x, f
+        torch.cuda.empty_cache()
+    emit({"phase": "gesv_methods", "n": n, "nrhs": NRHS, "dtype": "float32", **out})
+
+
+def mixed_phase(full_gesv_seconds, torch):
+    """gesv_mixed_array and posv_mixed_array f64 at n = 16384, 32
+    right-hand sides (the f32 factor refined to the f64 gate), against the
+    full f64 solve of the same matrix (gesv: the gesv phase's scanned solve
+    of this matrix; posv: posv_array timed here); gesv_mixed_gmres_array at
+    n = 4096.  Iterations, converged, info, eta at the f64 level, and
+    ||b - A x||_inf <= ||x||_inf gate_cte (the classic refinement's own
+    gate); GMRES's residual norm under its tolerance."""
+    from slate_tpu_torch.linalg import chol, refine
+    from slate_tpu_torch.ops.tile_ops import genorm
+    from slate_tpu_torch.types import Norm
+
+    def gate_ok(a, x, b):
+        cte = refine.gate_cte(genorm(Norm.Inf, a), a.shape[0], a.dtype)
+        return bool(genorm(Norm.Inf, b - a @ x) <= genorm(Norm.Inf, x) * cte)
+
+    out = {}
+    n = MIXED_N
+    f64 = torch.float64
+    a = lu_matrix("pp", n, f64, SEED + 101 + n, torch)  # the gesv phase's f64 matrix
+    b = randn((n, NRHS), f64, SEED + 102 + n, torch)
+    wa = lu_matrix("pp", WARMUP_N, f64, SEED + 120, torch)
+    refine.gesv_mixed_array(wa, wa[:, :NRHS].clone())
+    del wa
+    r, seconds, peak = timed_solve(lambda: refine.gesv_mixed_array(a, b), torch)
+    out["gesv_mixed"] = {"n": n, "iters": int(r.iters), "converged": bool(r.converged),
+                         "info": int(r.info), "eta": eta(a, r.x, b, torch),
+                         "eta_gate": 100 * n * torch.finfo(f64).eps,
+                         "gate_cte_ok": gate_ok(a, r.x, b),
+                         "seconds": seconds, "full_f64_seconds": full_gesv_seconds,
+                         "peak_mem_bytes": peak}
+    del a, b, r
+    torch.cuda.empty_cache()
+    a = dominant_spd(n, f64, SEED + 121, torch)
+    b = randn((n, NRHS), f64, SEED + 122, torch)
+    wa = dominant_spd(WARMUP_N, f64, SEED + 123, torch)
+    refine.posv_mixed_array(wa, wa[:, :NRHS].clone())
+    chol.posv_array(wa, wa[:, :NRHS].clone())
+    del wa
+    r, seconds, peak = timed_solve(lambda: refine.posv_mixed_array(a, b), torch)
+    (xf, _, infof), full_seconds, _ = timed_solve(lambda: chol.posv_array(a, b), torch)
+    out["posv_mixed"] = {"n": n, "iters": int(r.iters), "converged": bool(r.converged),
+                         "info": int(r.info), "eta": eta(a, r.x, b, torch),
+                         "eta_gate": 100 * n * torch.finfo(f64).eps,
+                         "gate_cte_ok": gate_ok(a, r.x, b),
+                         "seconds": seconds, "full_f64_seconds": full_seconds,
+                         "full_f64_info": int(infof), "peak_mem_bytes": peak}
+    del a, b, r, xf
+    torch.cuda.empty_cache()
+    # GMRES-IR on uniform[-1, 1) + n I: its preconditioned residual can
+    # reach the tolerance sqrt(n) eps ||b_j|| (on uniform[-1, 1) alone it
+    # stalls above it and runs all 30 restarts)
+    n = GMRES_N
+    a = lu_matrix("nopiv", n, f64, SEED + 124, torch)
+    b = randn((n, NRHS), f64, SEED + 125, torch)
+    refine.gesv_mixed_gmres_array(a[:256, :256].contiguous(), b[:256])
+    (x, rnorm), seconds, peak = timed_solve(lambda: refine.gesv_mixed_gmres_array(a, b), torch)
+    tol = math.sqrt(n) * torch.finfo(f64).eps * float(torch.linalg.vector_norm(b, dim=0).max())
+    # (GMRES stops on the preconditioned residual, so gate_cte's gate on
+    # b - A x is the classic loop's, not its own)
+    out["gesv_mixed_gmres"] = {"n": n, "rnorm": float(rnorm), "rnorm_tol": tol,
+                               "eta": eta(a, x, b, torch),
+                               "eta_gate": 100 * n * torch.finfo(f64).eps, "seconds": seconds,
+                               "peak_mem_bytes": peak}
+    del a, b, x
+    torch.cuda.empty_cache()
+    emit({"phase": "mixed", "nrhs": NRHS, **out})
+    for k in ("gesv_mixed", "posv_mixed"):
+        res = out[k]
+        check(res["converged"] and res["iters"] >= 0 and res["info"] == 0,
+              f"{k}: iters {res['iters']}, converged {res['converged']}, info {res['info']}")
+    for k, res in out.items():
+        check(res["eta"] < res["eta_gate"] and res.get("gate_cte_ok", True), f"{k}: {res}")
+    g = out["gesv_mixed_gmres"]
+    check(g["rnorm"] <= g["rnorm_tol"], f"gesv_mixed_gmres: rnorm {g['rnorm']} > {g['rnorm_tol']}")
+
+
+def lu_misc_phase(torch):
+    """getri_array f64 at n = 4096 (||A X - I|| against n eps ||A|| ||X||),
+    gecondest against the exact 1 / kappa_1 of a small matrix, and a zero
+    column j giving info j + 1 in the f32 recursive and f64 left-looking
+    forms."""
+    import numpy as np
+
+    from slate_tpu_torch.linalg import lu, norms
+    from slate_tpu_torch.types import Norm
+    from slate_tpu_torch.utils.testing import generate
+
+    out = {"phase": "lu_misc"}
+    n = GETRI_N
+    a = lu_matrix("pp", n, torch.float64, SEED + 130, torch)
+    f = lu.getrf_array(a)
+    xinv = lu.getri_array(f)
+    resid = float((a @ xinv - torch.eye(n, dtype=a.dtype, device="cuda")).abs().max())
+    limit = n * torch.finfo(a.dtype).eps * float(a.abs().max()) * float(xinv.abs().max()) * n
+    out["getri"] = {"n": n, "info": int(f.info), "resid": resid, "limit": limit}
+    del a, f, xinv
+    small = torch.from_numpy(generate("svd", 256, dtype=np.float64, seed=131, cond=1e6)).cuda()
+    anorm = float(small.abs().sum(dim=0).max())
+    exact = 1.0 / (anorm * float(torch.linalg.inv(small).abs().sum(dim=0).max()))
+    est = float(norms.gecondest(Norm.One, lu.getrf_array(small), anorm))
+    out["gecondest"] = {"n": 256, "estimate": est, "exact": exact, "ratio": est / exact}
+    zero = {}
+    for dtype, j in ((torch.float32, n // 4 + 17), (torch.float64, 3 * n // 4 - 5)):
+        z = lu_matrix("pp", n, dtype, SEED + 132, torch)
+        z[:, j] = 0
+        zero[dname(dtype)] = {"column": j, "info": int(lu.getrf_array(z).info)}
+        del z
+    out["zero_column"] = zero
+    torch.cuda.empty_cache()
+    emit(out)
+    g = out["getri"]
+    check(g["info"] == 0 and g["resid"] < g["limit"], f"getri: {g}")
+    c = out["gecondest"]
+    check(1.0 - 1e-9 <= c["ratio"] <= 3.0, f"gecondest: {c}")
+    for name, z in zero.items():
+        check(z["info"] == z["column"] + 1, f"zero column {name}: {z}")
+
+
 def ft_smoke_phase():
     """``python -m slate_tpu_torch.ft.smoke --device cuda``'s run."""
     from slate_tpu_torch.ft import smoke
@@ -1867,12 +2265,31 @@ def main():
     ft_drivers_phase(mp, torch)
     ft_smoke_phase()
 
-    # 24-26. invariants and the dryrun
+    # 24-25. invariants
     mesh_invariants_phase(mp, posv_chain, torch)
     lu_invariants_phase(mp, torch)
+
+    # 26-31. the tile kernels vs their twins, then ops.transpose (the
+    # transpose rows take its one launch per stack), the single-chip LU
+    # solves and the mixed-precision solves
+    tile_rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for row in kernel_tile_phase(dt, kernels, torch):
+            tile_rows[(row["name"].split("[")[0], dt)] = row
+    for dt in (torch.float32, torch.bfloat16):
+        tile_rows[("transpose_tiles", dt)]["launches"] = tile_transpose_phase(dt, kernels, torch)
+    for row in tile_rows.values():
+        check(row["launches"], f"{row['name']}: no launch")
+    rows += list(tile_rows.values())
+    full_f64_seconds = gesv_phase(torch)
+    gesv_methods_phase(torch)
+    mixed_phase(full_f64_seconds, torch)
+    lu_misc_phase(torch)
+
+    # 32. the dryrun
     dryrun_phase()
 
-    # 27. kernels line, card line, result
+    # 33. kernels line, card line, result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

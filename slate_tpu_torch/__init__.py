@@ -1,18 +1,56 @@
 """slate_tpu_torch — the PyTorch/CUDA port of slate_tpu.
 
 A second package beside ``slate_tpu`` (the JAX reference, which this package
-never imports).  This first slice is the single-chip SPD solve (dposv): the
-matrix views, the matmul dispatch, the recursive triangular solve, the three
-Cholesky forms of ``slate_tpu.linalg.chol`` and a hand-written Hopper kernel
-for the diagonal-block factor + inverse (``ops/kernels.py``,
-``csrc/chol_diag_inv.cu``).  Entry points compute on the tensors' device:
-pass CUDA tensors for the card, CPU tensors for the plain twins.
+never imports).  Ported so far: the single-chip Cholesky, LU (with getri,
+the norms and condition estimators and mixed-precision refinement) and QR
+drivers, the tile operations, the mesh solvers on a virtual mesh, the ABFT
+layer, and hand-written Hopper kernels for every Pallas kernel on those
+paths (``ops/kernels.py``, ``csrc/*.cu``).  Entry points compute on the
+tensors' device: pass CUDA tensors for the card, CPU tensors for the plain
+twins; other operands go to the card unless ``device`` says otherwise.
 """
 
-from .types import Diag, Op, Option, Precision, Side, SlateError, Target, Uplo
-from .core import BaseMatrix, HermitianMatrix, TriangularMatrix
+from .types import (
+    Diag,
+    MethodLU,
+    Norm,
+    NormScope,
+    Op,
+    Option,
+    Precision,
+    Side,
+    SlateError,
+    Target,
+    Uplo,
+)
+from .core import (
+    BandMatrix,
+    BaseMatrix,
+    HermitianBandMatrix,
+    HermitianMatrix,
+    Matrix,
+    SymmetricMatrix,
+    TrapezoidMatrix,
+    TriangularBandMatrix,
+    TriangularMatrix,
+)
 from .blas3 import gemm, trsm
 from . import api, linalg, ops
-from .linalg import posv, posv_array, potrf, potrf_array, potrs, potrs_array
+from .linalg import (
+    gecondest,
+    gesv_array,
+    gesv_mixed_array,
+    getrf_array,
+    getrs_array,
+    norm,
+    pocondest,
+    posv,
+    posv_array,
+    posv_mixed_array,
+    potrf,
+    potrf_array,
+    potrs,
+    potrs_array,
+)
 
 __version__ = "0.1.0"

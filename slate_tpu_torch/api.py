@@ -1,8 +1,9 @@
-"""Simplified verb-named API of the port (multiply, the Cholesky and QR
+"""Simplified verb-named API of the port (multiply, the LU, Cholesky and QR
 verbs).
 
-Counterpart of ``multiply``, ``chol_factor`` / ``chol_solve`` /
-``chol_solve_using_factor`` and ``least_squares_solve`` / ``qr_factor`` /
+Counterpart of ``multiply``, ``lu_factor`` / ``lu_solve`` /
+``lu_solve_using_factor`` / ``lu_inverse``, ``chol_factor`` /
+``chol_solve`` / ``chol_solve_using_factor`` and ``least_squares_solve`` / ``qr_factor`` /
 ``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` in
 ``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
 computes on ``operand_device(first operand, device)``: tensors where they
@@ -17,8 +18,8 @@ import torch
 
 from .blas3 import blas3
 from .core.matrix import BaseMatrix, operand_device
-from .linalg import chol, qr
-from .types import Op, Option, Options, Side, Uplo, get_option
+from .linalg import chol, lu, qr
+from .types import MethodLU, Op, Option, Options, Side, Uplo, get_option
 
 ArrayLike = Union[torch.Tensor, BaseMatrix]
 
@@ -50,6 +51,40 @@ def multiply(alpha, a: ArrayLike, b: ArrayLike, beta=0.0, c: Optional[ArrayLike]
 
 def _data(a: ArrayLike, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(a.data if isinstance(a, BaseMatrix) else a, device=device)
+
+
+# -- LU (lu_factor / lu_solve / lu_solve_using_factor / lu_inverse) ----------
+
+
+def lu_factor(a: ArrayLike, method: MethodLU = MethodLU.PartialPiv, device=None):
+    """LUFactors of A by ``method`` (PartialPiv, CALU or NoPiv)."""
+    ad = blas3._arr(a, operand_device(a, device))
+    if method == MethodLU.CALU:
+        return lu.getrf_tntpiv_array(ad)
+    if method == MethodLU.NoPiv:
+        return lu.getrf_nopiv_array(ad)
+    return lu.getrf_array(ad)
+
+
+def lu_solve(a: ArrayLike, b: ArrayLike, method: MethodLU = MethodLU.PartialPiv, device=None):
+    """X of A X = B."""
+    dev = operand_device(a, device)
+    x, _ = lu.gesv_array(blas3._arr(a, dev), blas3._arr(b, dev), method)
+    return x
+
+
+def lu_solve_using_factor(f, b: ArrayLike, op: Op = Op.NoTrans, device=None):
+    """X of op(A) X = B from LUFactors (on the factors' device unless
+    ``device`` says otherwise)."""
+    return lu.getrs_array(f, blas3._arr(b, operand_device(f.lu, device)), op)
+
+
+def lu_inverse(a: ArrayLike, device=None):
+    """A^-1 through getrf and getri."""
+    return lu.getri_array(lu.getrf_array(blas3._arr(a, operand_device(a, device))))
+
+
+# -- Cholesky ------------------------------------------------------------------
 
 
 def chol_factor(a: ArrayLike, device=None):

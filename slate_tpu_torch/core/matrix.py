@@ -3,9 +3,11 @@
 Counterpart of ``slate_tpu/core/matrix.py``: thin immutable wrappers around
 one 2-D tensor carrying the mathematical metadata (logical transposition
 ``op``, triangle ``uplo``, unit-diagonal flag ``diag``), plus the triangle
-helpers the factorizations share.  Only the views the Cholesky drivers take
-and return are ported here (the views' transpose/slice helpers and the
-other matrix kinds come with the slices that use them).
+helpers the factorizations share.  The matrix kinds are the ones the
+Cholesky drivers take and return and the ones ``linalg.norms.norm``
+dispatches on (the band kinds are carried as data with their (kl, ku):
+the band algorithms come with their slice); the views' transpose/slice
+helpers come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ class BaseMatrix:
     op: Op = Op.NoTrans
     uplo: Uplo = Uplo.General
     diag: Diag = Diag.NonUnit
+    kl: Optional[int] = None  # band: sub-diagonals (None = dense)
+    ku: Optional[int] = None  # band: super-diagonals
 
     @property
     def m(self) -> int:
@@ -64,6 +68,24 @@ class BaseMatrix:
 
 
 @dataclass(frozen=True)
+class Matrix(BaseMatrix):
+    """General rectangular matrix."""
+
+    @staticmethod
+    def from_array(a: torch.Tensor) -> "Matrix":
+        return Matrix(data=a)
+
+
+@dataclass(frozen=True)
+class TrapezoidMatrix(BaseMatrix):
+    """Upper/lower trapezoid storage semantics."""
+
+    @staticmethod
+    def from_array(a: torch.Tensor, uplo: Uplo, diag: Diag = Diag.NonUnit) -> "TrapezoidMatrix":
+        return TrapezoidMatrix(data=a, uplo=uplo, diag=diag)
+
+
+@dataclass(frozen=True)
 class TriangularMatrix(BaseMatrix):
     """Square triangular."""
 
@@ -81,6 +103,59 @@ class HermitianMatrix(BaseMatrix):
     @staticmethod
     def from_array(a: torch.Tensor, uplo: Uplo) -> "HermitianMatrix":
         return HermitianMatrix(data=a, uplo=uplo)
+
+    @property
+    def full(self) -> torch.Tensor:
+        return symmetrize(self.data, self.uplo, conj=True)
+
+
+@dataclass(frozen=True)
+class SymmetricMatrix(BaseMatrix):
+    """A == A^T, one triangle stored."""
+
+    @staticmethod
+    def from_array(a: torch.Tensor, uplo: Uplo) -> "SymmetricMatrix":
+        return SymmetricMatrix(data=a, uplo=uplo)
+
+    @property
+    def full(self) -> torch.Tensor:
+        return symmetrize(self.data, self.uplo, conj=False)
+
+
+@dataclass(frozen=True)
+class BandMatrix(BaseMatrix):
+    """General band, kl sub- and ku super-diagonals, stored dense with
+    zeros outside the band."""
+
+    @staticmethod
+    def from_array(a: torch.Tensor, kl: int, ku: int) -> "BandMatrix":
+        return BandMatrix(data=band_project(a, kl, ku), kl=kl, ku=ku)
+
+
+@dataclass(frozen=True)
+class TriangularBandMatrix(BaseMatrix):
+    """Triangular band."""
+
+    @staticmethod
+    def from_array(a: torch.Tensor, uplo: Uplo, kd: int,
+                   diag: Diag = Diag.NonUnit) -> "TriangularBandMatrix":
+        kl, ku = (kd, 0) if uplo == Uplo.Lower else (0, kd)
+        return TriangularBandMatrix(data=band_project(a, kl, ku), uplo=uplo, diag=diag,
+                                    kl=kl, ku=ku)
+
+
+@dataclass(frozen=True)
+class HermitianBandMatrix(BaseMatrix):
+    """Hermitian band, one triangle significant."""
+
+    @staticmethod
+    def from_array(a: torch.Tensor, uplo: Uplo, kd: int) -> "HermitianBandMatrix":
+        kl, ku = (kd, 0) if uplo == Uplo.Lower else (0, kd)
+        return HermitianBandMatrix(data=band_project(a, kl, ku), uplo=uplo, kl=kl, ku=ku)
+
+    @property
+    def kd(self) -> int:
+        return self.kl if self.uplo == Uplo.Lower else self.ku
 
     @property
     def full(self) -> torch.Tensor:
@@ -120,3 +195,11 @@ def symmetrize(a: torch.Tensor, uplo: Uplo, conj: bool) -> torch.Tensor:
         d = full.diagonal()
         d.copy_(d.real.to(full.dtype))
     return full
+
+
+def band_project(a: torch.Tensor, kl: int, ku: int) -> torch.Tensor:
+    """Zero outside the band [-kl, +ku] (a select: NaN there is dropped)."""
+    m, n = a.shape
+    i = torch.arange(m, device=a.device)[:, None]
+    j = torch.arange(n, device=a.device)[None, :]
+    return torch.where((j - i <= ku) & (i - j <= kl), a, a.new_zeros(()))

@@ -46,11 +46,17 @@ def pad_dense(a: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return torch.nn.functional.pad(a, (0, cols - n, 0, rows - m))
 
 
+def _ramp(k: int, ap: torch.Tensor) -> torch.Tensor:
+    """The weights 1..k in ``ap``'s dtype, made in its real dtype (torch
+    has no complex arange) and cast."""
+    return torch.arange(1, k + 1, dtype=ap.real.dtype, device=ap.device).to(ap.dtype)
+
+
 def row_checksums(ap: torch.Tensor, nb: int) -> torch.Tensor:
     """(mt*nb, N) -> (2*nb, N): unit-sum tile row stacked on ramp-sum."""
     mt = ap.shape[0] // nb
     t = ap.reshape(mt, nb, ap.shape[1])
-    w = torch.arange(1, mt + 1, dtype=ap.dtype, device=ap.device)
+    w = _ramp(mt, ap)
     return torch.cat([t.sum(0), (w[:, None, None] * t).sum(0)], dim=0)
 
 
@@ -58,7 +64,7 @@ def col_checksums(ap: torch.Tensor, nb: int) -> torch.Tensor:
     """(M, nt*nb) -> (M, 2*nb): unit and ramp tile-column sums."""
     nt = ap.shape[1] // nb
     t = ap.reshape(ap.shape[0], nt, nb)
-    w = torch.arange(1, nt + 1, dtype=ap.dtype, device=ap.device)
+    w = _ramp(nt, ap)
     return torch.cat([t.sum(1), (w[None, :, None] * t).sum(1)], dim=1)
 
 

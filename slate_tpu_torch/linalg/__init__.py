@@ -6,6 +6,28 @@ from .chol import (
     potrs,
     potrs_array,
 )
+from .lu import (
+    LUFactors,
+    gesv,
+    gesv_array,
+    getrf,
+    getrf_array,
+    getrf_nopiv_array,
+    getrf_scan_array,
+    getrf_tntpiv_array,
+    getri_array,
+    getri_oop_array,
+    getrs_array,
+)
+from .refine import (
+    RefineResult,
+    gate_cte,
+    gesv_mixed_array,
+    gesv_mixed_gmres_array,
+    posv_mixed_array,
+    posv_mixed_gmres_array,
+)
+from .tri import trtri_array, trtrm_array
 from .qr import (
     LQFactors,
     QRFactors,
@@ -19,4 +41,12 @@ from .qr import (
     geqrf_r,
     unmlq_array,
     unmqr_array,
+)
+from .norms import (
+    col_norms,
+    gecondest,
+    norm,
+    norm1est,
+    pocondest,
+    trcondest,
 )

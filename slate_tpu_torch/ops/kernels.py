@@ -34,10 +34,16 @@ Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This module holds:
   :func:`ft_summa_update` (``ft_summa_update_pallas``: the tile update and
   the Huang-Abraham weighted row sums in one pass), with its twin
   :func:`ft_summa_update_plain`.  ``ft.abft`` gates it by
-  ``Option.PanelImpl`` (:func:`panel_engaged`), as ``slate_tpu`` does.
+  ``Option.PanelImpl`` (:func:`panel_engaged`), as ``slate_tpu`` does;
+- the tile kernels on ``csrc/tile_ops.cu``: :func:`transpose_tiles`
+  (``transpose_pallas``), :func:`geadd_tiles` (``geadd_pallas``) and
+  :func:`genorm_max_tiles` (``genorm_max_pallas``), each with its
+  ``*_plain`` twin, and their gate :func:`use_cuda_tiles` (the counterpart
+  of ``use_pallas_tiles``, read by ``ops.tile_ops.transpose``).  These take
+  no Option: a CPU tensor takes the twin, a CUDA tensor the kernel.
 
-Dispatch: ``pallas`` and ``auto`` take the CUDA kernel for a CUDA tensor and
-the plain twin for a CPU tensor (the wrapper decides by the tensor's
+Dispatch of the panel and update kernels: ``pallas`` and ``auto`` take the
+CUDA kernel for a CUDA tensor and the plain twin for a CPU tensor (the wrapper decides by the tensor's
 device); ``xla`` takes the plain PyTorch forms (``torch.linalg`` for the
 panel factor, the batched-matmul twins for the updates), the counterparts
 of the XLA ops ``slate_tpu`` uses there.  A CUDA tensor never falls back to
@@ -45,9 +51,8 @@ the twin: the kernel builds and launches, or the call raises.  The update
 wrappers work in place, where ``slate_tpu``'s return a new array.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call (the twin) does not count.  The other 4 Pallas kernels of
-``pallas_ops.py`` / ``matmul.py`` are not ported yet (ROADMAP.md, kernel
-queue).
+call (the twin) does not count.  The one Pallas kernel not ported yet is
+``matmul.py``'s ``matmul_pallas`` (ROADMAP.md, kernel queue).
 """
 
 from __future__ import annotations
@@ -924,3 +929,146 @@ def ft_summa_update(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
 
 
 ft_summa_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the tile kernels on csrc/tile_ops.cu: transpose, geadd, per-tile max |a|
+# ---------------------------------------------------------------------------
+
+_TILE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the width the plain geadd forms its sum in: both products are exact there
+_GEADD_WIDE = {torch.float32: torch.float64, torch.bfloat16: torch.float32}
+
+
+def use_cuda_tiles(a) -> bool:
+    """Whether a tile stack takes the tile kernels: the counterpart of
+    ``slate_tpu``'s ``use_pallas_tiles`` (a TPU backend there, a CUDA
+    tensor here), f32 or bf16, a 3-D (k, mb, nb) stack with nb >= 128 and
+    k >= 8."""
+    if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+        return False
+    if a.dtype not in _TILE_DTYPES:
+        return False
+    return a.dim() == 3 and a.shape[-1] >= 128 and a.shape[0] >= 8
+
+
+def _tile_fn(kernel: str, dtype: torch.dtype):
+    lib = _build.load("tile_ops")
+    fn = getattr(lib, f"tile_{kernel}_{_TILE_DTYPES[dtype]}")
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes = {"transpose": [vp, vp, ll, ll, ll, vp],
+                   "geadd": [vp, vp, vp, ctypes.c_double, ctypes.c_double, ll, vp],
+                   "genorm_max": [vp, vp, ll, ll, vp]}[kernel]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tiles(who: str, *stacks: torch.Tensor) -> None:
+    """What the tile kernels take: one CUDA device, f32 or bf16, contiguous
+    non-empty (k, mb, nb) stacks of one shape."""
+    a = stacks[0]
+    if a.device.type != "cuda" or any(s.device != a.device for s in stacks):
+        raise ValueError(f"{who}: unsupported device {[str(s.device) for s in stacks]}")
+    if a.dtype not in _TILE_DTYPES or any(s.dtype != a.dtype for s in stacks):
+        raise TypeError(f"{who}: dtype {[s.dtype for s in stacks]} not supported on CUDA "
+                        "(f32, bf16, one dtype)")
+    if a.dim() != 3 or a.numel() == 0 or any(s.shape != a.shape for s in stacks):
+        raise ValueError(f"{who}: need non-empty (k, mb, nb) stacks of one shape, got "
+                         f"{[tuple(s.shape) for s in stacks]}")
+    if not all(s.is_contiguous() for s in stacks):
+        raise ValueError(f"{who}: stacks must be contiguous")
+
+
+def _launch_tiles(who: str, kernel: str, dtype: torch.dtype, device, *args) -> None:
+    fn = _tile_fn(kernel, dtype)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error {rc}")
+
+
+def transpose_tiles_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`transpose_tiles`: every tile transposed,
+    (k, mb, nb) -> (k, nb, mb), as a new contiguous tensor."""
+    return a.transpose(-1, -2).contiguous()
+
+
+def transpose_tiles(a: torch.Tensor) -> torch.Tensor:
+    """Batched tile transpose (``transpose_pallas``): (k, mb, nb) ->
+    (k, nb, mb).  A CPU tensor takes :func:`transpose_tiles_plain`; a CUDA
+    tensor launches ``csrc/tile_ops.cu`` once (``transpose_tiles.launches``)
+    or the call raises (a dtype other than f32/bf16, a non-contiguous or
+    non-3-D stack)."""
+    if a.device.type == "cpu":
+        return transpose_tiles_plain(a)
+    _check_tiles("transpose_tiles", a)
+    k, mb, nb = a.shape
+    out = torch.empty((k, nb, mb), dtype=a.dtype, device=a.device)
+    _launch_tiles("transpose_tiles", "transpose", a.dtype, a.device,
+                  a.data_ptr(), out.data_ptr(), k, mb, nb)
+    transpose_tiles.launches += 1
+    return out
+
+
+transpose_tiles.launches = 0
+
+
+def _rounded(x, dtype: torch.dtype) -> float:
+    """A host scalar rounded to ``dtype`` (``jnp.asarray([x], dtype)``),
+    returned as the Python float it is exactly."""
+    return float(torch.tensor(float(x), dtype=dtype))
+
+
+def geadd_tiles_plain(alpha, a: torch.Tensor, beta, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`geadd_tiles`: alpha and beta rounded to
+    ``a.dtype``, ``alpha a + beta b`` formed in the wider type (f64 for f32,
+    f32 for bf16), where both products are exact, and rounded once (other
+    dtypes: in their own)."""
+    wide = _GEADD_WIDE.get(a.dtype, a.dtype)
+    al, be = _rounded(alpha, a.dtype), _rounded(beta, a.dtype)
+    return (al * a.to(wide) + be * b.to(wide)).to(a.dtype)
+
+
+def geadd_tiles(alpha, a: torch.Tensor, beta, b: torch.Tensor) -> torch.Tensor:
+    """``alpha A + beta B`` over a (k, mb, nb) tile stack (``geadd_pallas``),
+    a new tensor.  A CPU tensor takes :func:`geadd_tiles_plain`; a CUDA
+    tensor launches ``csrc/tile_ops.cu`` once (``geadd_tiles.launches``),
+    which rounds alpha and beta to the stack's dtype and forms the sum as
+    the twin does, or the call raises."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return geadd_tiles_plain(alpha, a, beta, b)
+    _check_tiles("geadd_tiles", a, b)
+    out = torch.empty_like(a)
+    _launch_tiles("geadd_tiles", "geadd", a.dtype, a.device, a.data_ptr(), b.data_ptr(),
+                  out.data_ptr(), _rounded(alpha, a.dtype), _rounded(beta, a.dtype), a.numel())
+    geadd_tiles.launches += 1
+    return out
+
+
+geadd_tiles.launches = 0
+
+
+def genorm_max_tiles_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`genorm_max_tiles`: ``slate_tpu``'s two stages,
+    each tile's column maxima of |a|, then their max; NaN propagates."""
+    return a.abs().amax(dim=-2).amax(dim=-1)
+
+
+def genorm_max_tiles(a: torch.Tensor) -> torch.Tensor:
+    """Per-tile max |a| of a (k, mb, nb) stack, (k,) in ``a.dtype``
+    (``genorm_max_pallas``); a tile holding a NaN gives NaN.  A CPU tensor
+    takes :func:`genorm_max_tiles_plain`; a CUDA tensor launches
+    ``csrc/tile_ops.cu`` once (``genorm_max_tiles.launches``) or the call
+    raises."""
+    if a.device.type == "cpu":
+        return genorm_max_tiles_plain(a)
+    _check_tiles("genorm_max_tiles", a)
+    k, mb, nb = a.shape
+    out = torch.empty((k,), dtype=a.dtype, device=a.device)
+    _launch_tiles("genorm_max_tiles", "genorm_max", a.dtype, a.device,
+                  a.data_ptr(), out.data_ptr(), k, mb * nb)
+    genorm_max_tiles.launches += 1
+    return out
+
+
+genorm_max_tiles.launches = 0

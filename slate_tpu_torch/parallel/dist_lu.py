@@ -485,7 +485,6 @@ def _pp_panel_factor(loc, k, p, q, nt, m_true, gids):
     pivot position chosen per column as a device tensor)."""
     mtl, nb = loc.shape[2], loc.shape[4]
     dev = loc.device
-    dtype = loc.dtype
     mglob = nt * nb
     base, c0 = k * nb, k % q
     m_loc = mtl * nb
@@ -494,7 +493,7 @@ def _pp_panel_factor(loc, k, p, q, nt, m_true, gids):
     rows_r = torch.arange(p, device=dev)
     col_ids = torch.arange(nb, device=dev)
     piv_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
-    neg_one = torch.tensor(-1.0, dtype=dtype, device=dev)
+    neg_one = torch.tensor(-1.0, dtype=flat.real.dtype, device=dev)  # |a|'s real dtype
     for j in range(nb):
         gcol = base + j
         colv = flat[:, :, j]

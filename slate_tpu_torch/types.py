@@ -5,8 +5,9 @@ member names and values, so that a test can map one package's enum onto the
 other's by name (``utils.testing.options_from_names``).  Only the enums the
 ported paths read are here (the single-chip Cholesky path and the mesh
 solve: grid order, MethodGemm/MethodTrsm and their selectors; the mesh LU
-solves: MethodLU; least squares: MethodGels); the other
-method and norm enums come with the slices that read them.
+solves: MethodLU; least squares: MethodGels; the norms and condition
+estimators: Norm, NormScope); the other method enums come with the slices
+that read them.
 """
 
 from __future__ import annotations
@@ -39,6 +40,23 @@ class Diag(enum.Enum):
 class Side(enum.Enum):
     Left = "L"
     Right = "R"
+
+
+class Norm(enum.Enum):
+    """Matrix norms (LAPACK convention)."""
+
+    One = "1"
+    Inf = "I"
+    Max = "M"
+    Fro = "F"
+
+
+class NormScope(enum.Enum):
+    """Whole-matrix norm vs per-row / per-column norms."""
+
+    Matrix = "M"
+    Columns = "C"
+    Rows = "R"
 
 
 class Target(enum.Enum):

@@ -6,7 +6,8 @@ only, seeded identically), so both packages compute on the same operands.
 ``options_from_names`` carries an ``Options`` mapping given by enum names;
 ``dist_from_numpy`` rebuilds a mesh matrix from another package's tile
 stack (so a test can feed one package's factor to the other's solves), and
-``distqr_from_numpy`` rebuilds CAQR factors the same way.
+``distqr_from_numpy`` rebuilds CAQR factors the same way, and
+``lufactors_from_numpy`` single-chip LU factors.
 ``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin.
 """
 
@@ -134,6 +135,17 @@ def options_from_names(opts: Optional[Mapping[Any, Any]]) -> dict:
         name = key if isinstance(key, str) else key.name
         out[_types.Option[name]] = _port_value(value)
     return out
+
+
+def lufactors_from_numpy(lu: np.ndarray, perm: np.ndarray, info, device="cuda"):
+    """The port's ``LUFactors`` from another package's (lu, perm, info) as
+    numpy, on ``device``: the same factors for both packages' getrs, getri
+    and gecondest."""
+    from ..linalg.lu import LUFactors
+
+    return LUFactors(torch.from_numpy(np.array(lu)).to(device),
+                     torch.from_numpy(np.array(perm, dtype=np.int64)).to(device),
+                     torch.tensor(int(np.asarray(info)), dtype=torch.int32, device=device))
 
 
 def dist_from_numpy(tiles: np.ndarray, m: int, n: int, nb: int, mesh, diag_pad: bool = True):

@@ -438,7 +438,9 @@ def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 10
     for mod in ("linalg/qr.py", "parallel/dist_qr.py", "ops/kernels.py", "ft/abft.py",
-                "ft/checksum.py", "ft/inject.py", "ft/policy.py", "ft/smoke.py", "obs/metrics.py"):
+                "ft/checksum.py", "ft/inject.py", "ft/policy.py", "ft/smoke.py", "obs/metrics.py",
+                "linalg/lu.py", "linalg/norms.py", "linalg/refine.py", "linalg/tri.py",
+                "ops/tile_ops.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

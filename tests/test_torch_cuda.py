@@ -650,3 +650,85 @@ def test_gemm_ft_on_card(card, dtype):
         c, rep = abft.gemm_ft(1.0, a, b, mesh, nb, policy=FtPolicy.Correct)
     assert rep.action == "corrected" and rep.detections
     assert float((c.double() - ref).abs().max()) < gate
+
+
+# ---------------------------------------------------------------------------
+# the tile kernels (csrc/tile_ops.cu)
+# ---------------------------------------------------------------------------
+
+TILE_DTYPES = [torch.float32, torch.bfloat16]
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _tile_stack(shape, dtype, seed):
+    a = _randn(shape, torch.float32, seed).to(dtype)
+    a[min(1, shape[0] - 1), 0, min(2, shape[2] - 1)] = float("nan")  # one NaN tile
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128, 256), (3, 100, 37), (70000, 2, 128)])
+@pytest.mark.parametrize("dtype", TILE_DTYPES)
+def test_tile_kernels_match_twins(card, shape, dtype):
+    """transpose and genorm_max bitwise the twin, NaN included (compared as
+    bits); geadd within eps (|alpha a| + |beta b|) of it (the kernel rounds
+    the same exact sum once, as the twin); one launch each.  (70000, 2, 128)
+    strides the stack index past the grid's 65535."""
+    a, b = _tile_stack(shape, dtype, 1), _randn(shape, torch.float32, 2).to(dtype)
+    before = [getattr(tk, w).launches for w in ("transpose_tiles", "geadd_tiles",
+                                                 "genorm_max_tiles")]
+    t = tk.transpose_tiles(a)
+    n = tk.genorm_max_tiles(a)
+    g = tk.geadd_tiles(0.3, a, -1.7, b)
+    torch.cuda.synchronize()
+    after = [getattr(tk, w).launches for w in ("transpose_tiles", "geadd_tiles",
+                                                "genorm_max_tiles")]
+    assert [x - y for x, y in zip(after, before)] == [1, 1, 1]
+    bits = _BITS[dtype]
+    assert t.shape == (shape[0], shape[2], shape[1])
+    assert torch.equal(t.view(bits), tk.transpose_tiles_plain(a).view(bits))
+    np_ = tk.genorm_max_tiles_plain(a)
+    assert torch.equal(torch.isnan(n), torch.isnan(np_)) and bool(torch.isnan(n[1]))
+    assert torch.equal(n.nan_to_num(), np_.nan_to_num())
+    al, be = (float(torch.tensor(x, dtype=dtype)) for x in (0.3, -1.7))
+    scale = (al * a.double()).abs() + (be * b.double()).abs()
+    gp = tk.geadd_tiles_plain(0.3, a, -1.7, b)
+    ok = torch.isfinite(scale)
+    diff = (g.double() - gp.double()).abs()
+    assert bool((diff[ok] <= torch.finfo(dtype).eps * scale[ok]).all())
+    assert torch.equal(torch.isnan(g), torch.isnan(gp))
+
+
+@pytest.mark.cuda
+def test_tile_kernels_raise_instead_of_falling_back(card):
+    a = _randn((8, 128, 128), torch.float32, 3)
+    with pytest.raises(TypeError, match="not supported on CUDA"):
+        tk.transpose_tiles(a.double())
+    with pytest.raises(TypeError, match="not supported on CUDA"):
+        tk.genorm_max_tiles(a.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.genorm_max_tiles(a.transpose(1, 2))
+    with pytest.raises(ValueError, match="one shape"):
+        tk.geadd_tiles(1.0, a, 1.0, a[:4])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.geadd_tiles(1.0, a, 1.0, a.cpu())
+
+
+@pytest.mark.cuda
+def test_ops_transpose_takes_the_kernel_through_the_gate(card):
+    from slate_tpu_torch.ops import transpose
+
+    big = _randn((8, 128, 256), torch.float32, 4)
+    before = tk.transpose_tiles.launches
+    out = transpose(big)
+    torch.cuda.synchronize()
+    assert tk.transpose_tiles.launches - before == 1
+    assert torch.equal(out, big.transpose(-1, -2))
+    small = _randn((4, 128, 256), torch.float32, 5)  # k < 8: below the gate
+    assert torch.equal(transpose(small), small.transpose(-1, -2))
+    assert torch.equal(transpose(big.double()), big.double().transpose(-1, -2))
+    assert tk.transpose_tiles.launches - before == 1
+    # a strided stack goes to the kernel contiguous
+    strided = _randn((8, 256, 128), torch.float32, 6).transpose(1, 2)
+    assert torch.equal(transpose(strided), strided.transpose(-1, -2))
+    assert tk.transpose_tiles.launches - before == 2

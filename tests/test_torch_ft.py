@@ -659,3 +659,107 @@ def test_ft_smoke_on_the_host():
     c = res["counters"]
     assert c["detected"] >= 6 and c["corrected"] >= 4 and c["recomputed"] >= 1
     assert c["uncorrectable"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# complex operands: the checksum ramps, the verify and the repairs in c64 and
+# c128 (the ramp weights are made in the real dtype and cast; torch has no
+# complex arange)
+# ---------------------------------------------------------------------------
+
+
+def _complex_operands(n, dtype, seed=7):
+    """randn + i randn A and B, a Hermitian positive definite G G^H + n I
+    and a diagonally dominant randn + i randn + n I."""
+    rng = np.random.default_rng(seed)
+
+    def c(shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    a, b, g, d = c((n, n)), c((n, n)), c((n, n)), c((n, n))
+    ops = {"a": a, "b": b, "spd": g @ g.conj().T + n * np.eye(n), "dd": d + n * np.eye(n)}
+    return {k: v.astype(dtype) for k, v in ops.items()}
+
+
+# one fault per op that slate_tpu detects at n = 64 in c128 (as in the
+# ragged parity cases)
+COMPLEX_FAULTS = {"gemm": (21, "trailing"), "potrf": (31, "panel"), "getrf_nopiv": (43, "trailing")}
+COMPLEX_CASES = [(op, pol, faulty) for op in COMPLEX_FAULTS for pol in ("detect", "correct")
+                 for faulty in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("op,pol,faulty", COMPLEX_CASES,
+                         ids=[f"{o}-{p}-{'fault' if f else 'clean'}" for o, p, f in COMPLEX_CASES])
+def test_complex_fault_parity(op, pol, faulty, dtype):
+    """Complex FaultTolerance: the same action (or FtError), detections'
+    kind/where, counter deltas and info as slate_tpu; magnitudes to rtol
+    1e-8 (c128) / 1e-3 (c64), the result to 1e-12 (c128) / n eps32 (c64)
+    of max|ref|."""
+    ops = _complex_operands(N, dtype)
+    seed, phase = COMPLEX_FAULTS[op]
+    faults = [_seeded(seed, op, N // NB, phase)] if faulty else []
+    j = _run_jax(op, ops, pol, faults, N)
+    t = _run_torch(op, ops, pol, faults, N)
+    assert t.get("error") == j.get("error") and t.get("action") == j.get("action")
+    assert _dets(t["dets"]) == _dets(j["dets"])
+    c128 = dtype == np.complex128
+    np.testing.assert_allclose(_mags(t["dets"]), _mags(j["dets"]), rtol=1e-8 if c128 else 1e-3)
+    assert t["delta"] == j["delta"] and t.get("info") == j.get("info")
+    if "result" in j:
+        scale = np.abs(j["result"]).max()
+        tol = 1e-12 if c128 else N * np.finfo(np.float32).eps
+        assert np.abs(t["result"] - j["result"]).max() <= tol * scale
+    if not faulty:
+        assert j.get("action") == "clean" and not j["dets"]
+    elif c128:
+        assert j["dets"]  # the seeded fault is seen in c128
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_complex_ft_drivers_match_jax(dtype):
+    """gemm_mesh (one seeded trailing fault), posv_mesh and
+    gesv_nopiv_mesh under FaultTolerance detect and correct on complex
+    operands: the port's results are slate_tpu's, to 1e-12 (c128) /
+    n eps32 (c64) of their scale, with the same counter deltas."""
+    ops = _complex_operands(N, dtype, seed=8)
+    tol = 1e-12 if dtype == np.complex128 else N * np.finfo(np.float32).eps
+    rhs = ops["b"][:, :3]
+    jm, tm = _jmesh(), _tmesh()
+    f = _seeded(21, "gemm", N // NB, "trailing")
+    for pol in ("detect", "correct"):
+        jo = {JOption.FaultTolerance: pol, JOption.MixedPrecision: "off"}
+        to = {TOption.FaultTolerance: pol, TOption.MixedPrecision: "off"}
+        res = {}
+        for side in ("jax", "torch"):
+            counters = jcounters if side == "jax" else tcounters
+            before = counters()
+            out = {}
+            try:
+                if side == "jax":
+                    with jscope(JPlan([jinject.Fault(**f)])):
+                        out["gemm"] = np.asarray(jdrv.gemm_mesh(
+                            1.0, jnp.asarray(ops["a"]), jnp.asarray(ops["b"]), jm, NB, opts=jo))
+                else:
+                    with tscope(TPlan([tinject.Fault(**f)])):
+                        out["gemm"] = tp.gemm_mesh(1.0, _t(ops["a"]), _t(ops["b"]), tm, NB,
+                                                   opts=to).numpy()
+            except (JFtError, TFtError) as e:
+                out["gemm_error"] = e.op
+            if side == "jax":
+                x, info = jdrv.posv_mesh(jnp.asarray(ops["spd"]), jnp.asarray(rhs), jm, NB, opts=jo)
+                y, info2 = jdrv.gesv_nopiv_mesh(jnp.asarray(ops["dd"]), jnp.asarray(rhs), jm, NB,
+                                                opts=jo)
+            else:
+                x, info = tp.posv_mesh(_t(ops["spd"]), _t(rhs), tm, NB, opts=to)
+                y, info2 = tp.gesv_nopiv_mesh(_t(ops["dd"]), _t(rhs), tm, NB, opts=to)
+            out.update(posv=_np(x), gesv=_np(y), info=(int(info), int(info2)))
+            out["delta"] = _delta(before, counters())
+            res[side] = out
+        j, t = res["jax"], res["torch"]
+        assert t.get("gemm_error") == j.get("gemm_error")
+        assert t["info"] == j["info"] == (0, 0) and t["delta"] == j["delta"]
+        for key in ("gemm", "posv", "gesv"):
+            if key in j:
+                scale = np.abs(j[key]).max()
+                assert np.abs(t[key] - j[key]).max() <= tol * scale, (pol, key)

@@ -494,3 +494,63 @@ def test_ft_summa_update_plain_matches_pallas(grid):
     # f64, two frameworks' sums of nb products: atol 1e-12 as the Pallas test
     np.testing.assert_allclose(out.numpy(), np.broadcast_to(out_ref, out.shape), rtol=0, atol=1e-12)
     np.testing.assert_allclose(part.numpy(), np.broadcast_to(part_ref, part.shape), rtol=0, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the tile kernels (csrc/tile_ops.cu): dispatch and refusals on the host;
+# their twins against the interpreted Pallas kernels are in
+# test_torch_tile_ops.py
+# ---------------------------------------------------------------------------
+
+TILE_WRAPPERS = ("transpose_tiles", "geadd_tiles", "genorm_max_tiles")
+
+
+def test_tile_wrappers_take_twins_on_cpu_without_counting():
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((8, 16, 128)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((8, 16, 128)).astype(np.float32))
+    before = [getattr(tk, w).launches for w in TILE_WRAPPERS]
+    assert torch.equal(tk.transpose_tiles(a), tk.transpose_tiles_plain(a))
+    assert torch.equal(tk.geadd_tiles(0.3, a, -2.0, b), tk.geadd_tiles_plain(0.3, a, -2.0, b))
+    assert torch.equal(tk.genorm_max_tiles(a), tk.genorm_max_tiles_plain(a))
+    assert [getattr(tk, w).launches for w in TILE_WRAPPERS] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_geadd_twin_rounds_once_from_exact_products(dtype):
+    """alpha and beta are rounded to the dtype, then alpha a + beta b is
+    formed where both products are exact (f64 for f32, f32 for bf16) and
+    rounded once: the correctly rounded sum, entry by entry."""
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((8, 8, 128)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((8, 8, 128)).astype(np.float32)).to(dtype)
+    al, be = (float(torch.tensor(x, dtype=dtype)) for x in (0.1, -1.3))
+    exact = al * a.double() + be * b.double()  # exact: the f64 products and sum of narrow values
+    assert torch.equal(tk.geadd_tiles_plain(0.1, a, -1.3, b), exact.to(dtype))
+
+
+def test_genorm_max_twin_propagates_nan():
+    a = torch.ones((8, 4, 128))
+    a[6, 2, 9] = float("nan")
+    got = tk.genorm_max_tiles(a)
+    assert torch.isnan(got[6]) and torch.equal(got[torch.arange(8) != 6], torch.ones(7))
+
+
+def test_tile_wrappers_refuse_other_devices():
+    a = torch.empty((8, 16, 128), device="meta")
+    for call in (lambda: tk.transpose_tiles(a), lambda: tk.geadd_tiles(1.0, a, 1.0, a),
+                 lambda: tk.genorm_max_tiles(a)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+def test_tile_ops_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_DIRS", [str(tmp_path)])
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    for kernel in ("transpose", "geadd", "genorm_max"):
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+                tk._tile_fn(kernel, dtype)
+    assert os.path.exists(os.path.join(_build.CSRC_DIR, "tile_ops.cu"))

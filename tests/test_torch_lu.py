@@ -387,3 +387,29 @@ def test_dryrun_gesv_pp_matches_jax():
     x, info_t, eta = tdry.gesv_pp(_t(ops["am"]), _t(ops["b"]), _tmesh())
     assert int(info) == int(info_t) == 0 and eta < 100 * 64 * _eps(np.float32)
     assert _eta(ops["am"].astype(np.float64), np.asarray(xj), ops["b"]) < 100 * 64 * _eps(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# complex pivoted LU: the argmax sentinel in the real dtype of |a|
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("form", ["pp", "tntpiv"])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_complex_pivoted_lu_matches_jax(form, dtype):
+    """gesv_mesh and gesv_tntpiv_mesh on A = randn + i randn (n = 64,
+    nb = 8, 2 x 4, 4 right-hand sides): perm and info bitwise slate_tpu's,
+    both solutions under eta < 100 n eps."""
+    n = 64
+    a = generate("randn", n, dtype=dtype, seed=11)
+    b = generate("randn", n, 4, dtype=dtype, seed=12)
+    jm, tm = _jmesh(), _tmesh()
+    jlu = _J_GETRF[form](jnp.asarray(a), jm, NB, opts=_J_OPTS)
+    tlu = _T_GETRF[form](_t(a), tm, NB, opts=_T_OPTS)
+    np.testing.assert_array_equal(tlu[1].numpy(), np.asarray(jlu[1]))
+    assert int(tlu[-1]) == int(jlu[-1]) == 0
+    xj, ij = _J_GESV[form](jnp.asarray(a), jnp.asarray(b), jm, NB, opts=_J_OPTS)
+    xt, it = _T_GESV[form](_t(a), _t(b), tm, NB, opts=_T_OPTS)
+    assert int(it) == int(ij) == 0
+    for x in (np.asarray(xj), xt.numpy()):
+        assert _eta(a.astype(np.complex128), x, b) < 100 * n * _eps(dtype)
