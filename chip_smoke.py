@@ -122,12 +122,40 @@ printing one JSON line before the next starts (any failure exits non-zero):
 31. lu_misc: getri_array f64 at n = 4096, gecondest against the exact
    1 / kappa_1 of a 256 x 256 matrix, and a zero column giving info j + 1
    in the f32 and f64 forms;
-32. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
+32. kernel_matmul: matmul_pallas (csrc/matmul.cu) against its twin
+   (utils.testing.matmul_pallas_excess: 9 sqrt(k) eps32 |A||B|
+   elementwise, Higham and Mary's probabilistic bound, plus one output ulp
+   in bf16) at f32 and bf16 8192^3, the thin-k f32 rank update
+   (32768 x 256)(256 x 32768) and a ragged 1000 x 777 x 1234, one launch
+   per call of ops.matmul_pallas, with kernel, twin and library
+   (torch.matmul, TF32 off) times and the bound (f32 67 TFLOP/s, bf16 the
+   tensor cores' 989); at each shape the kernel's C with one 8-deep k-slab
+   dropped must read above the limit, and at 8192^3 the kernel's error from
+   the f64 product must stay within 2 k / (bk + k / bk) times the twin's (a
+   TF32 product's, which passes the elementwise limit, is read beside it);
+33. ozaki: ops.ozaki.matmul_f64 / matmul_c128 at 512 bitwise the CPU's
+   result; matmul_f64 at 8192 against cuBLAS DGEMM (time, relative error);
+   gemm_summa_ozaki at n = 8192 on 2 x 4 against the f64 gemm_summa (times,
+   audited bytes exactly 9/8);
+34. mixed_mesh: the f64 mesh ladder (2 x 4, nb = 256, 32 rhs), each after a
+   warm-up at n = 1024: posv_mesh n = 16384 under auto, auto with the Ozaki
+   residual and off; gesv_mesh n = 8192 under auto and off; a cond-1e12
+   gesv at n = 2048 that escalates (ir.escalated_gmres and ir.fallback +1);
+   posv_mesh under FaultTolerance at n = 8192: seconds, peak memory, tier,
+   iters, ir.* deltas, launches, eta, omega and the refinement gate;
+   then ladder_kernels: summa_update in f64 (the residual SUMMA) and, in
+   f32, chol_panel_tiles, chol_trailing_update and lu_rowsolve_tiles held
+   against their twins at the inputs of their widest call in the measured
+   posv (n = 16384) and gesv (n = 8192) auto runs, summa_update's f64 row
+   taking the posv run's launches;
+35. mixed_smoke: slate_tpu_torch.parallel.mixed_smoke on the card;
+36. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
    half; n = 64, nb = 8, 2 x 4);
-33. kernels: the line of every ported kernel (one row per kernel and
-   dtype; geadd_tiles and genorm_max_tiles, which no driver reaches, count
-   the launches of their timed calls in phase 26), then the card line and,
-   last, {"ok": true, "device": {...}}.
+37. kernels: the line of every ported kernel (one row per kernel and
+   dtype, all 14 TPU kernels; geadd_tiles and genorm_max_tiles, which no
+   driver reaches, count the launches of their timed calls in phase 26,
+   and matmul_pallas that of phase 32's public 8192^3 call), then the card line
+   and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -140,6 +168,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
 
 NB = 256
 N_MAIN = 32768
@@ -414,22 +443,8 @@ def kernel_panel_phase(dtype, kernels, local_view, torch):
     t, loc = mesh_tiles(n, dtype, SEED + 11, torch, local_view)
     pcol = loc[:, 1:2, :, 1]  # (p, 1, mtl, nb, nb), as panel(k) slices it
     dtile = spd_block(NB, dtype, SEED + 12, torch)
-    lk, sk = kernels.chol_panel_tiles(dtile, pcol)
-    torch.cuda.synchronize()
-    lp, sp = kernels.chol_panel_tiles_plain(dtile, pcol)
-    _, xk = kernels.chol_diag_inv(dtile)  # the L^-1 the panel kernel solved with
-    _, xp = kernels.chol_diag_inv_plain(dtile)
-    # L: at its own scale and by reconstruction; solved tiles: panel_solve_tol
-    fac = chol_factor_check(dtile, lk, lp, None, None, eps, torch)
+    fac, err_s, tol_s, smax = hold_chol_panel(name, dtile, pcol, kernels, torch)
     err_l = fac["err_L"]
-    tol_s = panel_solve_tol(pcol, xk, xp, eps)
-    smax = float(sp.abs().max())
-    err_s = float((sk - sp).abs().max())
-    check(bool(torch.isfinite(sk).all()), f"chol_panel_tiles {name}: non-finite output")
-    check(tol_s < 1e-2 * smax, f"chol_panel_tiles {name}: tolerance {tol_s} does not separate "
-                               f"a wrong output from max|solved| {smax}")
-    check(chol_factor_ok(fac), f"chol_panel_tiles {name}: L {fac}")
-    check(err_s < tol_s, f"chol_panel_tiles {name}: |dS| {err_s} (tol {tol_s})")
     ms = cuda_ms(lambda: kernels.chol_panel_tiles(dtile, pcol), 20, torch)
     plain_ms = cuda_ms(lambda: kernels.chol_panel_tiles_plain(dtile, pcol), 2, torch)
 
@@ -457,6 +472,28 @@ def kernel_panel_phase(dtype, kernels, local_view, torch):
     return row
 
 
+def hold_chol_panel(name, dtile, pcol, kernels, torch):
+    """chol_panel_tiles on (dtile, pcol) against its twin: L at its own
+    scale and by reconstruction, the solved tiles within panel_solve_tol.
+    Returns (the L readings, |dS|, its tolerance, max|solved|)."""
+    eps = torch.finfo(dtile.dtype).eps
+    lk, sk = kernels.chol_panel_tiles(dtile, pcol)
+    torch.cuda.synchronize()
+    lp, sp = kernels.chol_panel_tiles_plain(dtile, pcol)
+    _, xk = kernels.chol_diag_inv(dtile)  # the L^-1 the panel kernel solved with
+    _, xp = kernels.chol_diag_inv_plain(dtile)
+    fac = chol_factor_check(dtile, lk, lp, None, None, eps, torch)
+    tol_s = panel_solve_tol(pcol, xk, xp, eps)
+    smax = float(sp.abs().max())
+    err_s = float((sk - sp).abs().max())
+    check(bool(torch.isfinite(sk).all()), f"chol_panel_tiles {name}: non-finite output")
+    check(tol_s < 1e-2 * smax, f"chol_panel_tiles {name}: tolerance {tol_s} does not separate "
+                               f"a wrong output from max|solved| {smax}")
+    check(chol_factor_ok(fac), f"chol_panel_tiles {name}: L {fac}")
+    check(err_s < tol_s, f"chol_panel_tiles {name}: |dS| {err_s} (tol {tol_s})")
+    return fac, err_s, tol_s, smax
+
+
 def panel_solve_tol(tiles, xk, xp, eps):
     """Bound on |tiles @ xk^T - tiles @ xp^T| as the kernel and the twin
     compute it: each sums nb products, within nb eps (|T| |X|^T) of the exact
@@ -477,39 +514,30 @@ def gemm_tol(nb, eps, amax, bmax, cmax):
     return 8 * math.sqrt(nb) * eps * amax * bmax + 2 * eps * cmax
 
 
-def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch):
-    """chol_trailing_update (bucket-0 view of the mesh posv, lower-tile
-    mask), lu_trailing_update (bucket-0 view of the mesh LU, the lookahead
-    exclusions of one row and one column slot) or summa_update (the mesh
-    gemm's accumulator) against its twin."""
-    name = dname(dtype)
-    eps = torch.finfo(dtype).eps
-    n = GEMM_N if which == "summa_update" else MESH_N[name]
-    t, loc = mesh_tiles(n, dtype, SEED + 21, torch, local_view)
-    _, _, I, J, _, _ = loc.shape
-    pan = randn((P, 1, I, NB, NB), dtype, SEED + 22, torch, 0.1)
-    rhs = randn((1, Q, J, NB, NB), dtype, SEED + 23, torch, 0.1)
+def update_calls(which, kernels, pan, rhs, mask, torch):
+    """(run, plain, library, replaces) of one tile-update kernel: run and
+    plain update the view they are given in place."""
     if which == "chol_trailing_update":
-        _, _, i_log, j_log = local_indices(P, Q, I, J, "cuda")
-        mask = i_log[:, :, :, None] >= j_log[:, :, None, :]  # the trailing lower tiles
-        run = lambda v: kernels.chol_trailing_update(v, pan, rhs, mask)  # noqa: E731
-        plain = lambda v: kernels.chol_trailing_update_plain(v, pan, rhs, mask)  # noqa: E731
-        library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4).transpose(-1, -2))  # noqa: E731
-        replaces = "slate_tpu/ops/pallas_ops.py:738"
-    elif which == "lu_trailing_update":
-        mask = torch.ones((P, Q, I, J), dtype=torch.bool, device="cuda")
-        mask[:, :, 1, :] = False  # excl_kr
-        mask[:, :, :, 1] = False  # excl_kc
-        run = lambda v: kernels.lu_trailing_update(v, pan, rhs, mask)  # noqa: E731
-        plain = lambda v: kernels.lu_trailing_update_plain(v, pan, rhs, mask)  # noqa: E731
-        library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4))  # noqa: E731
-        replaces = "slate_tpu/ops/pallas_ops.py:777"
-    else:
-        mask = torch.ones((P, Q, I, J), dtype=torch.bool, device="cuda")
-        run = lambda v: kernels.summa_update(v, pan, rhs)  # noqa: E731
-        plain = lambda v: kernels.summa_update_plain(v, pan, rhs)  # noqa: E731
-        library = lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4))  # noqa: E731
-        replaces = "slate_tpu/ops/pallas_ops.py:711"
+        return (lambda v: kernels.chol_trailing_update(v, pan, rhs, mask),
+                lambda v: kernels.chol_trailing_update_plain(v, pan, rhs, mask),
+                lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4).transpose(-1, -2)),
+                "slate_tpu/ops/pallas_ops.py:738")
+    if which == "lu_trailing_update":
+        return (lambda v: kernels.lu_trailing_update(v, pan, rhs, mask),
+                lambda v: kernels.lu_trailing_update_plain(v, pan, rhs, mask),
+                lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4)),
+                "slate_tpu/ops/pallas_ops.py:777")
+    return (lambda v: kernels.summa_update(v, pan, rhs),
+            lambda v: kernels.summa_update_plain(v, pan, rhs),
+            lambda: torch.matmul(pan.unsqueeze(-3), rhs.unsqueeze(-4)),
+            "slate_tpu/ops/pallas_ops.py:711")
+
+
+def hold_update(which, name, loc, pan, rhs, mask, run, plain, torch):
+    """The kernel's update of ``loc`` against the twin's from the same start
+    (``loc`` is restored after each): within gemm_tol, the masked tiles
+    untouched.  Returns (err, tol, untouched)."""
+    eps = torch.finfo(loc.dtype).eps
     before = loc.clone()
     run(loc)
     torch.cuda.synchronize()
@@ -518,28 +546,60 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
     plain(loc)
     want = loc.clone()
     loc.copy_(before)
-    tol = gemm_tol(NB, eps, float(pan.abs().max()), float(rhs.abs().max()),
+    tol = gemm_tol(loc.shape[-1], eps, float(pan.abs().max()), float(rhs.abs().max()),
                    max(float(before.abs().max()), float(want.abs().max())))
     err = float((got - want).abs().max())
     keep = ~mask
     untouched = bool(torch.equal(got[keep], before[keep])) if bool(keep.any()) else True
-    del got, want
+    del got, want, before
     check(err < tol, f"{which} {name}: kernel vs twin {err} (tol {tol})")
     check(untouched, f"{which} {name}: the kernel wrote a masked tile")
-    ms = cuda_ms(lambda: run(loc), 5, torch)
+    return err, tol, untouched
+
+
+def update_row(which, dtype, loc, pan, rhs, mask, err, torch, calls, reps=5):
+    """Kernel, twin and library times of a tile update and its kernels-line
+    row (launches None: the caller reads them from the path)."""
+    run, plain, library, replaces = calls
+    ms = cuda_ms(lambda: run(loc), reps, torch)
     plain_ms = cuda_ms(lambda: plain(loc), 2, torch)
     library_ms = cuda_ms(library, 3, torch)
     live = int(mask.sum())
+    nb = loc.shape[-1]
     isz = loc.element_size()
-    nbytes = (pan.numel() + rhs.numel() + 2 * live * NB * NB) * isz + mask.numel() * 4
-    flops = 2 * NB ** 3 * live
-    row = row_of(which, dtype, "slate_tpu_torch/csrc/tile_gemm.cu", replaces, err, ms, plain_ms,
-                 library_ms, nbytes, flops)
+    nbytes = (pan.numel() + rhs.numel() + 2 * live * nb * nb) * isz + mask.numel() * 4
+    flops = 2 * nb ** 3 * live
+    return row_of(which, dtype, "slate_tpu_torch/csrc/tile_gemm.cu", replaces, err, ms, plain_ms,
+                  library_ms, nbytes, flops), live
+
+
+def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch):
+    """chol_trailing_update (bucket-0 view of the mesh posv, lower-tile
+    mask), lu_trailing_update (bucket-0 view of the mesh LU, the lookahead
+    exclusions of one row and one column slot) or summa_update (the mesh
+    gemm's accumulator) against its twin."""
+    name = dname(dtype)
+    n = GEMM_N if which == "summa_update" else MESH_N[name]
+    t, loc = mesh_tiles(n, dtype, SEED + 21, torch, local_view)
+    _, _, I, J, _, _ = loc.shape
+    pan = randn((P, 1, I, NB, NB), dtype, SEED + 22, torch, 0.1)
+    rhs = randn((1, Q, J, NB, NB), dtype, SEED + 23, torch, 0.1)
+    if which == "chol_trailing_update":
+        _, _, i_log, j_log = local_indices(P, Q, I, J, "cuda")
+        mask = i_log[:, :, :, None] >= j_log[:, :, None, :]  # the trailing lower tiles
+    else:
+        mask = torch.ones((P, Q, I, J), dtype=torch.bool, device="cuda")
+        if which == "lu_trailing_update":
+            mask[:, :, 1, :] = False  # excl_kr
+            mask[:, :, :, 1] = False  # excl_kc
+    calls = update_calls(which, kernels, pan, rhs, mask, torch)
+    err, tol, untouched = hold_update(which, name, loc, pan, rhs, mask, calls[0], calls[1], torch)
+    row, live = update_row(which, dtype, loc, pan, rhs, mask, err, torch, calls)
     emit({"phase": f"kernel_{which}_{name}", "grid": [P, Q, I, J], "unmasked_tiles": live,
-          "err": err, "tol": tol, "masked_untouched": untouched, "kernel_ms": ms,
-          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
-          "bound_by": row["bound_by"]})
-    del t, loc, before
+          "err": err, "tol": tol, "masked_untouched": untouched, "kernel_ms": row["ms"],
+          "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
+    del t, loc
     torch.cuda.empty_cache()
     return row
 
@@ -547,7 +607,7 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
 COUNTED = ("chol_diag_inv", "chol_panel_tiles", "chol_trailing_update", "summa_update",
            "lu_panel_tiles", "lu_rowsolve_tiles", "lu_trailing_update", "qr_panel",
            "qr_panel_offset", "ft_summa_update", "transpose_tiles", "geadd_tiles",
-           "genorm_max_tiles")
+           "genorm_max_tiles", "matmul_pallas")
 
 
 def reset_counts(kernels):
@@ -768,6 +828,28 @@ def lu_factor_ok(c):
             and c["rec_ratio"] <= 1)
 
 
+def hold_lu_rowsolve(name, lk, prow, kernels, torch):
+    """lu_rowsolve_tiles on (packed L\\U ``lk``, row tiles ``prow``) against
+    its twin within solve_tol, with the unit-L^-1 it solved with read by
+    applying the kernel to the identity (L^-1 I is exact for a finite
+    inverse).  Returns (|dS|, its tolerance, max|solved|)."""
+    eps = torch.finfo(lk.dtype).eps
+    rk = kernels.lu_rowsolve_tiles(lk, prow)
+    torch.cuda.synchronize()
+    rp = kernels.lu_rowsolve_tiles_plain(lk, prow)
+    eye = torch.eye(lk.shape[-1], dtype=lk.dtype, device="cuda")[None]
+    linvk = kernels.lu_rowsolve_tiles(lk, eye)[0]
+    linvp = kernels.unit_linv_plain(lk)
+    tol_r = solve_tol(prow, linvk, linvp, eps, left=True)
+    rmax = float(rp.abs().max())
+    err_r = float((rk - rp).abs().max())
+    check(bool(torch.isfinite(rk).all()), f"lu_rowsolve_tiles {name}: non-finite output")
+    check(tol_r < 1e-2 * rmax, f"lu_rowsolve_tiles {name}: tolerance {tol_r} does not separate "
+                               f"a wrong output from max|solved| {rmax}")
+    check(err_r < tol_r, f"lu_rowsolve_tiles {name}: |dS| {err_r} (tol {tol_r})")
+    return err_r, tol_r, rmax
+
+
 def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
     """lu_panel_tiles (the owning column's p x mtl tiles of the mesh LU's
     bucket-0 view) and lu_rowsolve_tiles (the owning row's q x ntl tiles)
@@ -780,33 +862,26 @@ def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
     prow = loc[1:2, :, 2]  # (1, q, ntl, nb, nb)
     dtile = lu_block(NB, dtype, SEED + 62, torch)
     lk, sk = kernels.lu_panel_tiles(dtile, pcol)
-    rk = kernels.lu_rowsolve_tiles(lk, prow)
     torch.cuda.synchronize()
     lp, sp = kernels.lu_panel_tiles_plain(dtile, pcol)
-    rp = kernels.lu_rowsolve_tiles_plain(lk, prow)
-    # the U^-1 and unit-L^-1 the kernels solved with: each kernel applied to
-    # the identity (I U^-1 and L^-1 I are exact for finite inverses)
+    # the U^-1 the kernel solved with: the kernel applied to the identity
+    # (I U^-1 is exact for a finite inverse)
     eye = torch.eye(NB, dtype=dtype, device="cuda")[None]
-    uk, linvk = kernels.lu_panel_tiles(dtile, eye)[1][0], kernels.lu_rowsolve_tiles(lk, eye)[0]
+    uk = kernels.lu_panel_tiles(dtile, eye)[1][0]
     _, up = kernels.lu_diag_inv_plain(dtile)
-    linvp = kernels.unit_linv_plain(lk)
     fac = lu_factor_check(dtile, lk, lp, eps, torch)
     # solved tiles: solve_tol, which must separate a wrong output from the
     # largest solved value
     tol_s = solve_tol(pcol, uk, up, eps, left=False)
-    tol_r = solve_tol(prow, linvk, linvp, eps, left=True)
-    smax, rmax = float(sp.abs().max()), float(rp.abs().max())
+    smax = float(sp.abs().max())
     err_l = max(fac["err_L"], fac["err_U"])
     err_s = float((sk - sp).abs().max())
-    err_r = float((rk - rp).abs().max())
-    check(bool(torch.isfinite(sk).all()) and bool(torch.isfinite(rk).all()),
-          f"LU panel kernels {name}: non-finite output")
-    check(tol_s < 1e-2 * smax and tol_r < 1e-2 * rmax,
-          f"LU panel kernels {name}: tolerances {tol_s}, {tol_r} do not separate a wrong output "
-          f"from max|solved| {smax}, {rmax}")
+    check(bool(torch.isfinite(sk).all()), f"lu_panel_tiles {name}: non-finite output")
+    check(tol_s < 1e-2 * smax, f"lu_panel_tiles {name}: tolerance {tol_s} does not separate a "
+                               f"wrong output from max|solved| {smax}")
     check(lu_factor_ok(fac), f"lu_panel_tiles {name}: packed L\\U {fac}")
     check(err_s < tol_s, f"lu_panel_tiles {name}: |dS| {err_s} (tol {tol_s})")
-    check(err_r < tol_r, f"lu_rowsolve_tiles {name}: |dS| {err_r} (tol {tol_r})")
+    err_r, tol_r, rmax = hold_lu_rowsolve(name, lk, prow, kernels, torch)
     isz = dtile.element_size()
     rows = []
     for kname, run, plain, library, err, tiles, flops, nbytes, replaces in (
@@ -2129,6 +2204,414 @@ def lu_misc_phase(torch):
         check(z["info"] == z["column"] + 1, f"zero column {name}: {z}")
 
 
+# ---------------------------------------------------------------------------
+# slice 8a: the blocked GEMM, the Ozaki int8 scheme and the f64 mesh ladder
+# ---------------------------------------------------------------------------
+
+# the H100's dense tensor-core bf16 peak (the bound of the bf16 product)
+PEAK_BF16_TC = 989e12
+# (name, m, k, n, dtype): 8192^3 f32 and bf16, the factorizations' thin-k
+# rank update (matmul.py:131-133), one ragged f32 shape
+MATMUL_CASES = (("8192^3", 8192, 8192, 8192, "float32"), ("8192^3", 8192, 8192, 8192, "bfloat16"),
+                ("thin_k", 32768, 256, 32768, "float32"), ("ragged", 1000, 777, 1234, "float32"))
+OZAKI_SMALL, OZAKI_N = 512, 8192
+MIXED_POSV_N, MIXED_GESV_N, MIXED_ESC_N, MIXED_FT_N = 16384, 8192, 2048, 8192
+MIXED_WARMUP_N = 1024
+
+
+def kernel_matmul_phase(kernels, testing, torch):
+    """matmul_pallas against its twin (utils.testing.matmul_pallas_excess:
+    9 sqrt(k) eps32 |A||B| elementwise, Higham and Mary's probabilistic
+    bound, plus one output ulp in bf16) at the MATMUL_CASES shapes, with
+    kernel, twin and library times (CUDA events, L2 warm; library =
+    torch.matmul in the same dtype, TF32 off) and the bound (f32: 2mnk at 67
+    TFLOP/s; bf16: 2mnk at the tensor cores' 989; bytes at 3.35 TB/s where
+    larger).  The limit must sit between the sound reading and a planted
+    fault: the kernel's C with one 8-deep k-slab dropped reads above 1.  At
+    8192^3 each side's max error from the f64 product is read too (and, for
+    f32, a TF32 product's, which the elementwise limit passes), in units of
+    eps32 max(|A||B|), and the kernel's must stay within twice the ratio of
+    the two sums' worst-case bounds of the twin's.  Each case's
+    launches are those of one call of the public ops.matmul_pallas (no
+    driver reaches the kernel, as in slate_tpu); the kernels line takes the
+    8192^3 call's.  Returns the f32 and bf16 rows."""
+    from slate_tpu_torch import ops
+    from slate_tpu_torch.ops.matmul import pallas_blocks
+
+    out, rows = {}, {}
+    eps32 = torch.finfo(torch.float32).eps
+    for case, m, k, n, name in MATMUL_CASES:
+        dtype = getattr(torch, name)
+        a = randn((m, k), torch.float32, SEED + 140 + m + k, torch).to(dtype)
+        b = randn((k, n), torch.float32, SEED + 141 + n, torch).to(dtype)
+        blocks = pallas_blocks(m, k, n)  # slate_tpu's clamp: the twin pads to them
+        kernels.matmul_pallas.launches = 0
+        c = ops.matmul_pallas(a, b)
+        torch.cuda.synchronize()
+        launches = kernels.matmul_pallas.launches
+        want = kernels.matmul_pallas_plain(a, b, *blocks)
+        excess = testing.matmul_pallas_excess(a, b, c, want)
+        err = float((c.double() - want.double()).abs().max())
+        s0 = (k // 2) // 8 * 8  # a k-slab the kernel stages whole
+        dropped = (c.float() - a[:, s0:s0 + 8].float() @ b[s0:s0 + 8].float()).to(dtype)
+        fault = testing.matmul_pallas_excess(a, b, dropped, want)
+        del dropped
+        res = {"m": m, "k": k, "n": n, "launches": launches, "excess": excess,
+               "dropped_slab_excess": fault, "max_abs_err": err}
+        if case == "8192^3":
+            exact = a.double() @ b.double()
+            scale = eps32 * float((a.double().abs() @ b.double().abs()).max())
+            f64_err = {"kernel": float((c.double() - exact).abs().max()) / scale,
+                       "twin": float((want.double() - exact).abs().max()) / scale}
+            res["err_vs_f64_eps32_absab"] = f64_err
+            # the kernel sums k products in one chain, the twin bk-deep
+            # blocks and then k / bk partials: their worst-case bounds are
+            # k u and (bk + k / bk) u; twice that ratio leaves room
+            res["f64_err_ratio_limit"] = 2 * k / (blocks[2] + k / blocks[2])
+            check(f64_err["kernel"] <= res["f64_err_ratio_limit"] * f64_err["twin"],
+                  f"matmul_pallas {case} {name}: error from the f64 product {f64_err}")
+            if name == "float32":
+                torch.backends.cuda.matmul.allow_tf32 = True
+                tf32 = torch.matmul(a, b)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                res["err_vs_f64_eps32_absab"]["tf32_product"] = (
+                    float((tf32.double() - exact).abs().max()) / scale)
+                res["tf32_product_excess"] = testing.matmul_pallas_excess(a, b, tf32, want)
+                del tf32
+            del exact
+        del c, want
+        torch.cuda.empty_cache()
+        reps = 3 if m * n * k > 1 << 33 else 10
+        ms = cuda_ms(lambda: kernels.matmul_pallas(a, b, *blocks), reps, torch)
+        plain_ms = cuda_ms(lambda: kernels.matmul_pallas_plain(a, b, *blocks), reps, torch)
+        library_ms = cuda_ms(lambda: torch.matmul(a, b), reps, torch)
+        s = a.element_size()
+        flops = 2 * m * n * k
+        nbytes = (m * k + k * n + m * n) * s
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / (PEAK_BF16_TC if name == "bfloat16" else PEAK_FLOPS_S[name]) * 1e3
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations", tflops=flops / ms / 1e9)
+        out[f"{case}_{name}"] = res
+        check(launches == 1, f"matmul_pallas {case} {name}: {launches} launches")
+        check(excess <= 1.0, f"matmul_pallas {case} {name}: {excess} of the tolerance")
+        check(fault > 1.0, f"matmul_pallas {case} {name}: the tolerance passes a dropped k-slab "
+                           f"({fault})")
+        if case == "8192^3":
+            row = row_of("matmul_pallas", dtype, "slate_tpu_torch/csrc/matmul.cu",
+                         "slate_tpu/ops/matmul.py:73", err, ms, plain_ms, library_ms, nbytes, 0)
+            row.update(bound_ms=res["bound_ms"], bound_by=res["bound_by"], launches=launches)
+            rows[name] = row
+        del a, b
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_matmul", **out})
+    return list(rows.values())
+
+
+def ozaki_phase(mp, torch):
+    """ops.ozaki on the card: matmul_f64 and matmul_c128 at 512 bitwise the
+    same functions' CPU result; at 8192 the time and the max relative error
+    against torch.matmul in f64 (cuBLAS DGEMM on the FP64 tensor cores), and
+    the time of both; gemm_summa_ozaki at n = 8192 on 2 x 4 against the f64
+    gemm_summa (GemmC), times and the audited bytes (9/8)."""
+    import numpy as np
+
+    from slate_tpu_torch.ops import ozaki
+    from slate_tpu_torch.parallel.comm import comm_audit
+    from slate_tpu_torch.parallel.summa import gemm_summa_ozaki
+    from slate_tpu_torch.types import MethodGemm
+
+    out = {"phase": "ozaki"}
+    rng = np.random.default_rng(SEED + 150)
+    a = torch.from_numpy(rng.standard_normal((OZAKI_SMALL, OZAKI_SMALL)))
+    b = torch.from_numpy(rng.standard_normal((OZAKI_SMALL, OZAKI_SMALL)))
+    a[3] = 0
+    a[5] *= 1e-30
+    same = {}
+    for s in (9, 6):
+        same[f"f64_s{s}"] = bool(torch.equal(ozaki.matmul_f64(a.cuda(), b.cuda(), s).cpu(),
+                                             ozaki.matmul_f64(a, b, s)))
+    ac, bc = torch.complex(a, b), torch.complex(b, -a)
+    same["c128"] = bool(torch.equal(ozaki.matmul_c128(ac.cuda(), bc.cuda()).cpu(),
+                                    ozaki.matmul_c128(ac, bc)))
+    out["bitwise_cpu_512"] = same
+    n = OZAKI_N
+    a = randn((n, n), torch.float64, SEED + 151, torch)
+    b = randn((n, n), torch.float64, SEED + 152, torch)
+    ref = torch.matmul(a, b)
+    c = ozaki.matmul_f64(a, b)
+    rel = float((c - ref).abs().max() / ref.abs().max())
+    del c
+    out["matmul_f64_8192"] = {"ozaki_ms": cuda_ms(lambda: ozaki.matmul_f64(a, b), 2, torch),
+                              "dgemm_ms": cuda_ms(lambda: torch.matmul(a, b), 5, torch),
+                              "max_rel_err": rel}
+    del ref
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    ad, bd = mp.from_dense(a, mesh, NB), mp.from_dense(b, mesh, NB)
+    del a, b
+    torch.cuda.empty_cache()
+    with comm_audit() as recs_oz:
+        oz = gemm_summa_ozaki(1.0, ad, bd)
+    with comm_audit() as recs_64:
+        f64 = mp.gemm_summa(1.0, ad, bd, method=MethodGemm.GemmC)
+    bytes_oz = sum(nb_ * m for _, nb_, m in recs_oz)
+    bytes_64 = sum(nb_ * m for _, nb_, m in recs_64)
+    rel_mesh = float((oz.tiles - f64.tiles).abs().max() / f64.tiles.abs().max())
+    del oz, f64
+    torch.cuda.empty_cache()
+    _, oz_s = timed(lambda: gemm_summa_ozaki(1.0, ad, bd), torch)
+    _, f64_s = timed(lambda: mp.gemm_summa(1.0, ad, bd, method=MethodGemm.GemmC), torch)
+    out["gemm_summa_ozaki_8192"] = {"grid": [P, Q], "nb": NB, "ozaki_seconds": oz_s,
+                                    "f64_seconds": f64_s, "audited_bytes_ozaki": bytes_oz,
+                                    "audited_bytes_f64": bytes_64,
+                                    "bytes_ratio": bytes_oz / bytes_64,
+                                    "max_rel_diff_vs_f64": rel_mesh}
+    del ad, bd
+    torch.cuda.empty_cache()
+    emit(out)
+    check(all(same.values()), f"ozaki on the card is not the CPU's bits: {same}")
+    check(rel < 1e-13, f"matmul_f64 8192: relative error {rel}")
+    check(bytes_oz * 8 == bytes_64 * 9, f"gemm_summa_ozaki audited {bytes_oz} vs f64 {bytes_64}")
+    check(rel_mesh < 1e-12, f"gemm_summa_ozaki 8192: {rel_mesh} from the f64 SUMMA")
+
+
+def _ir_deltas(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _tier(d):
+    if d.get("fallback"):
+        return "fallback"
+    if d.get("escalated_gmres") or d.get("gmres_solves"):
+        return "gmres"
+    return "ir" if d.get("solves") else "direct"
+
+
+CAPTURE_BYTES = 64 << 20
+
+
+class Capture:
+    """Stands in for a kernel wrapper in the module that calls it, for one
+    driver run: counts the calls by dtype and hands each on to the wrapper,
+    and keeps the inputs of the widest call whose first operand has
+    ``dtype`` (the most elements in that operand; the first of equals):
+    each its shape and strides, with its values up to CAPTURE_BYTES (a
+    larger one, refilled from a seed later, leaves the run's memory as it
+    was)."""
+
+    def __init__(self, module, name, dtype):
+        self.module, self.name, self.dtype = module, name, dtype
+        self.wrapper = getattr(module, name)
+        self.args, self.width, self.calls = None, 0, {}
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.wrapper)
+
+    def __call__(self, *args):
+        key = dname(args[0].dtype)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if args[0].dtype == self.dtype and args[0].numel() > self.width:
+            self.width = args[0].numel()
+            self.args = [(tuple(x.shape), x.stride(), x.dtype,
+                          x.clone() if x.numel() * x.element_size() <= CAPTURE_BYTES else None)
+                         for x in args]
+        return self.wrapper(*args)
+
+    def inputs(self, seed, torch, scale=1.0):
+        """The kept inputs at the run's shapes and strides; a large one
+        filled from ``seed``."""
+        out = []
+        for i, (shape, stride, dtype, value) in enumerate(self.args):
+            if any(st == 0 and sz > 1 for st, sz in zip(stride, shape)):
+                stride = torch.empty(shape, device="meta").stride()  # a broadcast: dense
+            x = torch.empty_strided(shape, stride, dtype=dtype, device="cuda")
+            x.copy_(value if value is not None else randn(shape, dtype, seed + i, torch, scale))
+            out.append(x)
+        return out
+
+
+def ladder_kernels_phase(kernels, caps, summa_launches, torch):
+    """The kernels of the f64 ladder held against their twins at the inputs
+    the ladder gave them (Capture: the widest call in the measured posv_mesh
+    n = 16384 auto run and gesv_mesh n = 8192 auto run; a large operand --
+    the trailing view, the SUMMA accumulator -- at its shape and strides,
+    refilled from a seed).  summa_update in f64 (the residual SUMMA: A's
+    column panel against the 32-rhs X row panel) gets its kernels-line row,
+    with the posv run's launches; chol_panel_tiles, chol_trailing_update and
+    lu_rowsolve_tiles in f32 (the f32 factors) are held at these shapes too,
+    their rows staying with phases 8 and 12."""
+    f64, f32 = torch.float64, torch.float32
+    out = {"phase": "ladder_kernels"}
+    cap = caps["summa_update"]
+    check(cap.args is not None, "ladder: no f64 summa_update call captured")
+    check(set(cap.calls) == {"float64"} and cap.calls["float64"] == summa_launches,
+          f"ladder: summa_update calls {cap.calls}, launches {summa_launches}")
+    acc, acol, brow = cap.inputs(SEED + 170, torch)
+    mask = torch.ones(acc.shape[:4], dtype=torch.bool, device="cuda")
+    calls = update_calls("summa_update", kernels, acol, brow, mask, torch)
+    err, tol, _ = hold_update("summa_update", "float64", acc, acol, brow, mask, calls[0],
+                              calls[1], torch)
+    row, live = update_row("summa_update", f64, acc, acol, brow, mask, err, torch, calls)
+    row["launches"] = summa_launches
+    out["summa_update_float64"] = {"acc": list(acc.shape), "acol": list(acol.shape),
+                                   "brow": list(brow.shape), "tiles": live, "err": err, "tol": tol,
+                                   "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+                                   "library_ms": row["library_ms"], "bound_ms": row["bound_ms"],
+                                   "launches": summa_launches}
+    del acc, acol, brow
+    cap = caps["chol_panel_tiles"]
+    check(cap.args is not None, "ladder: no f32 chol_panel_tiles call captured")
+    dtile, pcol = cap.inputs(SEED + 173, torch)
+    fac, err_s, tol_s, _ = hold_chol_panel("float32 (ladder)", dtile, pcol, kernels, torch)
+    out["chol_panel_tiles_float32"] = {"tiles": list(pcol.shape), "err_solved": err_s,
+                                       "tol_solved": tol_s, "err_L": fac["err_L"],
+                                       "tol_L": fac["tol_L"]}
+    del dtile, pcol
+    cap = caps["chol_trailing_update"]
+    check(cap.args is not None, "ladder: no f32 chol_trailing_update call captured")
+    view, pan, pan_t, mask = cap.inputs(SEED + 175, torch)
+    calls = update_calls("chol_trailing_update", kernels, pan, pan_t, mask, torch)
+    err, tol, untouched = hold_update("chol_trailing_update", "float32 (ladder)", view, pan, pan_t,
+                                      mask, calls[0], calls[1], torch)
+    out["chol_trailing_update_float32"] = {"view": list(view.shape), "tiles": int(mask.sum()),
+                                           "err": err, "tol": tol, "masked_untouched": untouched}
+    del view, pan, pan_t, mask
+    cap = caps["lu_rowsolve_tiles"]
+    check(cap.args is not None, "ladder: no f32 lu_rowsolve_tiles call captured")
+    luk, prow = cap.inputs(SEED + 179, torch)
+    err_r, tol_r, _ = hold_lu_rowsolve("float32 (ladder)", luk, prow, kernels, torch)
+    out["lu_rowsolve_tiles_float32"] = {"tiles": list(prow.shape), "err_solved": err_r,
+                                        "tol_solved": tol_r}
+    del luk, prow
+    torch.cuda.empty_cache()
+    emit(out)
+    return row
+
+
+def mixed_mesh_phase(kernels, mp, torch):
+    """The f64 mesh ladder (virtual 2 x 4, nb = 256, 32 rhs), each after a
+    warm-up at n = 1024: posv_mesh at n = 16384 under auto (ResidualImpl
+    f64), auto with ozaki, and off; gesv_mesh at n = 8192 under auto and
+    off; an ill-conditioned gesv at n = 2048 (cond 1e12, one rhs) that
+    escalates; posv_mesh under FaultTolerance at n = 8192.  Seconds, peak
+    memory, the tier taken, iters, the ir.* deltas, the kernel launches, eta
+    and omega (f64 residual) against 100 n eps / 10 sqrt(n) eps, and the
+    refinement's own gate ||r|| <= ||x|| ||A|| eps sqrt(n).  The posv and
+    gesv auto runs keep their kernels' widest inputs (Capture) for
+    ladder_kernels_phase, whose summa_update[float64] row it returns."""
+    import numpy as np
+
+    from slate_tpu_torch.linalg import refine
+    from slate_tpu_torch.obs import REGISTRY
+    from slate_tpu_torch.parallel import dist_chol, dist_lu, summa
+    from slate_tpu_torch.types import Option
+    from slate_tpu_torch.utils.testing import refine_gate_ok
+
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    f64 = torch.float64
+    eps = torch.finfo(f64).eps
+    counted = ("chol_panel_tiles", "chol_trailing_update", "summa_update", "lu_rowsolve_tiles")
+
+    def run(kind, a, b, opts=None, caps=()):
+        drv = mp.posv_mesh if kind == "posv" else mp.gesv_mesh
+        ir0 = refine.ir_counter_values()
+        with ExitStack() as stack:
+            for c in caps:
+                stack.enter_context(c)
+            reset_counts(kernels)
+            (x, info), seconds, peak = timed_solve(lambda: drv(a, b, mesh, NB, opts=opts), torch)
+            launches = {k: getattr(kernels, k).launches for k in counted}
+        d = _ir_deltas(ir0, refine.ir_counter_values())
+        n = a.shape[0]
+        res = {"n": n, "nrhs": b.shape[1], "info": int(info), "tier": _tier(d), "ir_deltas": d,
+               "iters": REGISTRY.gauge_value("ir.iters", op=kind) if d.get("solves") else None,
+               "seconds": seconds, "peak_mem_bytes": peak, "launches": launches,
+               "eta": eta(a, x, b, torch), "eta_gate": 100 * n * eps,
+               "omega": omega(a, x, b, torch), "omega_gate": omega_gate(n, f64, torch),
+               "refine_gate_ok": refine_gate_ok(a, x, b),
+               "x_finite": bool(torch.isfinite(x).all())}
+        del x
+        return res
+
+    out = {"phase": "mixed_mesh", "grid": [P, Q], "nb": NB}
+    # warm-ups: handles, allocator, kernel loads, every tier's code path
+    wa = dominant_spd(MIXED_WARMUP_N, f64, SEED + 160, torch)
+    wb = randn((MIXED_WARMUP_N, NRHS), f64, SEED + 161, torch)
+    for opts in (None, {Option.ResidualImpl: "ozaki"}, {Option.MixedPrecision: "off"}):
+        mp.posv_mesh(wa, wb, mesh, NB, opts=opts)
+    wg = lu_matrix("pp", MIXED_WARMUP_N, f64, SEED + 162, torch)
+    for opts in (None, {Option.MixedPrecision: "off"}):
+        mp.gesv_mesh(wg, wb, mesh, NB, opts=opts)
+    del wa, wb, wg
+    n = MIXED_POSV_N
+    a = dominant_spd(n, f64, SEED + 163, torch)
+    b = randn((n, NRHS), f64, SEED + 164, torch)
+    caps = {"summa_update": Capture(summa, "summa_update", f64),
+            "chol_panel_tiles": Capture(dist_chol, "chol_panel_tiles", torch.float32),
+            "chol_trailing_update": Capture(dist_chol, "chol_trailing_update", torch.float32),
+            "lu_rowsolve_tiles": Capture(dist_lu, "lu_rowsolve_tiles", torch.float32)}
+    out["posv_auto"] = run("posv", a, b, caps=[caps[k] for k in (
+        "summa_update", "chol_panel_tiles", "chol_trailing_update")])
+    out["posv_auto_ozaki"] = run("posv", a, b, {Option.ResidualImpl: "ozaki"})
+    out["posv_off"] = run("posv", a, b, {Option.MixedPrecision: "off"})
+    del a, b
+    torch.cuda.empty_cache()
+    n = MIXED_GESV_N
+    a = lu_matrix("pp", n, f64, SEED + 165, torch)
+    b = randn((n, NRHS), f64, SEED + 166, torch)
+    out["gesv_auto"] = run("gesv", a, b, caps=[caps["lu_rowsolve_tiles"]])
+    out["gesv_off"] = run("gesv", a, b, {Option.MixedPrecision: "off"})
+    del a, b
+    torch.cuda.empty_cache()
+    # cond 1e12: beyond the f32 factor (the CPU parity test decides the same
+    # ladder in both packages at n = 96: escalated_gmres +1, fallback +1)
+    n = MIXED_ESC_N
+    rng = np.random.default_rng(SEED + 167)
+    q1 = torch.linalg.qr(torch.from_numpy(rng.standard_normal((n, n))).cuda())[0]
+    q2 = torch.linalg.qr(torch.from_numpy(rng.standard_normal((n, n))).cuda())[0]
+    a = (q1 * torch.logspace(0, -12, n, dtype=f64, device="cuda")) @ q2
+    b = torch.from_numpy(rng.standard_normal((n, 1))).cuda()
+    del q1, q2
+    out["gesv_escalation"] = run("gesv", a, b)
+    del a, b
+    n = MIXED_FT_N
+    a = dominant_spd(n, f64, SEED + 168, torch)
+    b = randn((n, NRHS), f64, SEED + 169, torch)
+    out["posv_ft"] = run("posv", a, b, {Option.FaultTolerance: "correct"})
+    del a, b
+    torch.cuda.empty_cache()
+    emit(out)
+    for key in ("posv_auto", "posv_auto_ozaki", "posv_off", "gesv_auto", "gesv_off",
+                "gesv_escalation", "posv_ft"):
+        r = out[key]
+        check(r["info"] == 0 and r["x_finite"], f"mixed {key}: info {r['info']}")
+        check(r["eta"] < r["eta_gate"] and r["omega"] < r["omega_gate"], f"mixed {key}: {r}")
+    for key in ("posv_auto", "posv_auto_ozaki", "gesv_auto", "posv_ft"):
+        r = out[key]
+        check(r["tier"] == "ir" and r["refine_gate_ok"] and r["iters"] is not None,
+              f"mixed {key}: tier {r['tier']}, gate {r['refine_gate_ok']}")
+    check(out["posv_auto"]["launches"]["summa_update"] > 0, "mixed posv: no summa_update launch")
+    for key in ("posv_off", "gesv_off"):
+        check(out[key]["tier"] == "direct", f"mixed {key}: the ladder ran under off")
+    esc = out["gesv_escalation"]["ir_deltas"]
+    check(esc.get("escalated_gmres") == 1 and esc.get("fallback") == 1,
+          f"mixed escalation: {esc}")
+    return ladder_kernels_phase(kernels, caps, out["posv_auto"]["launches"]["summa_update"], torch)
+
+
+def mixed_smoke_phase():
+    """``python -m slate_tpu_torch.parallel.mixed_smoke``'s run on the card."""
+    from slate_tpu_torch.parallel import mixed_smoke
+
+    res = mixed_smoke.run_smoke("cuda")
+    emit({"phase": "mixed_smoke", **res})
+    check(res["ok"], f"mixed smoke failed: {res['failures']}")
+
+
 def ft_smoke_phase():
     """``python -m slate_tpu_torch.ft.smoke --device cuda``'s run."""
     from slate_tpu_torch.ft import smoke
@@ -2286,10 +2769,17 @@ def main():
     mixed_phase(full_f64_seconds, torch)
     lu_misc_phase(torch)
 
-    # 32. the dryrun
+    # 32-35. the blocked GEMM vs its twin (its rows take the public entry's
+    # launches), the Ozaki scheme, the f64 mesh ladder and its smoke
+    rows += kernel_matmul_phase(kernels, testing, torch)
+    ozaki_phase(mp, torch)
+    rows.append(mixed_mesh_phase(kernels, mp, torch))
+    mixed_smoke_phase()
+
+    # 36. the dryrun
     dryrun_phase()
 
-    # 33. kernels line, card line, result
+    # 37. kernels line, card line, result
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,6 +5,10 @@ what the ``ft`` layer reads: a metric is (name, frozen tag set) -> scalar,
 counters accumulate, gauges overwrite, and a snapshot is a plain JSON-able
 dict with ``slate_tpu``'s layout.  Histograms come with the observability
 slice.
+
+The flat ``serve.*`` counters of ``slate_tpu/serve/metrics.py`` that the
+port's code bumps so far live here too (:func:`serve_count`): the Ozaki
+digit-plane cache's ``ozaki_presplits`` and ``ozaki_presplit_hits``.
 """
 
 from __future__ import annotations
@@ -62,3 +66,21 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+# flat serve.* counters (slate_tpu/serve/metrics.py names); the rest of the
+# serving layer comes with its slice
+_SERVE_COUNTS: Dict[str, float] = {"ozaki_presplits": 0.0, "ozaki_presplit_hits": 0.0}
+
+
+def serve_count(name: str, n: float = 1.0) -> None:
+    """Bump one flat serve counter (an unknown name raises, as in
+    ``slate_tpu``)."""
+    if name not in _SERVE_COUNTS:
+        raise KeyError(f"unknown serve counter {name!r}")
+    _SERVE_COUNTS[name] += n
+
+
+def serve_counts() -> Dict[str, float]:
+    """Snapshot of the flat serve counters."""
+    return dict(_SERVE_COUNTS)

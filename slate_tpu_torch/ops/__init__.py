@@ -17,3 +17,5 @@ from .tile_ops import (
     tzscale,
     tzset,
 )
+from .matmul import matmul, matmul_pallas
+from .ozaki import matmul_f64

@@ -50,9 +50,14 @@ of the XLA ops ``slate_tpu`` uses there.  A CUDA tensor never falls back to
 the twin: the kernel builds and launches, or the call raises.  The update
 wrappers work in place, where ``slate_tpu``'s return a new array.
 
+- the blocked GEMM on ``csrc/matmul.cu``: :func:`matmul_pallas`
+  (``slate_tpu/ops/matmul.py``'s ``matmul_pallas``: C = A B summed in f32),
+  with its twin :func:`matmul_pallas_plain`; ``ops.matmul.matmul_pallas``
+  is the public entry.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call (the twin) does not count.  The one Pallas kernel not ported yet is
-``matmul.py``'s ``matmul_pallas`` (ROADMAP.md, kernel queue).
+call (the twin) does not count.  With ``matmul_pallas`` every Pallas kernel
+of ``slate_tpu`` has its counterpart here.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .matmul import matmul
+from .matmul import _tf32, matmul
 
 PANEL_IMPLS = ("xla", "pallas", "auto")
 PANEL_IMPL_ENV = "SLATE_TPU_PANEL_IMPL"
@@ -1072,3 +1077,80 @@ def genorm_max_tiles(a: torch.Tensor) -> torch.Tensor:
 
 
 genorm_max_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the blocked GEMM with an f32 accumulator: csrc/matmul.cu
+# ---------------------------------------------------------------------------
+
+_MATMUL_DTYPES = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16",
+                  torch.float16: "matmul_f16"}
+
+
+def _check_matmul(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.dtype not in _MATMUL_DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"matmul_pallas: operands must share one of f32, bf16, f16 "
+                        f"(the TPU kernel's Mosaic takes no f64 or complex), got "
+                        f"{a.dtype}, {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul_pallas: need (m, k) @ (k, n), got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+
+
+def matmul_pallas_plain(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512,
+                        bk: int = 512) -> torch.Tensor:
+    """Plain twin of :func:`matmul_pallas`: both operands zero-padded to the
+    block multiples, as ``slate_tpu`` pads, then for each bk block
+    ``acc += a_blk.float() @ b_blk.float()`` in f32 (TF32 off), cast to
+    ``a.dtype`` and sliced back to (m, n)."""
+    _check_matmul(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = -(-m // bm) * bm, -(-k // bk) * bk, -(-n // bn) * bn
+    ap = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    bp = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    acc = torch.zeros((mp, np_), dtype=torch.float32, device=a.device)
+    with _tf32(False):
+        for k0 in range(0, kp, bk):
+            acc += ap[:, k0:k0 + bk].float() @ bp[k0:k0 + bk].float()
+    return acc.to(a.dtype)[:m, :n]
+
+
+def _matmul_fn(dtype: torch.dtype):
+    fn = getattr(_build.load("matmul"), _MATMUL_DTYPES[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def matmul_pallas(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512,
+                  bk: int = 512) -> torch.Tensor:
+    """C = A @ B, products summed in f32, C in ``a.dtype`` (the port of
+    ``matmul_pallas``; ``ops.matmul.matmul_pallas`` is the public entry and
+    clamps the blocks).  A
+    CPU tensor takes :func:`matmul_pallas_plain`.  A CUDA tensor (f32, bf16
+    or f16, any strides) launches ``csrc/matmul.cu`` once
+    (``matmul_pallas.launches``), whose tile is its own (the blocks are
+    the twin's), or the call raises."""
+    if a.device.type == "cpu":
+        return matmul_pallas_plain(a, b, bm, bn, bk)
+    _check_matmul(a, b)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"matmul_pallas: operands on {a.device} and {b.device}")
+    m, k = a.shape
+    n = b.shape[1]
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if m == 0 or n == 0:
+        return c  # nothing to launch, nothing counted
+    fn = _matmul_fn(a.dtype)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *a.stride(), *b.stride(),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"matmul_pallas: kernel launch failed with CUDA error {rc}")
+    matmul_pallas.launches += 1
+    return c
+
+
+matmul_pallas.launches = 0

@@ -19,9 +19,23 @@ The TF32 flag is process-global: it is written only when an f32 product on
 the card needs another setting than the current one, and restored after.
 
 Large plain products stay ``torch.matmul`` (cuBLAS), as the JAX package
-leaves them to XLA.  Not ported yet: the Ozaki f64 branch (taken by
-``slate_tpu`` only on a TPU backend) and the off-by-default Pallas GEMM
-``matmul_pallas``; both wait for their slices.
+leaves them to XLA.  The rest of ``slate_tpu``'s dispatch is here with its
+names, so a test can force each branch by monkeypatching as
+``tests/test_ozaki.py`` does for ``slate_tpu``:
+
+- the Ozaki branch: f64 and c128 products with at least ``_OZAKI_MIN_ELEMS``
+  multiplies and every dim >= ``_OZAKI_MIN_DIM`` go to ``ops/ozaki.py``
+  (9 slices, 6 at the Fast tier) when ``_tpu_is_default()`` and
+  ``_F64_DISPATCH["ozaki"]`` allow it and the tier is not ``Emulated``.
+  ``_tpu_is_default()`` answers False: the card is not a TPU, so f64 and
+  c128 products go to cuBLAS, as ``slate_tpu`` routes them off a TPU
+  (PERF.md times both forms on the card).
+  ``f64_emulation()`` is the global opt-out.  The gate reads 2-D operands
+  only (a batched product never takes the branch);
+- :func:`matmul_pallas`, the blocked GEMM with an f32 accumulator (the
+  port of ``slate_tpu/ops/matmul.py:73``'s Pallas kernel, on
+  ``csrc/matmul.cu``).  ``_use_pallas`` stays False, as in ``slate_tpu``:
+  the default dispatch never takes it.
 """
 
 from __future__ import annotations
@@ -32,6 +46,66 @@ from typing import Optional
 import torch
 
 from ..types import Precision
+
+# Ozaki dispatch thresholds (slate_tpu's measured win region on its TPU)
+_OZAKI_MIN_ELEMS = 2048**3
+_OZAKI_MIN_DIM = 1024
+
+# the global opt-out of the Ozaki f64 path (see f64_emulation)
+_F64_DISPATCH = {"ozaki": True}
+
+
+@contextlib.contextmanager
+def f64_emulation():
+    """f64/c128 products inside never take the Ozaki branch; per call,
+    ``precision=Precision.Emulated`` does the same."""
+    old = _F64_DISPATCH["ozaki"]
+    _F64_DISPATCH["ozaki"] = False
+    try:
+        yield
+    finally:
+        _F64_DISPATCH["ozaki"] = old
+
+
+def _ceil_mult(x: int, base: int = 128) -> int:
+    return max(base, ((x + base - 1) // base) * base)
+
+
+def _tpu_is_default() -> bool:
+    """Whether dispatch targets a TPU: never in the port (module doc)."""
+    return False
+
+
+def _use_pallas(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the default dispatch routes through :func:`matmul_pallas`:
+    never, as in ``slate_tpu`` (its kernel lost to XLA at the
+    factorizations' thin-k shapes on the TPU; PERF.md times it against
+    cuBLAS on the card).  The kernel stays callable as
+    ``ops.matmul_pallas``."""
+    return False
+
+
+def pallas_blocks(m: int, k: int, n: int, bm: int = 512, bn: int = 512,
+                  bk: int = 512) -> tuple:
+    """``slate_tpu``'s block clamp: each block at most its dim rounded up to
+    a multiple of 128.  Returns (bm, bn, bk)."""
+    return min(bm, _ceil_mult(m)), min(bn, _ceil_mult(n)), min(bk, _ceil_mult(k))
+
+
+def matmul_pallas(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512,
+                  bk: int = 512) -> torch.Tensor:
+    """C = A @ B with the products summed in full f32 and C in ``a.dtype``:
+    the blocked GEMM of ``slate_tpu``'s ``matmul_pallas``.  ``bm``, ``bn``
+    and ``bk`` keep its clamp (:func:`pallas_blocks`); the plain twin pads
+    to those blocks, the CUDA kernel picks its own tile and masks the
+    ragged edges, and no padding shows in the result.  f32, bf16 and f16
+    operands; f64 and complex raise ``TypeError`` (the TPU's Mosaic takes
+    neither).  A CPU tensor takes ``ops.kernels.matmul_pallas_plain``, a
+    CUDA tensor launches ``csrc/matmul.cu`` or raises."""
+    from .kernels import _check_matmul, matmul_pallas as _kernel
+
+    _check_matmul(a, b)
+    return _kernel(a, b, *pallas_blocks(a.shape[0], a.shape[1], b.shape[1], bm, bn, bk))
 
 
 @contextlib.contextmanager
@@ -80,6 +154,20 @@ def matmul(
     """``a @ b`` at the requested accumulation tier (see module doc);
     ``precise`` maps to Highest/Fast when ``precision`` is None."""
     precision = _resolve(precise, precision)
+    if a.dim() == 2 and b.dim() == 2:
+        m_, k_, n_ = a.shape[0], a.shape[1], b.shape[1]
+        if (_tpu_is_default() and _F64_DISPATCH["ozaki"] and precision != Precision.Emulated
+                and m_ * k_ * n_ >= _OZAKI_MIN_ELEMS and min(m_, k_, n_) >= _OZAKI_MIN_DIM):
+            from .ozaki import matmul_c128, matmul_f64
+
+            dt = torch.promote_types(a.dtype, b.dtype)
+            n_slices = 6 if precision == Precision.Fast else 9
+            if dt == torch.float64:
+                return matmul_f64(a.to(dt), b.to(dt), n_slices=n_slices)
+            if dt == torch.complex128:
+                return matmul_c128(a.to(dt), b.to(dt), n_slices=n_slices)
+        if precision == Precision.Highest and _use_pallas(a, b):
+            return matmul_pallas(a, b)
     if _is_fast(precision, a, b):
         return _fast_mm(a, b)
     with _tf32_scope(a, precision):

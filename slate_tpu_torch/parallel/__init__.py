@@ -7,27 +7,43 @@ solve (posv_mesh: potrf_dist -> trsm_dist), the mesh gemm (gemm_mesh:
 gemm_summa), the distributed LU solves (gesv_mesh, gesv_nopiv_mesh,
 gesv_tntpiv_mesh) and the distributed least squares (geqrf_mesh,
 gels_mesh: geqrf_dist -> unmqr_dist -> trsm_dist), with
-Option.FaultTolerance routing to ``ft.abft``.  The other mesh drivers come
-with their slices."""
+Option.FaultTolerance routing to ``ft.abft``, and the mixed-precision
+ladder behind the f64 posv_mesh / gesv_mesh (posv_mixed_mesh,
+gesv_mixed_mesh and their GMRES-IR forms, the Ozaki residual
+gemm_summa_ozaki, norm_dist).  The other mesh drivers come with their
+slices."""
 
 from .mesh import COL_AXIS, ROW_AXIS, VirtualMesh, make_mesh, mesh_shape
 from .dist import DistMatrix, empty_like, from_dense, local_view, padded_tiles, to_dense
-from .summa import gemm_summa
+from .summa import OzakiSplit, gemm_summa, gemm_summa_ozaki, ozaki_presplit, ozaki_presplit_cached
 from .dist_chol import potrf_dist
 from .dist_trsm import trsm_dist
 from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
 from .dist_qr import DistQR, geqrf_dist, unmqr_dist
-from .dist_refine import MIXED_ENV, MIXED_MODES, resolve_mixed, use_mixed
+from .dist_aux import norm_dist
+from .dist_refine import (
+    MIXED_ENV,
+    MIXED_MODES,
+    RESIDUAL_ENV,
+    RESIDUAL_IMPLS,
+    resolve_mixed,
+    resolve_residual_impl,
+    use_mixed,
+)
 from .drivers import (
     gels_mesh,
     gemm_mesh,
     geqrf_mesh,
     gesv_mesh,
+    gesv_mixed_gmres_mesh,
+    gesv_mixed_mesh,
     gesv_nopiv_mesh,
     gesv_tntpiv_mesh,
     getrf_mesh,
     getrf_nopiv_mesh,
     getrf_tntpiv_mesh,
     posv_mesh,
+    posv_mixed_gmres_mesh,
+    posv_mixed_mesh,
     potrf_mesh,
 )

@@ -131,6 +131,12 @@ def psum_a(x: torch.Tensor, axis: str, size: int) -> torch.Tensor:
     return _full(x, axis, size).sum(dim=_GRID_DIM[axis], keepdim=True)
 
 
+def pmax(x: torch.Tensor, axis: str, size: int) -> torch.Tensor:
+    """All-reduce max over ``axis``, replicated along it (size-1 grid dim).
+    Not audited: ``slate_tpu`` calls ``lax.pmax`` bare, outside its audit."""
+    return _full(x, axis, size).amax(dim=_GRID_DIM[axis], keepdim=True)
+
+
 def all_gather_a(x: torch.Tensor, axis_name: str, size: int, axis: int = 0) -> torch.Tensor:
     """Audited all_gather over ``axis_name``: every device receives the
     stack of the axis' payloads at payload dim ``axis`` (a view)."""

@@ -21,12 +21,16 @@ drivers of ``ft/abft.py``; off runs the plain kernels untouched.  As in
 plain under an active policy, and FaultTolerance together with
 ``Option.Checkpoint`` raises ``ValueError``.
 
+An f64 ``posv_mesh`` / ``gesv_mesh`` with a 2-D right-hand side goes
+through the ``Option.MixedPrecision`` ladder by default (``auto``: f32 mesh
+factor + f64 refinement, GMRES-IR escalation, the full-f64 fallback;
+``parallel/dist_refine.py``), as in ``slate_tpu``; ``off``, any other dtype
+and a 1-D B run the direct path, which is also the ladder's fallback tier.
+Under FaultTolerance the ladder's f32 factor is the ABFT ``potrf_ft``.
+
 Not ported yet, and refused with ``NotImplementedError``:
 ``Option.Checkpoint`` (the checkpointed factor loops of ``ft/ckpt.py``,
-``geqrf_ckpt`` among them: a later PR of slice 9) and the
-``Option.MixedPrecision`` ladder of an f64 ``posv_mesh`` / ``gesv_mesh``
-with a 2-D right-hand side (slice 4; the direct path runs under
-``MixedPrecision=off`` and for f32).  The other drivers of
+``geqrf_ckpt`` among them: a later PR of slice 9).  The other drivers of
 ``slate_tpu.parallel.drivers`` come with their slices.
 """
 
@@ -35,7 +39,6 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..types import Diag, Op, Option, Options, Uplo, get_option
@@ -43,7 +46,13 @@ from .dist import DistMatrix, from_dense, to_dense
 from .dist_chol import potrf_dist
 from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
 from .dist_qr import DistQR, geqrf_dist, unmqr_dist
-from .dist_refine import resolve_mixed
+from .dist_refine import (  # noqa: F401 (the mixed drivers, re-exported as in slate_tpu)
+    gesv_mixed_gmres_mesh,
+    gesv_mixed_mesh,
+    mixed_mesh_route,
+    posv_mixed_gmres_mesh,
+    posv_mixed_mesh,
+)
 from .dist_trsm import trsm_dist
 from .mesh import VirtualMesh
 from .summa import gemm_summa
@@ -159,7 +168,8 @@ def _posv_mesh_plain(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The direct SPD solve at the data's dtype: potrf, then the two
-    triangular sweeps."""
+    triangular sweeps.  The whole solve under Option.MixedPrecision=off and
+    the fallback tier of the mixed ladder."""
     la, bi = _la(opts), _bi(opts)
     l, info = potrf_mesh(a, mesh, nb, opts)
     bd = from_dense(b, mesh, nb)
@@ -171,13 +181,17 @@ def _posv_mesh_plain(
 def posv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Distributed SPD solve (src/posv.cc).  Returns (X dense, info).  In
-    ``slate_tpu`` an f64 system with a 2-D B goes through the
-    Option.MixedPrecision ladder by default; that ladder comes with slice
-    4, so here such a call raises ``NotImplementedError`` unless the mode
-    resolves to ``off``.  Option.FaultTolerance protects the factorization
+    """Distributed SPD solve (src/posv.cc).  Returns (X dense, info).  An
+    f64 system with a 2-D B goes through the Option.MixedPrecision ladder
+    by default (``dist_refine.mixed_mesh_route``; the f32 factor takes every
+    opt a direct call would: Lookahead, BcastImpl, PanelImpl,
+    FaultTolerance); ``off``, any other dtype or a 1-D B run the direct
+    potrf + two sweeps.  Option.FaultTolerance protects the factorization
     (through ``potrf_mesh``); the sweeps run unprotected."""
-    _refuse_mixed("posv_mesh", a, b, opts)
+    routed = mixed_mesh_route("posv", a, b, mesh, nb, opts,
+                              lambda: _posv_mesh_plain(a, b, mesh, nb, opts))
+    if routed is not None:
+        return routed
     return _posv_mesh_plain(a, b, mesh, nb, opts)
 
 
@@ -259,37 +273,25 @@ def _gesv_mesh_plain(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The direct general solve at the data's dtype: partial-pivot
-    factor, permute B, two sweeps."""
+    factor, permute B, two sweeps.  The whole solve under
+    Option.MixedPrecision=off and the fallback tier of the mixed ladder."""
     lu, perm, info = getrf_mesh(a, mesh, nb, opts)
     return _solve(lu, b, mesh, nb, perm, opts), info
-
-
-def _is_f64(x) -> bool:
-    dt = getattr(x, "dtype", None)
-    return dt == torch.float64 or (isinstance(dt, np.dtype) and dt == np.float64)
-
-
-def _refuse_mixed(who: str, a, b, opts) -> None:
-    """Raise where ``slate_tpu`` would route the mixed-precision ladder
-    (an f64 system, a 2-D B, the mode not ``off``)."""
-    mode = resolve_mixed(opts)
-    if mode != "off" and _is_f64(a) and getattr(b, "ndim", 0) == 2:
-        raise NotImplementedError(
-            f"{who}: Option.MixedPrecision={mode!r} on an f64 system routes through the "
-            "mixed-precision ladder, which comes with slice 4; pass "
-            "{Option.MixedPrecision: 'off'} for the direct f64 solve")
 
 
 def gesv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Distributed general solve with partial pivoting (src/gesv.cc,
-    MethodLU::PartialPiv).  Returns (X dense, info).  In ``slate_tpu`` an
-    f64 system with a 2-D B goes through the Option.MixedPrecision ladder
-    by default; that ladder comes with slice 4, so here such a call
-    raises ``NotImplementedError`` unless the mode resolves to ``off``.
-    f32, and f64 under ``off``, run the direct path."""
-    _refuse_mixed("gesv_mesh", a, b, opts)
+    MethodLU::PartialPiv).  Returns (X dense, info).  An f64 system with a
+    2-D B goes through the Option.MixedPrecision ladder by default (f32
+    partial-pivot factor + f64 refinement, GMRES-IR, the full-f64
+    fallback; ``dist_refine.mixed_mesh_route``); ``off``, any other dtype
+    or a 1-D B run the direct path."""
+    routed = mixed_mesh_route("gesv", a, b, mesh, nb, opts,
+                              lambda: _gesv_mesh_plain(a, b, mesh, nb, opts))
+    if routed is not None:
+        return routed
     return _gesv_mesh_plain(a, b, mesh, nb, opts)
 
 

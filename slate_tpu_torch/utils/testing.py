@@ -6,9 +6,12 @@ only, seeded identically), so both packages compute on the same operands.
 ``options_from_names`` carries an ``Options`` mapping given by enum names;
 ``dist_from_numpy`` rebuilds a mesh matrix from another package's tile
 stack (so a test can feed one package's factor to the other's solves), and
-``distqr_from_numpy`` rebuilds CAQR factors the same way, and
-``lufactors_from_numpy`` single-chip LU factors.
-``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin.
+``distqr_from_numpy`` rebuilds CAQR factors the same way,
+``lufactors_from_numpy`` single-chip LU factors, and ``ozaki_split_from_numpy``
+an Ozaki digit-plane split (for ``gemm_summa_ozaki(a_split=...)``).
+``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin,
+``matmul_pallas_excess`` the blocked GEMM to its twin, and
+``refine_gate_ok`` a solve to the mixed-precision refinement's gate.
 """
 
 from __future__ import annotations
@@ -159,6 +162,22 @@ def dist_from_numpy(tiles: np.ndarray, m: int, n: int, nb: int, mesh, diag_pad: 
     if t.dim() != 4 or t.shape[2:] != (nb, nb):
         raise ValueError(f"dist_from_numpy: need (mt, nt, {nb}, {nb}) tiles, got {tuple(t.shape)}")
     return DistMatrix(tiles=t, m=m, n=n, nb=nb, mesh=mesh, diag_pad=diag_pad)
+
+
+def ozaki_split_from_numpy(qa: np.ndarray, ea: np.ndarray, mesh):
+    """The port's ``OzakiSplit`` on ``mesh``'s device from numpy -- e.g.
+    ``np.asarray`` of a ``slate_tpu`` OzakiSplit's ``qa`` (S, mt, kt, nb,
+    nb) int8 and ``ea`` (mt, nb) f32, whose global layouts are the same."""
+    from ..parallel.summa import OzakiSplit
+
+    qa_t = torch.from_numpy(np.array(qa)).to(mesh.device)
+    ea_t = torch.from_numpy(np.array(ea)).to(mesh.device)
+    if qa_t.dtype != torch.int8 or qa_t.dim() != 5 or ea_t.dtype != torch.float32 \
+            or tuple(ea_t.shape) != (qa_t.shape[1], qa_t.shape[3]):
+        raise ValueError(f"ozaki_split_from_numpy: need qa (S, mt, kt, nb, nb) int8 and ea "
+                         f"(mt, nb) f32, got {qa_t.dtype} {tuple(qa_t.shape)}, "
+                         f"{ea_t.dtype} {tuple(ea_t.shape)}")
+    return OzakiSplit(qa=qa_t, ea=ea_t)
 
 
 def distqr_from_numpy(fact_tiles: np.ndarray, tloc: np.ndarray, treev: np.ndarray,
@@ -331,3 +350,48 @@ def ft_summa_check(acc0, pan, urow, w1, w2, part0, got, want) -> dict:
         lim = wsum * prod + 2 * n_i * eps * pmax
         out[f"part{s}"] = float((got[1][:, :, s] - want[1][:, :, s]).abs().max()) / lim
     return out
+
+
+MATMUL_LAMBDA = 9.0
+
+
+def matmul_pallas_excess(a: torch.Tensor, b: torch.Tensor, got: torch.Tensor,
+                         want: torch.Tensor, chunk: int = 4096) -> float:
+    """The blocked GEMM (``matmul_pallas``) against another f32-accumulated
+    product of the same operands: max over entries of |got - want| / tol,
+    in f64 over chunks of rows, <= 1 passing.  Both sum the k products in
+    f32, in different orders.  By Higham and Mary's probabilistic bound
+    (SIAM J. Sci. Comput. 41(5), 2019) each sum lies within
+    lambda sqrt(k) u (|A||B|) of the exact product (u = eps32 / 2), failing
+    with probability at most about 2 k exp(-lambda^2 / 2) an entry; lambda = 9
+    keeps that below 1e-3 over the 32768^2 x 256 product, so the two differ
+    by at most lambda sqrt(k) eps32 (|A||B|).  The worst-case bound
+    2 k eps32 (|A||B|) would pass a kernel that dropped a whole k-slab at
+    k = 8192.  A bf16 or f16 output rounds each once more, which adds one
+    ulp of the output dtype: tol = (1 + e) lambda sqrt(k) eps32 (|A||B|) +
+    e |want|, e = 0 for an f32 output, the output dtype's eps otherwise."""
+    k = a.shape[1]
+    e = 0.0 if got.dtype == torch.float32 else torch.finfo(got.dtype).eps
+    c32 = MATMUL_LAMBDA * math.sqrt(k) * torch.finfo(torch.float32).eps * (1 + e)
+    babs = b.double().abs()
+    worst = 0.0
+    for r0 in range(0, a.shape[0], chunk):
+        ab = a[r0:r0 + chunk].double().abs() @ babs
+        w = want[r0:r0 + chunk].double()
+        tol = c32 * ab + e * w.abs()
+        diff = (got[r0:r0 + chunk].double() - w).abs()
+        ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / tol)
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def refine_gate_ok(a, x, b) -> bool:
+    """The mixed-precision refinement's convergence gate in f64:
+    ||b - A x||inf <= ||x||inf ||A||inf eps sqrt(n) (``linalg.refine.gate_cte``).
+    Tensors stay on their device; numpy arrays go to the tensors' device."""
+    dev = next((v.device for v in (a, x, b) if isinstance(v, torch.Tensor)), "cpu")
+    a, x, b = ((v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)))
+               .to(device=dev, dtype=torch.float64) for v in (a, x, b))
+    rn = (b - a @ x).abs().sum(dim=1).max()
+    bound = x.abs().sum(dim=1).max() * a.abs().sum(dim=1).max()
+    return bool(rn <= bound * torch.finfo(torch.float64).eps * math.sqrt(a.shape[0]))

@@ -10,6 +10,7 @@ where the compared form reaches it.
 
 import ast
 import contextlib
+import importlib
 import os
 
 import jax.numpy as jnp
@@ -30,10 +31,11 @@ from slate_tpu_torch.blas3 import blas3 as tb
 from slate_tpu_torch.core import matrix as tm
 from slate_tpu_torch.linalg import chol as tc
 from slate_tpu_torch.ops import kernels as tk
-from slate_tpu_torch.ops import matmul as mm
 from slate_tpu_torch.ops.matmul import matmul, matmul_sub_
 from slate_tpu_torch.utils import testing as tut
 
+# the module (ops/__init__ exports the function matmul under the same name)
+mm = importlib.import_module("slate_tpu_torch.ops.matmul")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = [np.float32, np.float64]
 
@@ -440,7 +442,8 @@ def test_port_imports_no_jax():
     for mod in ("linalg/qr.py", "parallel/dist_qr.py", "ops/kernels.py", "ft/abft.py",
                 "ft/checksum.py", "ft/inject.py", "ft/policy.py", "ft/smoke.py", "obs/metrics.py",
                 "linalg/lu.py", "linalg/norms.py", "linalg/refine.py", "linalg/tri.py",
-                "ops/tile_ops.py"):
+                "ops/tile_ops.py", "ops/matmul.py", "ops/ozaki.py", "parallel/summa.py",
+                "parallel/dist_aux.py", "parallel/dist_refine.py", "parallel/mixed_smoke.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

@@ -732,3 +732,121 @@ def test_ops_transpose_takes_the_kernel_through_the_gate(card):
     strided = _randn((8, 256, 128), torch.float32, 6).transpose(1, 2)
     assert torch.equal(transpose(strided), strided.transpose(-1, -2))
     assert tk.transpose_tiles.launches - before == 2
+
+
+# ---------------------------------------------------------------------------
+# the blocked GEMM (csrc/matmul.cu), the Ozaki planes and the mixed ladder
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1000, 777, 1234), (17, 3, 5), (300, 1, 129), (129, 2048, 257)])
+def test_matmul_pallas_kernel_matches_its_twin(card, dtype, shape):
+    """The kernel against its twin within utils.testing.matmul_pallas_excess
+    (9 sqrt(k) eps32 |A||B| elementwise, plus one output ulp for bf16/f16),
+    one launch per call, any strides."""
+    from slate_tpu_torch.ops.matmul import matmul_pallas, pallas_blocks
+    from slate_tpu_torch.utils.testing import matmul_pallas_excess
+
+    m, k, n = shape
+    a = _randn((m, k), torch.float32, 20).to(dtype)
+    b = _randn((k, n), torch.float32, 21).to(dtype)
+    before = tk.matmul_pallas.launches
+    c = matmul_pallas(a, b)
+    torch.cuda.synchronize()
+    assert tk.matmul_pallas.launches - before == 1
+    assert c.shape == (m, n) and c.dtype == dtype
+    want = tk.matmul_pallas_plain(a, b, *pallas_blocks(m, k, n))
+    assert matmul_pallas_excess(a, b, c, want) <= 1.0
+    ct = matmul_pallas(a.T.contiguous().T, b.T.contiguous().T)  # column-major operands
+    assert matmul_pallas_excess(a, b, ct, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_matmul_pallas_raises_on_the_card(card):
+    from slate_tpu_torch.ops.matmul import matmul_pallas
+
+    a = torch.zeros((8, 8), dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        matmul_pallas(a, a)
+    with pytest.raises(ValueError):
+        tk.matmul_pallas(torch.zeros((8, 8), device="cuda"), torch.zeros((8, 8)), 128, 128, 128)
+
+
+@pytest.mark.cuda
+def test_matmul_pallas_counts_only_what_it_launches(card):
+    """An empty C launches nothing and counts nothing; k = 0 launches the
+    kernel, which writes zeros."""
+    before = tk.matmul_pallas.launches
+    for m, k, n in ((0, 5, 7), (6, 3, 0)):
+        c = tk.matmul_pallas(torch.ones((m, k), device="cuda"), torch.ones((k, n), device="cuda"))
+        assert c.shape == (m, n)
+    assert tk.matmul_pallas.launches == before
+    c = tk.matmul_pallas(torch.ones((4, 0), device="cuda"), torch.ones((0, 6), device="cuda"))
+    torch.cuda.synchronize()
+    assert tk.matmul_pallas.launches == before + 1 and bool((c == 0).all())
+
+
+@pytest.mark.cuda
+def test_ozaki_on_the_card_is_bitwise_the_cpu(card):
+    from slate_tpu_torch.ops import ozaki
+    from slate_tpu_torch.parallel.summa import gemm_summa_ozaki
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn((300, 520), dtype=torch.float64, generator=g)
+    b = torch.randn((520, 130), dtype=torch.float64, generator=g)
+    a[3] = 0
+    a[7, :4] = 1e-40
+    for s in (9, 6):
+        assert torch.equal(ozaki.matmul_f64(a.cuda(), b.cuda(), s).cpu(), ozaki.matmul_f64(a, b, s))
+    ac, bc = torch.complex(a, a.flip(0)), torch.complex(b, -b)
+    assert torch.equal(ozaki.matmul_c128(ac.cuda(), bc.cuda()).cpu(), ozaki.matmul_c128(ac, bc))
+    n = 256
+    sq = torch.randn((n, n), dtype=torch.float64, generator=g) + n * torch.eye(n, dtype=torch.float64)
+    x = torch.randn((n, 3), dtype=torch.float64, generator=g)
+    out = []
+    for dev in ("cpu", "cuda"):
+        mesh = make_mesh(2, 4, device=dev)
+        out.append(to_dense(gemm_summa_ozaki(-1.0, from_dense(sq.to(dev), mesh, 32, diag_pad_one=True),
+                                             from_dense(x.to(dev), mesh, 32), 1.0,
+                                             from_dense(x.to(dev), mesh, 32))).cpu())
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.cuda
+def test_mixed_ladder_on_the_card(card):
+    """f64 posv_mesh / gesv_mesh under auto on the card: the refinement gate,
+    the f32 factor's kernels and the f64 residual's summa_update launched;
+    off launches what the direct path launches."""
+    from slate_tpu_torch.parallel import gesv_mesh, posv_mesh
+    from slate_tpu_torch.parallel.drivers import _posv_mesh_plain
+    from slate_tpu_torch.types import Option
+    from slate_tpu_torch.utils.testing import refine_gate_ok
+
+    n, nb = 512, 64
+    g = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.randn((n, n), dtype=torch.float64, device="cuda", generator=g)
+    spd = a @ a.T / n + 2 * torch.eye(n, dtype=torch.float64, device="cuda")
+    b = torch.randn((n, 4), dtype=torch.float64, device="cuda", generator=g)
+    mesh = make_mesh(2, 4, device="cuda")
+    names = ("chol_panel_tiles", "chol_trailing_update", "summa_update", "lu_rowsolve_tiles")
+
+    def counts():
+        return {k: getattr(tk, k).launches for k in names}
+
+    c0 = counts()
+    x, info = posv_mesh(spd, b, mesh, nb)
+    c1 = counts()
+    assert int(info) == 0 and refine_gate_ok(spd, x, b)
+    assert all(c1[k] > c0[k] for k in names[:3])
+    x, info = gesv_mesh(a + n * torch.eye(n, dtype=torch.float64, device="cuda"), b, mesh, nb)
+    assert int(info) == 0 and counts()["lu_rowsolve_tiles"] > c1["lu_rowsolve_tiles"]
+    off = {Option.MixedPrecision: "off"}
+    c2 = counts()
+    x_off, _ = posv_mesh(spd, b, mesh, nb, opts=off)
+    c3 = counts()
+    x_pl, _ = _posv_mesh_plain(spd, b, mesh, nb, opts=off)
+    c4 = counts()
+    assert {k: c3[k] - c2[k] for k in names} == {k: c4[k] - c3[k] for k in names}
+    assert torch.equal(x_off, x_pl)

@@ -529,8 +529,9 @@ def test_persistent_lu_double_fault_raises(ops64):
 
 def test_driver_opts_routing(ops64):
     """Option.FaultTolerance through the mesh drivers: a corrected gemm, an
-    FT posv (f64 under MixedPrecision off, as the port has no mixed
-    ladder yet) and an FT LU solve, each against slate_tpu's."""
+    FT posv (f64 under MixedPrecision off, and under the default mixed
+    ladder, whose f32 factor is then checksummed) and an FT LU solve, each
+    against slate_tpu's."""
     jm, tm = _jmesh(), _tmesh()
     f = _seeded(71, "gemm", N // NB, "trailing")
     with jscope(JPlan([jinject.Fault(**f)])):
@@ -553,8 +554,9 @@ def test_driver_opts_routing(ops64):
     xj, _ = jdrv.posv_mesh(jnp.asarray(ops64["spd"]), jnp.asarray(rhs), jm, NB,
                            opts={JOption.FaultTolerance: "correct", JOption.MixedPrecision: "off"})
     assert np.abs(x.numpy() - np.asarray(xj)).max() < 1e-12 * np.abs(xt).max()
-    with pytest.raises(NotImplementedError, match="MixedPrecision"):
-        tp.posv_mesh(_t(ops64["spd"]), _t(rhs), tm, NB, opts={TOption.FaultTolerance: "correct"})
+    x, info = tp.posv_mesh(_t(ops64["spd"]), _t(rhs), tm, NB,
+                           opts={TOption.FaultTolerance: "correct"})  # the mixed ladder
+    assert int(info) == 0 and np.abs(x.numpy() - xt).max() < 1e-9
     lu, info = tp.getrf_nopiv_mesh(_t(ops64["dd"]), tm, NB, opts={TOption.FaultTolerance: "detect"})
     assert int(info) == 0
     x, info = tp.gesv_nopiv_mesh(_t(ops64["dd"]), _t(rhs), tm, NB,

@@ -294,15 +294,30 @@ def test_dist_from_numpy_round_trip():
 
 
 def test_f64_gesv_mesh_mixed_route_is_not_ported():
+    """(Named when the ladder was refused.)  An f64 gesv_mesh with a 2-D B
+    now routes through the mixed ladder under auto and ir, meeting the
+    refinement gate and counting ``ir.solves``; off runs the direct path;
+    f32 takes the direct path under auto."""
+    from slate_tpu_torch.linalg.refine import ir_counter_values
+
     a, b = _operands("pp", 64, np.float64)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tp.gesv_mesh(_t(a), _t(b), _tmesh(), NB)  # auto
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tp.gesv_mesh(a, b, _tmesh(), NB, opts={tt.Option.MixedPrecision: "ir"})
+
+    def gate(x):
+        r = np.abs(b - a @ x).sum(axis=1).max()
+        return r <= (np.abs(x).sum(axis=1).max() * np.abs(a).sum(axis=1).max()
+                     * _eps(np.float64) * np.sqrt(64))
+
+    solves = ir_counter_values()["solves"]
+    x, info = tp.gesv_mesh(_t(a), _t(b), _tmesh(), NB)  # auto
+    assert int(info) == 0 and gate(x.numpy())
+    x, info = tp.gesv_mesh(a, b, _tmesh(), NB, opts={tt.Option.MixedPrecision: "ir"})
+    assert int(info) == 0 and gate(x.numpy())
+    assert ir_counter_values()["solves"] == solves + 2
     with trefine.use_mixed("off"):
         x, info = tp.gesv_mesh(_t(a), _t(b), _tmesh(), NB)
     assert int(info) == 0 and _eta(a, x.numpy(), b) < 100 * 64 * _eps(np.float64)
-    # f32 runs the direct path under auto; a 1-D right-hand side too
+    assert ir_counter_values()["solves"] == solves + 2
+    # f32 runs the direct path under auto
     a32, b32 = a.astype(np.float32), b.astype(np.float32)
     assert int(tp.gesv_mesh(_t(a32), _t(b32), _tmesh(), NB)[1]) == 0
 
