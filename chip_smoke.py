@@ -12,7 +12,11 @@ printing one JSON line before the next starts (any failure exits non-zero):
 3. kernel: chol_diag_inv against its plain twin at nb = 256, f32 and f64
            (L and L^-1 each at its own scale, L L^T = A and L X = I by
            reconstruction, a non-SPD block NaN from the same column), with
-           kernel, twin and library times and the bound;
+           kernel, twin and library times and the bound; then the blocked
+           kernel's edges: n = 72 and 200 (a ragged last 32-wide panel), and a
+           bad pivot at 31 and at 32 (each side of a panel boundary): NaN
+           masks equal the twin's, the first NaN diagonal at the bad column,
+           the upper triangles exact zeros;
 4. posv f32 at n = 32768, nrhs = 32 through linalg.posv_array (the
            panel-stepped scan form): info, backward error, 128 kernel
            launches, seconds after one warm-up run, peak memory;
@@ -36,7 +40,10 @@ printing one JSON line before the next starts (any failure exits non-zero):
    (1, 4, ntl) tiles) and lu_trailing_update (the bucket-0 window with the
    lookahead exclusions), with kernel, twin and library times and the bound;
    the packed L\\U holds L and U each at its own scale and to A by
-   reconstruction;
+   reconstruction; the LU entry points at n = 72 and 200 (L\\U, U^-1 and
+   unit-L^-1 against their twins, the structural triangles exact zeros) and
+   with a zero pivot at 31 and at 32 (U^-1 finite exactly where the twin's
+   is, L\\U and unit-L^-1 finite);
 13. mesh_gesv_nopiv f32 at n = 32768 and f64 at n = 16384 (uniform[-1, 1)
    + n I): getrf_nopiv_mesh -> two trsm_dist, info, the normwise backward
    error (gate 100 n eps) and the componentwise one (gate 10 sqrt(n) eps,
@@ -168,7 +175,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 
 NB = 256
 N_MAIN = 32768
@@ -267,6 +274,7 @@ def kernel_phase(dtype, kernels, torch):
     check(first_k == first_p == j, f"{name}: first NaN column kernel {first_k}, twin {first_p}, expected {j}")
     check(torch.equal(torch.isnan(lb), torch.isnan(lbp)) and torch.equal(torch.isnan(xb), torch.isnan(xbp)),
           f"{name}: NaN patterns of kernel and twin differ")
+    edges = chol_edges(dtype, kernels, torch)
     ms = cuda_ms(lambda: kernels.chol_diag_inv(a), 200, torch)
     plain_ms = cuda_ms(lambda: kernels.chol_diag_inv_plain(a), 3, torch)
 
@@ -290,10 +298,51 @@ def kernel_phase(dtype, kernels, torch):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
-    emit({"phase": f"kernel_{name}", "nb": NB, **fac, "nan_first_col": first_k,
+    emit({"phase": f"kernel_{name}", "nb": NB, **fac, "nan_first_col": first_k, "edges": edges,
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
           "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
     return row
+
+
+# the blocked kernels' edges: a ragged last 32-wide panel, and a bad pivot on
+# each side of a panel boundary
+EDGE_N = (72, 200)
+EDGE_COLS = (31, 32)
+
+
+def chol_edges(dtype, kernels, torch):
+    """chol_diag_inv against its twin at n = 72 and 200 (chol_factor_check),
+    and with a[j, j] = -1 at j = 31 and 32: the NaN masks of L and L^-1
+    equal, the first NaN diagonal at j, the upper triangles exact zeros.
+    Returns the largest reading of each kind."""
+    eps = torch.finfo(dtype).eps
+    worst = {"err_ratio": 0.0, "rec_ratio": 0.0, "inv_ratio": 0.0}
+    for n in EDGE_N:
+        a = spd_block(n, dtype, SEED + 100 + n, torch)
+        lk, xk = kernels.chol_diag_inv(a)
+        torch.cuda.synchronize()
+        lp, xp = kernels.chol_diag_inv_plain(a)
+        fac = chol_factor_check(a, lk, lp, xk, xp, eps, torch)
+        check(chol_factor_ok(fac), f"chol_diag_inv {dname(dtype)} n={n}: {fac}")
+        check(torch.equal(lk.triu(1), torch.zeros_like(lk).triu(1))
+              and torch.equal(xk.triu(1), torch.zeros_like(xk).triu(1)),
+              f"chol_diag_inv {dname(dtype)} n={n}: upper triangle not exactly zero")
+        worst["err_ratio"] = max(worst["err_ratio"], fac["err_L"] / fac["tol_L"],
+                                 fac["err_Linv"] / fac["tol_Linv"])
+        worst["rec_ratio"] = max(worst["rec_ratio"], fac["rec_ratio"])
+        worst["inv_ratio"] = max(worst["inv_ratio"], fac["inv_ratio"])
+        for j in EDGE_COLS:
+            bad = a.clone()
+            bad[j, j] = -1.0
+            lb, xb = kernels.chol_diag_inv(bad)
+            lbp, xbp = kernels.chol_diag_inv_plain(bad)
+            first = torch.isnan(lb.diagonal()).nonzero()
+            check(len(first) > 0 and int(first[0]) == j
+                  and torch.equal(torch.isnan(lb), torch.isnan(lbp))
+                  and torch.equal(torch.isnan(xb), torch.isnan(xbp))
+                  and torch.equal(xb.triu(1), torch.zeros_like(xb).triu(1)),
+                  f"chol_diag_inv {dname(dtype)} n={n}: NaN pattern of a bad pivot at {j}")
+    return worst
 
 
 def chol_factor_check(a, lk, lp, xk, xp, eps, torch):
@@ -850,6 +899,59 @@ def hold_lu_rowsolve(name, lk, prow, kernels, torch):
     return err_r, tol_r, rmax
 
 
+def lu_edges(dtype, kernels, torch):
+    """The LU entry points (csrc/lu_diag_inv.cu, called directly so U^-1 is
+    not smeared by a tile product) against their twins at n = 72 and 200:
+    L\\U by lu_factor_check, U^-1 and unit-L^-1 within 100 n eps of their
+    own largest entry and by U X = I, L Y = I within 3 n eps |U||X|; their
+    structural triangles exact zeros; and with row j zero (U(j, j) = 0) at
+    j = 31 and 32, L\\U finite and U^-1 finite exactly where the twin's is.
+    Returns the largest reading of each kind."""
+    eps = torch.finfo(dtype).eps
+    worst = {"err_ratio": 0.0, "rec_ratio": 0.0, "inv_ratio": 0.0}
+
+    def entries(b):
+        lu, ux, lx = torch.empty_like(b), torch.empty_like(b), torch.empty_like(b)
+        kernels._launch_lu("lu_diag_inv", "lu_edges", b, lu, ux)
+        kernels._launch_lu("unit_linv", "lu_edges", lu, lx)
+        torch.cuda.synchronize()
+        return lu, ux, lx
+
+    for n in EDGE_N:
+        b = lu_block(n, dtype, SEED + 200 + n, torch)
+        lu, ux, lx = entries(b)
+        lup, uxp = kernels.lu_diag_inv_plain(b)
+        lxp = kernels.unit_linv_plain(lu)
+        fac = lu_factor_check(b, lu, lup, eps, torch)
+        check(lu_factor_ok(fac), f"lu_diag_inv {dname(dtype)} n={n}: packed L\\U {fac}")
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        lo = lu.double().tril(-1) + eye
+        up = lu.double().triu()
+        readings = [float((ux - uxp).abs().max()) / (100 * n * eps * float(uxp.abs().max())),
+                    float((lx - lxp).abs().max()) / (100 * n * eps * float(lxp.abs().max()))]
+        inv = max(residual_ratio(up, ux.double(), eye, n, eps, torch),
+                  residual_ratio(lo, lx.double(), eye, n, eps, torch))
+        check(max(readings) <= 1 and inv <= 1, f"lu_diag_inv {dname(dtype)} n={n}: inverses "
+                                               f"{readings}, residual {inv}")
+        check(torch.equal(ux.tril(-1), torch.zeros_like(ux).tril(-1))
+              and torch.equal(lx.triu(1), torch.zeros_like(lx).triu(1)),
+              f"lu_diag_inv {dname(dtype)} n={n}: structural triangle not exactly zero")
+        worst["err_ratio"] = max(worst["err_ratio"], fac["err_L"] / fac["tol_L"],
+                                 fac["err_U"] / fac["tol_U"], *readings)
+        worst["rec_ratio"] = max(worst["rec_ratio"], fac["rec_ratio"])
+        worst["inv_ratio"] = max(worst["inv_ratio"], inv)
+        for j in EDGE_COLS:
+            z = b.clone()
+            z[j, :] = 0
+            lz, uz, lxz = entries(z)
+            _, uzp = kernels.lu_diag_inv_plain(z)
+            check(bool(torch.isfinite(lz).all()) and float(lz[j, j]) == 0.0
+                  and torch.equal(torch.isfinite(uz), torch.isfinite(uzp))
+                  and bool(torch.isfinite(lxz).all()),
+                  f"lu_diag_inv {dname(dtype)} n={n}: zero-pivot pattern at {j}")
+    return worst
+
+
 def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
     """lu_panel_tiles (the owning column's p x mtl tiles of the mesh LU's
     bucket-0 view) and lu_rowsolve_tiles (the owning row's q x ntl tiles)
@@ -882,6 +984,7 @@ def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
     check(lu_factor_ok(fac), f"lu_panel_tiles {name}: packed L\\U {fac}")
     check(err_s < tol_s, f"lu_panel_tiles {name}: |dS| {err_s} (tol {tol_s})")
     err_r, tol_r, rmax = hold_lu_rowsolve(name, lk, prow, kernels, torch)
+    edges = lu_edges(dtype, kernels, torch)
     isz = dtile.element_size()
     rows = []
     for kname, run, plain, library, err, tiles, flops, nbytes, replaces in (
@@ -917,7 +1020,7 @@ def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
               "err_solved": err_s if kname == "lu_panel_tiles" else err_r,
               "tol_solved": tol_s if kname == "lu_panel_tiles" else tol_r,
               "max_abs_solved": smax if kname == "lu_panel_tiles" else rmax,
-              **(fac if kname == "lu_panel_tiles" else {}), "kernel_ms": ms,
+              **(fac if kname == "lu_panel_tiles" else {"edges": edges}), "kernel_ms": ms,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
               "bound_by": row["bound_by"]})
     del t, loc, pcol, prow
@@ -955,12 +1058,16 @@ def omega(a, x, b, torch, rows=4096):
     """Componentwise backward error (Oettli-Prager) max_i |AX - B|_i /
     (|A||X| + |B|)_i, the residual taken in f64 over blocks of rows, so the
     check adds no rounding of its size.  A right-sized but wrong X reads
-    ~1/sqrt(n) or more (the operand's own scale cancels out)."""
+    ~1/sqrt(n) or more (the operand's own scale cancels out); a NaN in X
+    reads NaN, which fails every gate (max() would drop it)."""
     x64, w = x.double(), 0.0
     for r0 in range(0, a.shape[0], rows):
         a64, b64 = a[r0:r0 + rows].double(), b[r0:r0 + rows].double()
         r = (a64 @ x64 - b64).abs()
-        w = max(w, float((r / (a64.abs() @ x64.abs() + b64.abs())).max()))
+        m = float((r / (a64.abs() @ x64.abs() + b64.abs())).max())
+        if math.isnan(m):
+            return m
+        w = max(w, m)
     return w
 
 
@@ -2217,6 +2324,16 @@ MATMUL_CASES = (("8192^3", 8192, 8192, 8192, "float32"), ("8192^3", 8192, 8192, 
 OZAKI_SMALL, OZAKI_N = 512, 8192
 MIXED_POSV_N, MIXED_GESV_N, MIXED_ESC_N, MIXED_FT_N = 16384, 8192, 2048, 8192
 MIXED_WARMUP_N = 1024
+# The refined gesv's omega limit, in units of omega_gate (10 sqrt(n) eps).
+# Refinement stops at a normwise gate, so omega lands wherever its last step
+# leaves the worst row: over 13 seeds at n = 8192 the sound runs read
+# 0.014-2.47 of omega_gate (tools/ladder_omega_report.py on an H100; PERF.md,
+# PR 8).  Planted unit-L^-1 faults that refinement absorbs read 0.02-0.27
+# (their X is as good; only the iterations show them), and a dropped slab
+# leaves X NaN under IR alone: no fault reads between 2.47 and this limit.
+GESV_LADDER_OMEGA = 3.0
+# the refined gesv's extra seeds, each held to the same limit
+GESV_LADDER_SEEDS = (170, 172, 174)
 
 
 def kernel_matmul_phase(kernels, testing, torch):
@@ -2492,50 +2609,113 @@ def ladder_kernels_phase(kernels, caps, summa_launches, torch):
     return row
 
 
+LADDER_COUNTED = ("chol_panel_tiles", "chol_trailing_update", "summa_update", "lu_rowsolve_tiles")
+
+
+def ladder_run(kind, a, b, mesh, mp, kernels, torch, opts=None, caps=()):
+    """posv_mesh or gesv_mesh on (a, b) under ``opts``, the ``caps`` in
+    place: info, the tier taken, iters, the ir.* deltas, seconds, peak
+    memory, the kernel launches, eta and omega (f64 residual) with their
+    gates, and the refinement's own gate ||r|| <= ||x|| ||A|| eps sqrt(n)."""
+    from slate_tpu_torch.linalg import refine
+    from slate_tpu_torch.obs import REGISTRY
+    from slate_tpu_torch.utils.testing import refine_gate_ok
+
+    drv = mp.posv_mesh if kind == "posv" else mp.gesv_mesh
+    ir0 = refine.ir_counter_values()
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        reset_counts(kernels)
+        (x, info), seconds, peak = timed_solve(lambda: drv(a, b, mesh, NB, opts=opts), torch)
+        launches = {k: getattr(kernels, k).launches for k in LADDER_COUNTED}
+    d = _ir_deltas(ir0, refine.ir_counter_values())
+    n = a.shape[0]
+    eps = torch.finfo(torch.float64).eps
+    res = {"n": n, "nrhs": b.shape[1], "info": int(info), "tier": _tier(d), "ir_deltas": d,
+           "iters": REGISTRY.gauge_value("ir.iters", op=kind) if d.get("solves") else None,
+           "seconds": seconds, "peak_mem_bytes": peak, "launches": launches,
+           "eta": eta(a, x, b, torch), "eta_gate": 100 * n * eps,
+           "omega": omega(a, x, b, torch), "omega_gate": omega_gate(n, torch.float64, torch),
+           "refine_gate_ok": refine_gate_ok(a, x, b),
+           "x_finite": bool(torch.isfinite(x).all())}
+    del x
+    return res
+
+
+def ladder_faults(r, omega_limit):
+    """The gates a refined ladder solve fails ([] if none): info 0 and a
+    finite X, eta < 100 n eps, omega < omega_limit, the IR tier with its
+    iterations, and the refinement's own normwise gate."""
+    return [name for name, ok in (
+        ("info", r["info"] == 0 and r["x_finite"]), ("eta", r["eta"] < r["eta_gate"]),
+        ("omega", r["omega"] < omega_limit), ("tier", r["tier"] == "ir" and r["iters"] is not None),
+        ("refine_gate", r["refine_gate_ok"])) if not ok]
+
+
+@contextmanager
+def planted_unit_linv_fault(kernels, scale):
+    """A planted fault in the diagonal block's unit-L^-1 (the unit_linv
+    entry's output, before lu_rowsolve_tiles' tile product): rows 64 on of
+    its second 32-wide block column times ``scale`` (0 drops that slab)."""
+    launch = kernels._launch_lu
+
+    def faulty(entry, who, src, *outs):
+        launch(entry, who, src, *outs)
+        if entry == "unit_linv":
+            outs[0][64:, 32:64] *= scale
+
+    kernels._launch_lu = faulty
+    try:
+        yield
+    finally:
+        kernels._launch_lu = launch
+
+
+def ir_alone():
+    """The ladder pinned to IR with no fallback: a planted fault's run stops
+    there (GMRES-IR on a broken preconditioner, one column at a time, runs
+    for minutes at n = 8192)."""
+    from slate_tpu_torch.types import Option
+
+    return {Option.MixedPrecision: "ir", Option.UseFallbackSolver: False}
+
+
+def gesv_ladder_case(seed, n, mesh, mp, kernels, torch, caps=(), opts=None):
+    """The refined gesv (auto, or ``opts``) at n on the pp matrix and rhs of
+    ``seed``."""
+    f64 = torch.float64
+    a = lu_matrix("pp", n, f64, SEED + seed, torch)
+    b = randn((n, NRHS), f64, SEED + seed + 1, torch)
+    r = ladder_run("gesv", a, b, mesh, mp, kernels, torch, opts=opts, caps=caps)
+    del a, b
+    torch.cuda.empty_cache()
+    return r
+
+
 def mixed_mesh_phase(kernels, mp, torch):
     """The f64 mesh ladder (virtual 2 x 4, nb = 256, 32 rhs), each after a
     warm-up at n = 1024: posv_mesh at n = 16384 under auto (ResidualImpl
-    f64), auto with ozaki, and off; gesv_mesh at n = 8192 under auto and
-    off; an ill-conditioned gesv at n = 2048 (cond 1e12, one rhs) that
-    escalates; posv_mesh under FaultTolerance at n = 8192.  Seconds, peak
-    memory, the tier taken, iters, the ir.* deltas, the kernel launches, eta
-    and omega (f64 residual) against 100 n eps / 10 sqrt(n) eps, and the
-    refinement's own gate ||r|| <= ||x|| ||A|| eps sqrt(n).  The posv and
-    gesv auto runs keep their kernels' widest inputs (Capture) for
-    ladder_kernels_phase, whose summa_update[float64] row it returns."""
+    f64), auto with ozaki, and off; gesv_mesh at n = 8192 under auto (on
+    four seeds, and with a dropped unit-L^-1 slab under IR alone) and off; an
+    ill-conditioned gesv at n = 2048 (cond 1e12, one rhs) that escalates;
+    posv_mesh under FaultTolerance at n = 8192 (ladder_run's readings for
+    each).  eta is held to 100 n eps and omega to 10 sqrt(n) eps, the
+    refined gesv's omega to GESV_LADDER_OMEGA times that; the refined solves
+    also to the IR tier and the refinement's own gate, and the planted
+    fault must fail one of them.  The posv and gesv auto runs keep their
+    kernels' widest inputs (Capture) for ladder_kernels_phase, whose
+    summa_update[float64] row it returns."""
     import numpy as np
 
-    from slate_tpu_torch.linalg import refine
-    from slate_tpu_torch.obs import REGISTRY
     from slate_tpu_torch.parallel import dist_chol, dist_lu, summa
     from slate_tpu_torch.types import Option
-    from slate_tpu_torch.utils.testing import refine_gate_ok
 
     mesh = mp.make_mesh(P, Q, device="cuda")
     f64 = torch.float64
-    eps = torch.finfo(f64).eps
-    counted = ("chol_panel_tiles", "chol_trailing_update", "summa_update", "lu_rowsolve_tiles")
 
     def run(kind, a, b, opts=None, caps=()):
-        drv = mp.posv_mesh if kind == "posv" else mp.gesv_mesh
-        ir0 = refine.ir_counter_values()
-        with ExitStack() as stack:
-            for c in caps:
-                stack.enter_context(c)
-            reset_counts(kernels)
-            (x, info), seconds, peak = timed_solve(lambda: drv(a, b, mesh, NB, opts=opts), torch)
-            launches = {k: getattr(kernels, k).launches for k in counted}
-        d = _ir_deltas(ir0, refine.ir_counter_values())
-        n = a.shape[0]
-        res = {"n": n, "nrhs": b.shape[1], "info": int(info), "tier": _tier(d), "ir_deltas": d,
-               "iters": REGISTRY.gauge_value("ir.iters", op=kind) if d.get("solves") else None,
-               "seconds": seconds, "peak_mem_bytes": peak, "launches": launches,
-               "eta": eta(a, x, b, torch), "eta_gate": 100 * n * eps,
-               "omega": omega(a, x, b, torch), "omega_gate": omega_gate(n, f64, torch),
-               "refine_gate_ok": refine_gate_ok(a, x, b),
-               "x_finite": bool(torch.isfinite(x).all())}
-        del x
-        return res
+        return ladder_run(kind, a, b, mesh, mp, kernels, torch, opts=opts, caps=caps)
 
     out = {"phase": "mixed_mesh", "grid": [P, Q], "nb": NB}
     # warm-ups: handles, allocator, kernel loads, every tier's code path
@@ -2561,9 +2741,15 @@ def mixed_mesh_phase(kernels, mp, torch):
     del a, b
     torch.cuda.empty_cache()
     n = MIXED_GESV_N
+    out["gesv_auto"] = gesv_ladder_case(165, n, mesh, mp, kernels, torch,
+                                        caps=[caps["lu_rowsolve_tiles"]])
+    out["gesv_auto_seeds"] = [gesv_ladder_case(s, n, mesh, mp, kernels, torch)
+                              for s in GESV_LADDER_SEEDS]
+    with planted_unit_linv_fault(kernels, 0.0):
+        out["gesv_auto_planted"] = gesv_ladder_case(165, n, mesh, mp, kernels, torch,
+                                                    opts=ir_alone())
     a = lu_matrix("pp", n, f64, SEED + 165, torch)
     b = randn((n, NRHS), f64, SEED + 166, torch)
-    out["gesv_auto"] = run("gesv", a, b, caps=[caps["lu_rowsolve_tiles"]])
     out["gesv_off"] = run("gesv", a, b, {Option.MixedPrecision: "off"})
     del a, b
     torch.cuda.empty_cache()
@@ -2584,16 +2770,22 @@ def mixed_mesh_phase(kernels, mp, torch):
     out["posv_ft"] = run("posv", a, b, {Option.FaultTolerance: "correct"})
     del a, b
     torch.cuda.empty_cache()
+    gesv_limit = GESV_LADDER_OMEGA * out["gesv_auto"]["omega_gate"]
+    out["gesv_omega_limit"] = gesv_limit
+    out["gesv_auto_planted"]["faults"] = ladder_faults(out["gesv_auto_planted"], gesv_limit)
     emit(out)
-    for key in ("posv_auto", "posv_auto_ozaki", "posv_off", "gesv_auto", "gesv_off",
-                "gesv_escalation", "posv_ft"):
+    for key in ("posv_off", "gesv_off", "gesv_escalation"):
         r = out[key]
         check(r["info"] == 0 and r["x_finite"], f"mixed {key}: info {r['info']}")
         check(r["eta"] < r["eta_gate"] and r["omega"] < r["omega_gate"], f"mixed {key}: {r}")
-    for key in ("posv_auto", "posv_auto_ozaki", "gesv_auto", "posv_ft"):
-        r = out[key]
-        check(r["tier"] == "ir" and r["refine_gate_ok"] and r["iters"] is not None,
-              f"mixed {key}: tier {r['tier']}, gate {r['refine_gate_ok']}")
+    ladder = [(k, out[k], out[k]["omega_gate"]) for k in ("posv_auto", "posv_auto_ozaki", "posv_ft")]
+    ladder += [("gesv_auto", out["gesv_auto"], gesv_limit)]
+    ladder += [(f"gesv_auto[seed {s}]", r, gesv_limit)
+               for s, r in zip(GESV_LADDER_SEEDS, out["gesv_auto_seeds"])]
+    for key, r, limit in ladder:
+        check(not ladder_faults(r, limit), f"mixed {key}: fails {ladder_faults(r, limit)}: {r}")
+    check(out["gesv_auto_planted"]["faults"],
+          f"mixed gesv_auto: a dropped unit-L^-1 slab passes every gate: {out['gesv_auto_planted']}")
     check(out["posv_auto"]["launches"]["summa_update"] > 0, "mixed posv: no summa_update launch")
     for key in ("posv_off", "gesv_off"):
         check(out[key]["tier"] == "direct", f"mixed {key}: the ladder ran under off")

@@ -6,9 +6,11 @@ headers), so ``nvcc`` builds it in seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  Without ``nvcc`` (or
-if the build fails) :func:`load` raises: there is no fallback.
+The library name carries a hash of the source, of every ``csrc`` header it
+includes (``#include "<header>"``, followed recursively) and of the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.
+Without ``nvcc`` (or if the build fails) :func:`load` raises: there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, List
@@ -56,9 +59,35 @@ def find_nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[str]:
+    """csrc/<name>.cu and every header of csrc/ it includes with quotes,
+    followed recursively, each once, in the order first reached."""
+    order: List[str] = []
+
+    def visit(fname: str) -> None:
+        if fname in order:
+            return
+        order.append(fname)
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            inc = inc.decode()
+            if os.path.isfile(os.path.join(CSRC_DIR, inc)):
+                visit(inc)
+
+    visit(name + ".cu")
+    return order
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for fname in _sources(name):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -388,6 +388,84 @@ def test_mesh_lu_on_card_bitwise_across_lookahead(card, form):
 
 
 # ---------------------------------------------------------------------------
+# the blocked diagonal-block kernels over n, dtype and entry
+# (csrc/diag_block.cuh: 32-wide panels, a ragged last panel padded)
+# ---------------------------------------------------------------------------
+
+DIAG_NS = [1, 7, 31, 32, 33, 72, 200, 256]
+# a bad column in the first panel, on each side of a panel boundary, last
+DIAG_BAD = [(n, j) for n in DIAG_NS for j in sorted({0, 31, 32, n - 1}) if j < n]
+
+
+def _spd_block(n, dtype, seed):
+    g = np.random.default_rng(seed).standard_normal((n, n))
+    return torch.from_numpy(g @ g.T / n + np.eye(n)).to(dtype).cuda()
+
+
+def _within(got, want, n, dtype):
+    """Within 100 n eps of the twin's largest entry of that output."""
+    return float((got - want).abs().max()) <= 100 * n * _eps(dtype) * float(want.abs().max())
+
+
+def _diag_entries(a, b):
+    """chol_diag_inv on a; the lu_diag_inv and unit_linv entry points
+    themselves on b (U^-1 and L^-1 unsmeared by a tile product)."""
+    l, x = tk.chol_diag_inv(a)
+    lu, ux, lx = torch.empty_like(b), torch.empty_like(b), torch.empty_like(b)
+    tk._launch_lu("lu_diag_inv", "test", b, lu, ux)
+    tk._launch_lu("unit_linv", "test", lu, lx)
+    torch.cuda.synchronize()
+    return l, x, lu, ux, lx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DIAG_NS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_diag_block_kernels_match_twins_over_n(card, n, dtype):
+    a, b = _spd_block(n, dtype, n), _lu_block(n, dtype, n + 1)
+    l, x, lu, ux, lx = _diag_entries(a, b)
+    lp, xp = tk.chol_diag_inv_plain(a)
+    lup, uxp = tk.lu_diag_inv_plain(b)
+    lxp = tk.unit_linv_plain(lu)
+    eye = torch.eye(n, dtype=dtype, device="cuda")
+    lo = lu.tril(-1) + eye
+    assert _within(l, lp, n, dtype) and _within(x, xp, n, dtype)
+    assert _residual_ratio(l, l.T, a) <= 1 and _residual_ratio(l, x, eye) <= 1
+    assert _within(lu.tril(-1), lup.tril(-1), n, dtype) and _within(lu.triu(), lup.triu(), n, dtype)
+    assert _residual_ratio(lo, lu.triu(), b) <= 1
+    assert _within(ux, uxp, n, dtype) and _residual_ratio(lu.triu(), ux, eye) <= 1
+    assert _within(lx, lxp, n, dtype) and _residual_ratio(lo, lx, eye) <= 1
+    zero = torch.zeros_like(a)
+    assert torch.equal(l.triu(1), zero.triu(1)) and torch.equal(x.triu(1), zero.triu(1))
+    assert torch.equal(ux.tril(-1), zero.tril(-1)) and torch.equal(lx.triu(1), zero.triu(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,j", DIAG_BAD)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_diag_block_nan_and_zero_pivot_patterns(card, n, j, dtype):
+    # Cholesky: a[j, j] = -1 is the first bad pivot; L and L^-1 NaN exactly
+    # where the twin's are, the first NaN diagonal at j.  LU: row j zero,
+    # U(j, j) = 0: L\U finite, U^-1 finite exactly where the twin's is
+    # (every row above the last zero pivot non-finite), unit-L^-1 finite.
+    a, b = _spd_block(n, dtype, 3 * n + j), _lu_block(n, dtype, 5 * n + j)
+    a[j, j] = -1.0
+    b[j, :] = 0
+    l, x, lu, ux, lx = _diag_entries(a, b)
+    lp, xp = tk.chol_diag_inv_plain(a)
+    lup, uxp = tk.lu_diag_inv_plain(b)
+    assert torch.equal(torch.isnan(l), torch.isnan(lp)) and torch.equal(torch.isnan(x), torch.isnan(xp))
+    assert int(torch.isnan(l.diagonal()).nonzero()[0]) == j
+    zero = torch.zeros_like(a)
+    assert torch.equal(l.triu(1), zero.triu(1)) and torch.equal(x.triu(1), zero.triu(1))
+    assert bool(torch.isfinite(lu).all()) and float(lu[j, j]) == 0.0
+    assert torch.equal(torch.isfinite(ux), torch.isfinite(uxp))
+    assert torch.equal(ux.tril(-1), zero.tril(-1))
+    assert _within(lu.triu(), lup.triu(), n, dtype)
+    assert bool(torch.isfinite(lx).all()) and _within(lx, tk.unit_linv_plain(lu), n, dtype)
+
+
+# ---------------------------------------------------------------------------
 # the Householder panel kernels (csrc/qr_panel.cu)
 # ---------------------------------------------------------------------------
 

@@ -114,6 +114,66 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert os.path.exists(os.path.join(_build.CSRC_DIR, "chol_diag_inv.cu"))
 
 
+def test_library_name_hashes_the_included_headers(monkeypatch, tmp_path):
+    # an edited header must give a new library name, or a stale build loads
+    (tmp_path / "k.cu").write_text('#include "outer.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "outer.cuh").write_text('#pragma once\n  #  include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "unused.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    assert _build._sources("k") == ["k.cu", "outer.cuh", "inner.cuh"]
+    first = _build._lib_path("k")
+    (tmp_path / "unused.cuh").write_text("// v2\n")
+    assert _build._lib_path("k") == first
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "outer.cuh"\n// edited\n')
+    assert _build._lib_path("k") not in (first, second)
+    # the shipped sources: both diagonal-block kernels hash the shared header
+    monkeypatch.undo()
+    for name in ("chol_diag_inv", "lu_diag_inv"):
+        assert _build._sources(name) == [f"{name}.cu", "diag_block.cuh"]
+
+
+def _chip_smoke():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_ladder_gates_fail_a_nan_solution():
+    """chip_smoke.py's omega reads NaN for a NaN X (max() would drop it to
+    0), so ladder_faults fails such a solve on omega as well as on info,
+    eta and the refinement gate; a sound solve passes every gate."""
+    from slate_tpu_torch.utils.testing import refine_gate_ok
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(3)
+    n = 24
+    a = torch.from_numpy(rng.uniform(-1, 1, (n, n)) + n * np.eye(n))
+    b = torch.from_numpy(rng.standard_normal((n, 2)))
+    limit = cs.GESV_LADDER_OMEGA * cs.omega_gate(n, torch.float64, torch)
+
+    def reading(x):
+        return {"info": 0, "x_finite": bool(torch.isfinite(x).all()),
+                "eta": cs.eta(a, x, b, torch), "eta_gate": 100 * n * np.finfo(np.float64).eps,
+                "omega": cs.omega(a, x, b, torch), "tier": "ir", "iters": 2.0,
+                "refine_gate_ok": refine_gate_ok(a, x, b)}
+
+    sound = reading(torch.linalg.solve(a, b))
+    assert cs.ladder_faults(sound, limit) == []
+    bad = torch.linalg.solve(a, b)
+    bad[5, 1] = float("nan")
+    r = reading(bad)
+    assert np.isnan(r["omega"])
+    assert cs.ladder_faults(r, limit) == ["info", "eta", "omega", "refine_gate"]
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_twin_on_card(dtype):
