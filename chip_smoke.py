@@ -8,7 +8,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
 
 1. card:   device name, and the ``nvidia-smi`` name and power limit line;
 2. build:  every csrc/*.cu with nvcc into slate_tpu_torch/_build/, one nvcc
-           per source, all started together (seconds);
+           per source, all started together (seconds); then ptxas: each
+           kernel's registers and spilled bytes from the build logs (a spill
+           in tile_gemm or ft_summa_update fails);
 3. kernel: chol_diag_inv against its plain twin at nb = 256, f32 and f64
            (L and L^-1 each at its own scale, L L^T = A and L X = I by
            reconstruction, a non-SPD block NaN from the same column), with
@@ -26,7 +28,14 @@ printing one JSON line before the next starts (any failure exits non-zero):
 8. the mesh kernels against their plain twins at the mesh path's shapes
    (nb = 256, a virtual 2 x 4 grid): chol_panel_tiles and
    chol_trailing_update (f32, f64) and summa_update (f32), with kernel,
-   twin and library times and the bound;
+   twin and library times, the bound, TFLOP/s and the fraction of the bound
+   reached, and the panel's tile solve timed alone; then tile_mma_edges:
+   the tile-GEMM core (csrc/tile_mma.cuh) at ragged nb in {1, 7, 33, 100,
+   129, 200}, f32 and f64, on views at offset 0 and 1 element (the 16-byte
+   and the element copies): the three update modes and the three
+   panel-solve launch forms against their twins within gemm_tol, masked NaN
+   tiles bitwise untouched, ft_summa_update against its twin and bitwise
+   equal across two launches;
 9. mesh_posv f32 at n = 32768, nrhs = 32, nb = 256 on a virtual 2 x 4 mesh
    (from_dense -> potrf_dist -> two trsm_dist -> gemm_summa residual):
    info, backward error, the panel and trailing-update launch counts
@@ -158,11 +167,12 @@ printing one JSON line before the next starts (any failure exits non-zero):
 35. mixed_smoke: slate_tpu_torch.parallel.mixed_smoke on the card;
 36. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
    half; n = 64, nb = 8, 2 x 4);
-37. kernels: the line of every ported kernel (one row per kernel and
-   dtype, all 14 TPU kernels; geadd_tiles and genorm_max_tiles, which no
-   driver reaches, count the launches of their timed calls in phase 26,
-   and matmul_pallas that of phase 32's public 8192^3 call), then the card line
-   and, last, {"ok": true, "device": {...}}.
+37. total: the script's seconds; then kernels: the line of every ported
+   kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
+   and genorm_max_tiles, which no driver reaches, count the launches of
+   their timed calls in phase 26, and matmul_pallas that of phase 32's
+   public 8192^3 call), then the card line and, last,
+   {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -171,6 +181,7 @@ outside a checkout, it exits non-zero and prints no result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -207,6 +218,37 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def ptxas_report(log):
+    """{kernel: {"registers", "spill_bytes"}} from the build log of
+    ``nvcc -Xptxas -v`` (slate_tpu_torch/ops/_build.py keeps it beside the
+    library); names demangled where c++filt is found."""
+    with open(log) as f:
+        text = f.read()
+    out, cur, spill = {}, None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = {"registers": int(m.group(1)), "spill_bytes": spill}
+            cur = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) != len(out):
+        return out
+    short = [n.replace("(anonymous namespace)::", "").split("(")[0] for n in names]
+    return dict(zip(short, out.values()))
 
 
 def cuda_ms(fn, reps, torch):
@@ -511,14 +553,29 @@ def kernel_panel_phase(dtype, kernels, local_view, torch):
     row = row_of("chol_panel_tiles", dtype, "slate_tpu_torch/csrc/tile_gemm.cu",
                  "slate_tpu/ops/pallas_ops.py:491", max(err_l, err_s), ms, plain_ms, library_ms,
                  nbytes, flops)
+    tile_ms = tile_half_ms(kernels, pcol, kernels.chol_diag_inv(dtile)[1], True, False, torch)
     emit({"phase": f"kernel_chol_panel_tiles_{name}", "tiles": list(pcol.shape), **fac,
           "err_solved": err_s, "tol_solved": tol_s, "max_abs_solved": smax,
-          "kernel_ms": ms,
+          "kernel_ms": ms, "tile_ms": tile_ms,
           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
           "bound_by": row["bound_by"]})
     del t, loc, pcol
     torch.cuda.empty_cache()
     return row
+
+
+def tile_half_ms(kernels, tiles, x, trans_b, x_first, torch):
+    """CUDA-event ms of a panel kernel's tile solve alone: its tile_gemm
+    launch (mode set, x shared through stride 0; x_first: x @ tiles, as
+    lu_rowsolve_tiles, else tiles @ op(x))."""
+    out = torch.empty(tiles.shape, dtype=tiles.dtype, device="cuda")
+    tb, x3 = kernels._tile_batch, x[None, None, None]
+    if x_first:
+        c, a, b = tb(out).unsqueeze(2), x3, tb(tiles)
+    else:
+        c, a, b = tb(out).unsqueeze(3), tb(tiles), x3
+    return cuda_ms(lambda: kernels._tile_gemm(c, a, b, None, trans_b=trans_b,
+                                              mode=kernels._MODE_SET, who="tile half"), 20, torch)
 
 
 def hold_chol_panel(name, dtile, pcol, kernels, torch):
@@ -561,6 +618,12 @@ def gemm_tol(nb, eps, amax, bmax, cmax):
     (cmax: the largest |c| before or after).  A TF32 product (10-bit
     mantissa, ~4e3 f32 eps) lies far outside it."""
     return 8 * math.sqrt(nb) * eps * amax * bmax + 2 * eps * cmax
+
+
+def rate(flops, row):
+    """A kernel's achieved TFLOP/s and the fraction of its bound it reaches
+    (bound_ms / ms), from its kernels-line row."""
+    return {"tflops": flops / row["ms"] / 1e9, "bound_fraction": row["bound_ms"] / row["ms"]}
 
 
 def update_calls(which, kernels, pan, rhs, mask, torch):
@@ -647,10 +710,121 @@ def kernel_update_phase(which, dtype, kernels, local_view, local_indices, torch)
     emit({"phase": f"kernel_{which}_{name}", "grid": [P, Q, I, J], "unmasked_tiles": live,
           "err": err, "tol": tol, "masked_untouched": untouched, "kernel_ms": row["ms"],
           "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
-          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+          **rate(2 * NB ** 3 * live, row)})
     del t, loc
     torch.cuda.empty_cache()
     return row
+
+
+EDGE_NB = (1, 7, 33, 100, 129, 200)  # ragged against both CTA blocks; 100 and 200 whole vectors
+
+
+def buffer_view(shape, dtype, seed, off, torch, scale=1.0):
+    """randn of ``shape`` in a fresh buffer, starting ``off`` elements into
+    it: off 0 is 16-byte aligned, off 1 is not (the element copies)."""
+    buf = torch.empty(math.prod(shape) + off, dtype=dtype, device="cuda")
+    v = buf[off:].view(shape)
+    v.copy_(randn(shape, dtype, seed, torch, scale))
+    return v
+
+
+def finite_max(*xs):
+    """The largest |x| over the finite entries of xs (0 if none)."""
+    return max(float(x.abs().nan_to_num(0.0, 0.0, 0.0).max()) for x in xs)
+
+
+def tile_mma_edges_phase(kernels, testing, torch):
+    """The tile-GEMM core (csrc/tile_mma.cuh) at ragged nb, in both load
+    forms: for each dtype, nb in EDGE_NB and a view at offset 0 (16-byte
+    copies where nb allows) and 1 element (element copies), the three
+    update modes and the three panel-solve launch forms (mode set with a
+    shared operand) against their twins within gemm_tol; masked tiles
+    holding NaN come back bitwise, a NaN row reaches exactly the outputs the
+    twin's does; ft_summa_update against its twin (ft_summa_check) and
+    bitwise equal across two launches."""
+    t0 = time.perf_counter()
+    worst, loads, cases = 0.0, {"16-byte": 0, "element": 0}, 0
+    for dt in (torch.float32, torch.float64):
+        eps = torch.finfo(dt).eps
+        for nb in EDGE_NB:
+            for off in (0, 1):
+                tag = f"{dname(dt)} nb={nb} off={off}"
+                seed = SEED + 300 + nb + 7 * off
+                c = buffer_view((P, Q, 2, 3, nb, nb), dt, seed, off, torch)
+                pan = buffer_view((P, 1, 2, nb, nb), dt, seed + 1, off, torch, 0.5)
+                rhs = buffer_view((1, Q, 3, nb, nb), dt, seed + 2, off, torch, 0.5)
+                pan[0, 0, 0, min(3, nb - 1), 0] = float("nan")
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                mask = torch.rand((P, Q, 2, 3), generator=g, device="cuda") < 0.6
+                c[~mask] = float("nan")
+                for x in (pan, rhs):
+                    loads["16-byte" if kernels._load16(x, nb) else "element"] += 1
+                for which in ("summa_update", "chol_trailing_update", "lu_trailing_update"):
+                    run, plain, _, _ = update_calls(which, kernels, pan, rhs, mask, torch)
+                    before = c.clone()
+                    run(c)
+                    torch.cuda.synchronize()
+                    got = c.clone()
+                    c.copy_(before)
+                    plain(c)
+                    want = c.clone()
+                    c.copy_(before)
+                    check(torch.equal(got.isnan(), want.isnan()),
+                          f"edges {which} {tag}: NaN masks differ")
+                    fin = want.isfinite()
+                    tol = gemm_tol(nb, eps, finite_max(pan), float(rhs.abs().max()),
+                                   max(finite_max(before), finite_max(want)))
+                    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+                    check(err <= tol, f"edges {which} {tag}: {err} (tol {tol})")
+                    worst = max(worst, err / tol)
+                    if which != "summa_update":
+                        bits = torch.int32 if dt == torch.float32 else torch.int64
+                        check(torch.equal(got[~mask].view(bits), before[~mask].view(bits)),
+                              f"edges {which} {tag}: a masked tile moved")
+                    cases += 1
+                # mode set, one operand shared through stride 0: the three
+                # panel solves' launch forms (A_i X^T, A_i X, X A_j)
+                tiles = buffer_view((P, 1, 3, nb, nb), dt, seed + 3, off, torch)
+                x = buffer_view((nb, nb), dt, seed + 4, off, torch)
+                x3 = x[None, None, None]
+                for form, out_shape, a, b, trans, want in (
+                        ("a_xt", (P, 1, 3, 1, nb, nb), tiles, x3, True, tiles @ x.T),
+                        ("a_x", (P, 1, 3, 1, nb, nb), tiles, x3, False, tiles @ x),
+                        ("x_a", (P, 1, 1, 3, nb, nb), x3, tiles, False, x @ tiles)):
+                    out = torch.full(out_shape, float("nan"), dtype=dt, device="cuda")
+                    kernels._tile_gemm(out, a, b, None, trans_b=trans, mode=kernels._MODE_SET,
+                                       who=f"edges {form}")
+                    torch.cuda.synchronize()
+                    got = out[:, :, :, 0] if form != "x_a" else out[:, :, 0]
+                    tol = gemm_tol(nb, eps, float(tiles.abs().max()), float(x.abs().max()),
+                                   float(want.abs().max()))
+                    err = float((got - want).abs().max())
+                    check(err <= tol, f"edges {form} {tag}: {err} (tol {tol})")
+                    worst = max(worst, err / tol)
+                    cases += 1
+                # the ABFT step: against its twin, and bitwise across launches
+                acc = buffer_view((P, Q, 3, 2, nb, nb), dt, seed + 5, off, torch, 10.0)
+                fpan = buffer_view((P, 1, 3, nb, nb), dt, seed + 6, off, torch)
+                urow = buffer_view((1, Q, 2, nb, nb), dt, seed + 7, off, torch)
+                part = buffer_view((P, Q, 2, 2, nb, nb), dt, seed + 8, off, torch, 100.0)
+                w1 = torch.tensor([1.0, 1.0, 0.0], dtype=dt, device="cuda").view(1, 1, 3)
+                w2 = w1 * torch.arange(1, 4, dtype=dt, device="cuda")
+                one = kernels.ft_summa_update(acc.clone(), fpan, urow, w1, w2, part.clone())
+                two = kernels.ft_summa_update(acc.clone(), fpan, urow, w1, w2, part.clone())
+                torch.cuda.synchronize()
+                check(torch.equal(one[0], two[0]) and torch.equal(one[1], two[1]),
+                      f"edges ft_summa_update {tag}: two launches differ")
+                want = kernels.ft_summa_update_plain(acc.clone(), fpan, urow, w1, w2, part.clone())
+                readings = testing.ft_summa_check(acc, fpan, urow, w1, w2, part, one, want)
+                check(all(v <= 1 for v in readings.values()),
+                      f"edges ft_summa_update {tag}: {readings}")
+                worst = max(worst, *readings.values())
+                cases += 1
+    check(loads["16-byte"] and loads["element"], f"edges: a load form went untested {loads}")
+    emit({"phase": "tile_mma_edges", "nb": list(EDGE_NB), "cases": cases, "loads": loads,
+          "worst_ratio": worst, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
 
 COUNTED = ("chol_diag_inv", "chol_panel_tiles", "chol_trailing_update", "summa_update",
@@ -1016,11 +1190,16 @@ def kernel_lu_panel_phase(dtype, kernels, local_view, torch):
         row = row_of(kname, dtype, "slate_tpu_torch/csrc/lu_diag_inv.cu", replaces, err, ms,
                      plain_ms, library_ms, nbytes, flops)
         rows.append(row)
+        if kname == "lu_panel_tiles":
+            tile_ms = tile_half_ms(kernels, pcol, uk, False, False, torch)
+        else:
+            tile_ms = tile_half_ms(kernels, prow, kernels.unit_linv_plain(lk), False, True, torch)
         emit({"phase": f"kernel_{kname}_{name}", "tiles": list(tiles.shape),
               "err_solved": err_s if kname == "lu_panel_tiles" else err_r,
               "tol_solved": tol_s if kname == "lu_panel_tiles" else tol_r,
               "max_abs_solved": smax if kname == "lu_panel_tiles" else rmax,
               **(fac if kname == "lu_panel_tiles" else {"edges": edges}), "kernel_ms": ms,
+              "tile_ms": tile_ms,
               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": row["bound_ms"],
               "bound_by": row["bound_by"]})
     del t, loc, pcol, prow
@@ -1590,7 +1769,7 @@ def kernel_ft_summa_phase(dtype, kernels, testing, local_indices, torch):
     emit({"phase": f"kernel_ft_summa_{name}", "grid": [P, Q, mtl, ntl], "nb": NB,
           "readings": readings, "mutant_readings": mutants, "max_abs_err": err,
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]})
+          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], **rate(flops, row)})
     del acc, part, a2, p2
     torch.cuda.empty_cache()
     return row
@@ -2578,7 +2757,8 @@ def ladder_kernels_phase(kernels, caps, summa_launches, torch):
                                    "brow": list(brow.shape), "tiles": live, "err": err, "tol": tol,
                                    "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
                                    "library_ms": row["library_ms"], "bound_ms": row["bound_ms"],
-                                   "launches": summa_launches}
+                                   "launches": summa_launches,
+                                   **rate(2 * acc.shape[-1] ** 3 * live, row)}
     del acc, acol, brow
     cap = caps["chol_panel_tiles"]
     check(cap.args is not None, "ladder: no f32 chol_panel_tiles call captured")
@@ -2830,6 +3010,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "slate_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (slate_tpu_torch/ missing)",
@@ -2859,6 +3040,11 @@ def main():
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(_build.load, names))
     emit({"phase": "build", "sources": names, "seconds": time.perf_counter() - t0})
+    ptxas = {name: ptxas_report(_build.log_path(name)) for name in names}
+    emit({"phase": "ptxas", "kernels": ptxas})
+    for name in ("tile_gemm", "ft_summa_update"):
+        spills = {k: v["spill_bytes"] for k, v in ptxas[name].items() if v["spill_bytes"]}
+        check(ptxas[name] and not spills, f"ptxas: {name} spills {spills}")
 
     # 3. kernel vs twin
     rows = [kernel_phase(dt, kernels, torch) for dt in (torch.float32, torch.float64)]
@@ -2877,6 +3063,7 @@ def main():
             "chol_trailing_update", dt, kernels, mp.local_view, local_indices, torch)
     mesh_rows[("summa_update", torch.float32)] = kernel_update_phase(
         "summa_update", torch.float32, kernels, mp.local_view, local_indices, torch)
+    tile_mma_edges_phase(kernels, testing, torch)
 
     # 9-11. the mesh paths; every count is read right after its path
     counts = {dt: mesh_posv_phase(dt, kernels, mp, bucket_plan, torch)
@@ -2971,7 +3158,8 @@ def main():
     # 36. the dryrun
     dryrun_phase()
 
-    # 37. kernels line, card line, result
+    # 37. the script's seconds, kernels line, card line, result
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
 // ft_summa_update.cu -- one step of the checksum-carrying (ABFT) SUMMA over the
-// local tile stacks of a virtual (p, q) mesh, for Hopper (sm_90a).
+// local tile stacks of a virtual (p, q) mesh, for Hopper (sm_90a), on the
+// shared mainloop of tile_mma.cuh.
 //
 // Replaces slate_tpu/ops/pallas_ops.py:819 ft_summa_update_pallas (its
 // pallas_call at :858), the consume step of slate_tpu/ft/abft.py's
@@ -24,46 +25,46 @@
 // written (0.7 ms at 3.35 TB/s).  The weighted sums add 4 flops per output
 // element, nb^2 per tile: 1/nb of the products.
 //
-// Design (simple and right first).  The Pallas kernel runs a (J, I) grid in
-// order and carries the partial sums across the sequential i axis in VMEM
-// scratch; CTAs on this card run in no order, so that carry is not ported.
-// Instead one CTA of 256 threads owns one 64 x 64 block of one (r, c, j)
-// output column of tiles and loops over i = 0 .. I-1 in order: for each i it
-// computes the block of pan[i] @ urow[j] into registers (16-deep k-chunks of
-// both operands staged through shared memory, 4 x 4 outputs per thread, one
-// FMA per product in k order -- FFMA / DFMA, no TF32, as the Pallas kernel
-// runs precision=HIGHEST), adds it to acc[i, j], and adds w_0[i] * upd and
-// w_1[i] * upd to two more 4 x 4 register accumulators (a rounded multiply,
-// then a rounded add, as the Pallas kernel's wu = w * upd; psum += wu).  After
-// the loop it adds the two accumulators to part[:, j].  No atomics: every
+// Design.  The Pallas kernel runs a (J, I) grid in order and carries the
+// partial sums across the sequential i axis in VMEM scratch; CTAs on this card
+// run in no order, so one CTA owns one BM x BN block of one (r, c, j) output
+// column of tiles and loops over i = 0 .. I-1 in order, with tile_mma::run
+// streaming the I products as one sequence of k-chunks (the header's note).
+// After product i it adds upd to acc[i, j] and w_s[i] * upd to s_s (a
+// rounded multiply, then a rounded add, as the Pallas kernel's wu = w * upd;
+// psum += wu), while product i + 1's first chunks are already in flight;
+// after the loop it adds s_0 and s_1 to part[:, j].  No atomics: every
 // element's sums run in a fixed order, so results are deterministic and the
-// same at every lookahead depth.  At the f32 n = 16384 step that is
-// 2 * 4 * 17 * 16 = 2,176 CTAs, enough to fill 132 SMs.  Register cost: three
-// 4 x 4 accumulators per thread (48 KB per CTA in f32, 96 KB in f64), inside
-// the 255-register limit; `nvcc -Xptxas -v` reports the count.  What it
-// leaves on the table: the tensor cores (wgmma), TMA and a multi-stage
-// pipeline, keeping urow[j]'s 64-column slab in shared memory across the i
-// loop (it is re-read from L2 for every i), and register blocking beyond 4 x 4.
+// same at every lookahead depth.  s_0 and s_1 live in shared memory, each
+// thread's own elements at [e * threads + tid] (no bank conflict, no
+// barrier): three 8 x 8 f32 register sets would need 192 registers.  They
+// take 2 BM BN elements, so the block is narrower than tile_gemm's in f32:
+// 128 x 64 (8 x 4 FFMA accumulators a thread; 45 KB of ring + 64 KB of sums,
+// two CTAs an SM, faster on an H100 than 128 x 128 at one); f64 64 x 64 on m16n8k16
+// DMMA with a two-stage ring (40 KB + 64 KB, two CTAs).  urow[j]'s K x BN
+// slab is re-read from L2 for every i (keeping it resident would take the
+// room of the sums).  CTAs: 2 * 4 * 17 * 8 = 1,088 at the f32 step, 2 * 4 *
+// 9 * 16 = 1,152 at the f64 one.  nvcc 12.9 -Xptxas -v (sm_90a): 128 (f32)
+// / 184 (f64) registers, no spill (chip_smoke.py prints it from the build
+// log and fails on a spill).
 //
 // C interface (ctypes): ft_summa_update_f32 / ft_summa_update_f64(pan, urow,
-// acc, w1, w2, part, geom, stream); geom points to 33 int64 host values
+// acc, w1, w2, part, geom, stream); geom points to 35 int64 host values
 //   R, Q, I, J, nb, sp[5] (pan: r, q, i, row, col), su[5] (urow: r, q, j, row,
 //   col), sa[6] (acc: r, q, i, j, row, col), sw1[3] (r, q, i), sw2[3],
-//   spart[6] (part: r, q, s, j, row, col).
-// Returns cudaGetLastError() after the launch (0 on success).  No
-// synchronisation, no allocation.
+//   spart[6] (part: r, q, s, j, row, col), vec_p, vec_u
+// (vec_p / vec_u: pan / urow may be loaded 16 bytes at a time, the wrapper's
+// predicate).  Returns the first CUDA error of setting the shared-memory
+// limit or of the launch (0 on success).  No synchronisation, no allocation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;             // output sub-block per CTA
-constexpr int BK = 16;             // k-chunk through shared memory
-constexpr int TM = 4;              // outputs per thread per dim
-constexpr int TD = BM / TM;        // 16 threads per dim
-constexpr int kThreads = TD * TD;  // 256
-constexpr int kGeom = 33;
+constexpr int kGeom = 35;
 
 struct Geom {
   int64_t R, Q, I, J, nb;
@@ -73,120 +74,113 @@ struct Geom {
   int64_t sw1[3];
   int64_t sw2[3];
   int64_t spart[6];
+  int vec_p, vec_u;
 };
 
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__host__ __device__ inline int nsub(int64_t nb, int blk) {
+  return static_cast<int>((nb + blk - 1) / blk);
+}
+
+// The block: f32 128 x 64 (kFtBN), so the two running sums (64 KB) and a
+// three-stage ring (45 KB) leave room for two CTAs on an SM; f64 64 x 64
+// with a two-stage ring (40 KB + 64 KB of sums, two CTAs; three stages and
+// one CTA ran slower).
+template <typename T>
+struct Ft {
+  using Blk = tile_mma::Cfg<T, tile_mma::kFtBN>;
+  static constexpr int kStages = Blk::kStages;
+  static constexpr size_t kSmem =
+      tile_mma::ring_bytes<Blk>(kStages) + 2 * sizeof(T) * Blk::kAcc * Blk::kThreads;
+};
+
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Ft<T>::Blk::kThreads, 2)
 ft_summa_update_kernel(const T* __restrict__ P, const T* __restrict__ U, T* A,
                        const T* __restrict__ W1, const T* __restrict__ W2, T* S, Geom g) {
-  const int64_t nsub = (g.nb + BM - 1) / BM;
+  using Cf = typename Ft<T>::Blk;
+  constexpr int NT = Cf::kThreads, NA = Cf::kAcc, ST = Ft<T>::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  // s_0 at [e NT + tid], s_1 at [(NA + e) NT + tid]
+  T* sums = ring + ST * tile_mma::Lay<Cf>::kStage;
+  const int sm_ = nsub(g.nb, Cf::kBM), sn = nsub(g.nb, Cf::kBN);
   int64_t t = blockIdx.x;
-  const int64_t sub = t % (nsub * nsub);
-  t /= nsub * nsub;
+  const int sub = static_cast<int>(t % (sm_ * sn));
+  t /= sm_ * sn;
   const int64_t j = t % g.J;
   t /= g.J;
   const int64_t q = t % g.Q;
   const int64_t r = t / g.Q;
 
-  const int64_t m0 = (sub / nsub) * BM, n0 = (sub % nsub) * BM;
-  const T* u = U + r * g.su[0] + q * g.su[1] + j * g.su[2];
-  const T* w1 = W1 + r * g.sw1[0] + q * g.sw1[1];
-  const T* w2 = W2 + r * g.sw2[0] + q * g.sw2[1];
-
-  __shared__ T Ps[BK][BM + 1];  // Ps[k][m] = pan[i](m0 + m, k0 + k)
-  __shared__ T Us[BK][BM + 1];  // Us[k][n] = urow[j](k0 + k, n0 + n)
-  const int tid = threadIdx.x;
-  const int tx = tid % TD, ty = tid / TD;
-
-  T s1[TM][TM], s2[TM][TM];
-#pragma unroll
-  for (int x = 0; x < TM; ++x)
-#pragma unroll
-    for (int y = 0; y < TM; ++y) s1[x][y] = s2[x][y] = T(0);
-
-  for (int64_t i = 0; i < g.I; ++i) {
-    const T* p = P + r * g.sp[0] + q * g.sp[1] + i * g.sp[2];
-    T upd[TM][TM];
-#pragma unroll
-    for (int x = 0; x < TM; ++x)
-#pragma unroll
-      for (int y = 0; y < TM; ++y) upd[x][y] = T(0);
-
-    for (int64_t k0 = 0; k0 < g.nb; k0 += BK) {
-#pragma unroll
-      for (int s = 0; s < BM * BK / kThreads; ++s) {
-        const int e = tid + s * kThreads;
-        // pan: neighbouring threads on neighbouring k (a tile row is contiguous)
-        const int pm = e / BK, pk = e % BK;
-        const int64_t gm = m0 + pm, gk = k0 + pk;
-        Ps[pk][pm] = (gm < g.nb && gk < g.nb) ? p[gm * g.sp[3] + gk * g.sp[4]] : T(0);
-        // urow: neighbouring threads on neighbouring columns
-        const int uk = e / BM, un = e % BM;
-        const int64_t hk = k0 + uk, hn = n0 + un;
-        Us[uk][un] = (hk < g.nb && hn < g.nb) ? u[hk * g.su[3] + hn * g.su[4]] : T(0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        T av[TM], bv[TM];
-#pragma unroll
-        for (int x = 0; x < TM; ++x) {
-          av[x] = Ps[kk][ty + TD * x];
-          bv[x] = Us[kk][tx + TD * x];
-        }
-#pragma unroll
-        for (int x = 0; x < TM; ++x)
-#pragma unroll
-          for (int y = 0; y < TM; ++y) upd[x][y] = fma_rn(av[x], bv[y], upd[x][y]);
-      }
-      __syncthreads();
-    }
-
-    const T wi1 = w1[i * g.sw1[2]], wi2 = w2[i * g.sw2[2]];
-    T* a = A + r * g.sa[0] + q * g.sa[1] + i * g.sa[2] + j * g.sa[3];
-#pragma unroll
-    for (int x = 0; x < TM; ++x) {
-      const int64_t gm = m0 + ty + TD * x;
-#pragma unroll
-      for (int y = 0; y < TM; ++y) {
-        const int64_t gn = n0 + tx + TD * y;
-        if (gm < g.nb && gn < g.nb) {
-          T* out = a + gm * g.sa[4] + gn * g.sa[5];
-          *out = add_rn(*out, upd[x][y]);
-        }
-        s1[x][y] = add_rn(s1[x][y], mul_rn(wi1, upd[x][y]));
-        s2[x][y] = add_rn(s2[x][y], mul_rn(wi2, upd[x][y]));
-      }
-    }
+  const int nb = static_cast<int>(g.nb);
+  const int m0 = (sub / sn) * Cf::kBM, n0 = (sub % sn) * Cf::kBN;
+  // operands and outputs in shared memory, read where they are used (the
+  // registers go to the products)
+  __shared__ tile_mma::Desc<T> desc;
+  __shared__ T* outs[2];  // acc[r, c, 0, j], part[r, c, 0, j]
+  __shared__ const T* ws[2];
+  if (threadIdx.x == 0) {
+    desc = {P + r * g.sp[0] + q * g.sp[1], g.sp[2], g.sp[3], g.sp[4],
+            U + r * g.su[0] + q * g.su[1] + j * g.su[2], g.su[3], g.su[4], g.vec_p, g.vec_u};
+    outs[0] = A + r * g.sa[0] + q * g.sa[1] + j * g.sa[3];
+    outs[1] = S + r * g.spart[0] + q * g.spart[1] + j * g.spart[3];
+    ws[0] = W1 + r * g.sw1[0] + q * g.sw1[1];
+    ws[1] = W2 + r * g.sw2[0] + q * g.sw2[1];
   }
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < 2 * NA; ++e) sums[e * NT + tid] = T(0);
+  __syncthreads();
 
-  T* s0 = S + r * g.spart[0] + q * g.spart[1] + j * g.spart[3];
+  tile_mma::run<Cf, false, ST, true>(
+      ring, desc, nb, m0, n0, static_cast<int>(g.I),
+      [&](int i, T(&upd)[NA], const tile_mma::Frag<Cf, false>& f) {
+        const T wi1 = ws[0][i * g.sw1[2]], wi2 = ws[1][i * g.sw2[2]];
+        T* a = outs[0] + i * g.sa[2];
+        const int64_t ar = g.sa[4], ac = g.sa[5];
+        // three passes with compiler barriers between them: in one, the
+        // loads of acc and both sums were all in flight together and the
+        // f32 form spilled at the 128-register bound
 #pragma unroll
-  for (int x = 0; x < TM; ++x) {
-    const int64_t gm = m0 + ty + TD * x;
-    if (gm >= g.nb) continue;
+        for (int e = 0; e < NA; ++e) {
+          const int gm = m0 + f.row(e), gn = n0 + f.col(e);
+          if (gm < nb && gn < nb) {
+            T* out = a + gm * ar + gn * ac;
+            *out = add_rn(*out, upd[e]);
+          }
+        }
+        asm volatile("" ::: "memory");
 #pragma unroll
-    for (int y = 0; y < TM; ++y) {
-      const int64_t gn = n0 + tx + TD * y;
-      if (gn >= g.nb) continue;
-      T* o1 = s0 + gm * g.spart[4] + gn * g.spart[5];
-      T* o2 = o1 + g.spart[2];
-      *o1 = add_rn(*o1, s1[x][y]);
-      *o2 = add_rn(*o2, s2[x][y]);
-    }
+        for (int e = 0; e < NA; ++e)
+          sums[e * NT + tid] = add_rn(sums[e * NT + tid], mul_rn(wi1, upd[e]));
+        asm volatile("" ::: "memory");
+#pragma unroll
+        for (int e = 0; e < NA; ++e)
+          sums[(NA + e) * NT + tid] = add_rn(sums[(NA + e) * NT + tid], mul_rn(wi2, upd[e]));
+      });
+
+  const tile_mma::Frag<Cf, false> f;
+  T* part = outs[1];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) {
+    const int gm = m0 + f.row(e), gn = n0 + f.col(e);
+    if (gm >= nb || gn >= nb) continue;
+    T* o1 = part + gm * g.spart[4] + gn * g.spart[5];
+    T* o2 = o1 + g.spart[2];
+    *o1 = add_rn(*o1, sums[e * NT + tid]);
+    *o2 = add_rn(*o2, sums[(NA + e) * NT + tid]);
   }
 }
 
 template <typename T>
 int launch(const void* pan, const void* urow, void* acc, const void* w1, const void* w2,
            void* part, const long long* geom, void* stream) {
+  using Cf = typename Ft<T>::Blk;
   Geom g;
   const long long* v = geom;
   g.R = v[0]; g.Q = v[1]; g.I = v[2]; g.J = v[3]; g.nb = v[4];
@@ -196,12 +190,18 @@ int launch(const void* pan, const void* urow, void* acc, const void* w1, const v
   for (int d = 0; d < 3; ++d) g.sw1[d] = v[21 + d];
   for (int d = 0; d < 3; ++d) g.sw2[d] = v[24 + d];
   for (int d = 0; d < 6; ++d) g.spart[d] = v[27 + d];
-  if (g.nb < 1 || g.I < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long nsub = (g.nb + BM - 1) / BM;
-  const long long blocks = g.R * g.Q * g.J * nsub * nsub;
+  g.vec_p = static_cast<int>(v[33]);
+  g.vec_u = static_cast<int>(v[34]);
+  if (g.nb < 1 || g.nb > 0x7fffffffLL || g.I < 0 || g.I > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks =
+      g.R * g.Q * g.J * nsub(g.nb, Cf::kBM) * static_cast<long long>(nsub(g.nb, Cf::kBN));
   if (blocks == 0 || g.I == 0) return 0;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  ft_summa_update_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+  constexpr size_t smem = Ft<T>::kSmem;
+  cudaError_t err = tile_mma::allow_smem<ft_summa_update_kernel<T>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ft_summa_update_kernel<T><<<static_cast<unsigned>(blocks), Cf::kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(pan), static_cast<const T*>(urow), static_cast<T*>(acc),
       static_cast<const T*>(w1), static_cast<const T*>(w2), static_cast<T*>(part), g);

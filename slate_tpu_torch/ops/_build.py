@@ -4,7 +4,10 @@ Each ``slate_tpu_torch/csrc/<name>.cu`` has a plain C interface (no PyTorch
 headers), so ``nvcc`` builds it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
+
+The compiler's output (``-Xptxas -v``: each kernel's registers, spills and
+static shared memory) is kept beside the library as ``<name>-<hash>.log``.
 
 The library name carries a hash of the source, of every ``csrc`` header it
 includes (``#include "<header>"``, followed recursively) and of the flags, so
@@ -33,7 +36,7 @@ CUDA_DIRS: List[str] = [
 ]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -91,6 +94,11 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def log_path(name: str) -> str:
+    """The compiler's output for csrc/<name>.cu, written by its build."""
+    return _lib_path(name)[:-3] + ".log"
+
+
 def _build(name: str) -> None:
     out = _lib_path(name)
     if os.path.exists(out):
@@ -101,6 +109,8 @@ def _build(name: str) -> None:
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed on csrc/{name}.cu (rc={proc.returncode}):\n{proc.stdout}")
+    with open(log_path(name), "w") as f:
+        f.write(proc.stdout)
     os.replace(out + ".tmp", out)
 
 

@@ -303,6 +303,24 @@ def _check_block(who: str, a: torch.Tensor) -> None:
                          f"got {tuple(a.shape)}")
 
 
+def load16(shape, strides, ptr: int, itemsize: int, nb: int) -> bool:
+    """Whether the tile-GEMM core (``csrc/tile_mma.cuh``) may load an
+    operand of nb x nb tiles 16 bytes at a time: its last index has stride
+    1, the stride of every other dim longer than 1 is a multiple of 16
+    bytes, its base ``ptr`` is 16-byte aligned and nb is a multiple of the
+    16-byte vector, so every copy is whole and aligned.  Otherwise the
+    kernel copies one element at a time.  A pure function of the view,
+    decided once per launch and operand."""
+    vec = 16 // itemsize
+    if nb % vec or ptr % 16 or strides[-1] != 1:
+        return False
+    return all(s % vec == 0 for d, s in zip(shape[:-1], strides[:-1]) if d > 1)
+
+
+def _load16(t: torch.Tensor, nb: int) -> int:
+    return int(load16(t.shape, t.stride(), t.data_ptr(), t.element_size(), nb))
+
+
 def _tile_gemm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, mask: Optional[torch.Tensor],
                trans_b: bool, mode: int, who: str) -> None:
     """One launch of the tile-GEMM over strided views: ``c`` is (R, Q, I, J,
@@ -326,8 +344,9 @@ def _tile_gemm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, mask: Optional
     except RuntimeError as e:
         raise ValueError(f"{who}: operand shapes do not broadcast to the tile grid: {e}") from e
     sm = mask.stride() if mask is not None else (0, 0, 0, 0)
-    geom = (ctypes.c_longlong * 28)(R, Q, I, J, nb, *a.stride(), *b.stride(), *c.stride(), *sm,
-                                    int(trans_b), mode, int(mask is not None))
+    geom = (ctypes.c_longlong * 30)(R, Q, I, J, nb, *a.stride(), *b.stride(), *c.stride(), *sm,
+                                    int(trans_b), mode, int(mask is not None),
+                                    _load16(a, nb), _load16(b, nb))
     fn = _tile_gemm_fn(c.dtype)
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -920,8 +939,9 @@ def ft_summa_update(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
         w2 = w2.expand(R, Q, I)
     except RuntimeError as e:
         raise ValueError(f"{who}: operand shapes do not broadcast to the tile grid: {e}") from e
-    geom = (ctypes.c_longlong * 33)(R, Q, I, J, nb, *pan.stride(), *urow.stride(), *acc.stride(),
-                                    *w1.stride(), *w2.stride(), *part.stride())
+    geom = (ctypes.c_longlong * 35)(R, Q, I, J, nb, *pan.stride(), *urow.stride(), *acc.stride(),
+                                    *w1.stride(), *w2.stride(), *part.stride(),
+                                    _load16(pan, nb), _load16(urow, nb))
     fn = _ft_summa_fn(acc.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -928,3 +928,104 @@ def test_mixed_ladder_on_the_card(card):
     c4 = counts()
     assert {k: c3[k] - c2[k] for k in names} == {k: c4[k] - c3[k] for k in names}
     assert torch.equal(x_off, x_pl)
+
+
+# ---------------------------------------------------------------------------
+# the tile-GEMM core (csrc/tile_mma.cuh) of tile_gemm.cu and
+# ft_summa_update.cu, over nb, in both load forms: views at offset 0 take the
+# 16-byte copies where nb is a multiple of the vector, views one element off
+# the element copies (the wrappers' load16 predicate)
+# ---------------------------------------------------------------------------
+
+TILE_NBS = [1, 7, 8, 31, 33, 100, 127, 128, 129, 200, 256]
+
+
+def _at(shape, dtype, seed, off, scale=1.0):
+    """randn of ``shape`` in a fresh buffer, ``off`` elements into it."""
+    buf = torch.empty(math.prod(shape) + off, dtype=dtype, device="cuda")
+    v = buf[off:].view(shape)
+    v.copy_(_randn(shape, dtype, seed, scale))
+    return v
+
+
+def _finite_max(x):
+    return float(x.abs().nan_to_num(0.0, 0.0, 0.0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("nb", TILE_NBS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_gemm_modes_match_twins_over_nb(card, dtype, nb, off):
+    """summa_update (+=), chol_trailing_update (-=, B^T, mask) and
+    lu_trailing_update (-=, mask) against their twins within the tile-update
+    tolerance; masked tiles holding NaN come back bitwise, and a NaN in a
+    panel reaches exactly the outputs it reaches in the twin.  Then mode
+    set with a shared operand through stride 0 (the three panel solves'
+    launch forms: A_i X^T, A_i X, X A_j)."""
+    c = _at((2, 4, 2, 3, nb, nb), dtype, nb, off)
+    pan = _at((2, 1, 2, nb, nb), dtype, nb + 1, off, 0.5)
+    rhs = _at((1, 4, 3, nb, nb), dtype, nb + 2, off, 0.5)
+    vec = 16 // c.element_size()
+    assert bool(tk._load16(pan, nb)) == bool(tk._load16(rhs, nb)) == (off == 0 and nb % vec == 0)
+    pan[0, 0, 0, min(3, nb - 1), 0] = float("nan")
+    mask = torch.rand((2, 4, 2, 3), generator=torch.Generator(device="cuda").manual_seed(nb),
+                      device="cuda") < 0.6
+    c[~mask] = float("nan")
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    for name, run, plain in (
+            ("summa_update", lambda v: tk.summa_update(v, pan, rhs),
+             lambda v: tk.summa_update_plain(v, pan, rhs)),
+            ("chol_trailing_update", lambda v: tk.chol_trailing_update(v, pan, rhs, mask),
+             lambda v: tk.chol_trailing_update_plain(v, pan, rhs, mask)),
+            ("lu_trailing_update", lambda v: tk.lu_trailing_update(v, pan, rhs, mask),
+             lambda v: tk.lu_trailing_update_plain(v, pan, rhs, mask))):
+        got = c.clone()
+        run(got)
+        torch.cuda.synchronize()
+        want = plain(c.clone())
+        assert torch.equal(got.isnan(), want.isnan()), name
+        fin = want.isfinite()
+        tol = (8 * math.sqrt(nb) * _eps(dtype) * _finite_max(pan) * float(rhs.abs().max())
+               + 2 * _eps(dtype) * max(_finite_max(c), _finite_max(want)))
+        assert float((got[fin] - want[fin]).abs().max()) <= tol, name
+        if name != "summa_update":
+            assert torch.equal(got[~mask].view(bits), c[~mask].view(bits)), name
+    tiles = _at((2, 1, 3, nb, nb), dtype, nb + 3, off)
+    x = _at((nb, nb), dtype, nb + 4, off)
+    for trans, shape, a, b, want in (
+            (True, (2, 1, 3, 1, nb, nb), tiles, x[None, None, None], tiles @ x.T),
+            (False, (2, 1, 3, 1, nb, nb), tiles, x[None, None, None], tiles @ x),
+            (False, (2, 1, 1, 3, nb, nb), x[None, None, None], tiles, x @ tiles)):
+        out = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+        tk._tile_gemm(out, a, b, None, trans_b=trans, mode=tk._MODE_SET, who="set")
+        torch.cuda.synchronize()
+        got = out[:, :, :, 0] if shape[2] == 3 else out[:, :, 0]
+        tol = (8 * math.sqrt(nb) * _eps(dtype) * float(tiles.abs().max()) * float(x.abs().max())
+               + 2 * _eps(dtype) * float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("nb", TILE_NBS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ft_summa_update_over_nb_is_deterministic(card, dtype, nb, off):
+    """ft_summa_update against its twin (ft_summa_check), and two launches
+    bitwise equal: the in-order loop over i and the fixed k order leave no
+    room for a run-to-run difference."""
+    from slate_tpu_torch.utils.testing import ft_summa_check
+
+    acc = _at((2, 4, 3, 2, nb, nb), dtype, nb, off, 10.0)
+    pan = _at((2, 1, 3, nb, nb), dtype, nb + 1, off)
+    urow = _at((1, 4, 2, nb, nb), dtype, nb + 2, off)
+    part = _at((2, 4, 2, 2, nb, nb), dtype, nb + 3, off, 100.0)
+    w1 = torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device="cuda").view(1, 1, 3)
+    w2 = w1 * torch.arange(1, 4, dtype=dtype, device="cuda")
+    one = tk.ft_summa_update(acc.clone(), pan, urow, w1, w2, part.clone())
+    two = tk.ft_summa_update(acc.clone(), pan, urow, w1, w2, part.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    want = tk.ft_summa_update_plain(acc.clone(), pan, urow, w1, w2, part.clone())
+    readings = ft_summa_check(acc, pan, urow, w1, w2, part, one, want)
+    assert all(v <= 1 for v in readings.values()), readings

@@ -130,10 +130,13 @@ def test_library_name_hashes_the_included_headers(monkeypatch, tmp_path):
     assert second != first
     (tmp_path / "k.cu").write_text('#include "outer.cuh"\n// edited\n')
     assert _build._lib_path("k") not in (first, second)
-    # the shipped sources: both diagonal-block kernels hash the shared header
+    # the shipped sources: both diagonal-block kernels hash their shared
+    # header, both tile-GEMM kernels theirs
     monkeypatch.undo()
     for name in ("chol_diag_inv", "lu_diag_inv"):
         assert _build._sources(name) == [f"{name}.cu", "diag_block.cuh"]
+    for name in ("tile_gemm", "ft_summa_update"):
+        assert _build._sources(name) == [f"{name}.cu", "tile_mma.cuh"]
 
 
 def _chip_smoke():
