@@ -72,8 +72,10 @@ printing one JSON line before the next starts (any failure exits non-zero):
    qr_panel at the gels leaf (32768, 64) f32 / (16384, 64) f64 and the mesh
    merge (512, 256), qr_panel_offset on a batch with row0 at 0, a middle
    and the last tile and a zero column, and timed on the mesh path's batch
-   of p panels, with library (torch.geqrf, which gives VR and tau but no T)
-   and the bound;
+   of p panels, with library (torch.geqrf, which gives VR and tau but no T),
+   the bound and the barrier floor (w times one empty panel barrier at the
+   launch's grid); then both kernels at the edge shapes of
+   utils.testing.qr_edge_plain / QR_EDGE_OFFSET (kernel_qr_edges);
 17. gels: gels_array (MethodGels.QR, 32 right-hand sides) f32 at
    m = 32768, n = 16384 and f64 at m = 16384, n = 8192: the
    normal-equations gate of tester.py's run_gels and the componentwise one
@@ -1379,6 +1381,7 @@ GELS_MN = {"float32": (32768, 16384), "float64": (16384, 8192)}
 QR_LEAF_W = 64  # linalg.qr._QR_PANEL, the width of geqrf_array's leaves
 QR_RECON_MN = (8192, 4096)
 QR_WARMUP_MN = (2048, 1024)
+GELS_REPEATS = 2  # timed solves after the counted one
 
 
 def qr_mutants_fail(a, got, want, offset, row0, testing):
@@ -1396,6 +1399,76 @@ def qr_bound(m, w, batch, dtype, offset):
     isz = 4 if dtype == "float32" else 8
     nbytes = batch * ((3 if offset else 2) * m * w + w + w * w) * isz
     return nbytes, batch * 3 * m * w * w
+
+
+def qr_barrier_floor(kernels, dtype, batch, m, w):
+    """The panel kernel's floor at a shape: w column exchanges (one a
+    column) and two block barriers a 32-column block, each at the measured
+    time of one empty round at the launch's grid."""
+    ex = kernels.qr_sync_ms(dtype, batch, m, w, "exchange")
+    bar = kernels.qr_sync_ms(dtype, batch, m, w, "barrier")
+    return {"floor_ms": w * ex + 2 * -(-w // 32) * bar, "exchange_ms": ex, "barrier_ms": bar}
+
+
+def kernel_qr_edges_phase(kernels, testing, torch):
+    """Both QR kernels against their twins at the edge shapes of
+    utils.testing (widths off and at the 32-column block, m < w, m ragged
+    against the CTA rows, rows a CTA kept in global memory (an f64 panel,
+    and eight offset panels a launch in both dtypes); row0 at 0, a middle
+    row and m - w for the offset form), each shape with a -0.0 first pivot
+    and a dead (zero) column, and with columns zero only below their
+    pivots: utils.testing.qr_edge_checks (every qr_panel_check reading
+    <= 1, the mutants fail theirs where the panel has off-diagonal parts,
+    dead columns keep tau 0 and a zero pivot, rows above row0 stay as A
+    has them), and a NaN below the first pivot comes back as the twin's
+    NaN tau without a hang."""
+    t0 = time.perf_counter()
+    worst, cases = {}, 0
+
+    def one(a, got, want, offset, r0, tag, variant):
+        nonlocal cases
+        c, bad = testing.qr_edge_checks(a, got, want, offset, r0, variant)
+        check(not bad, f"qr edges {tag}: {bad} {c}")
+        for k in testing.QR_READINGS:
+            worst[k] = max(worst.get(k, 0.0), c[k])
+        cases += 1
+
+    def offset_batch(dt, m, w, r0s, variant):
+        a = torch.stack([torch.from_numpy(testing.qr_edge_panel(m, w, variant, SEED + m + i, r))
+                         for i, r in enumerate(r0s)]).to(dt).cuda()
+        got = kernels.qr_panel_offset(a, r0s)
+        torch.cuda.synchronize()
+        want = kernels.qr_panel_offset_plain(a, r0s)
+        for i, r in enumerate(r0s):
+            one(a[i], tuple(x[i] for x in got), tuple(x[i] for x in want), True, r,
+                f"offset {dname(dt)} {len(r0s)}x{m}x{w} row0 {r} {variant}", variant)
+
+    for dt in (torch.float32, torch.float64):
+        for m, w in testing.qr_edge_plain(dt):
+            for variant in testing.QR_EDGE_VARIANTS:
+                tag = f"plain {dname(dt)} {m}x{w} {variant}"
+                a = torch.from_numpy(testing.qr_edge_panel(m, w, variant, SEED + m + w)).to(dt).cuda()
+                got = kernels.qr_panel(a)
+                torch.cuda.synchronize()
+                one(a, got, kernels.qr_panel_plain(a), False, 0, tag, variant)
+        for m, w in testing.QR_EDGE_OFFSET:
+            for variant in testing.QR_EDGE_VARIANTS:
+                offset_batch(dt, m, w, testing.qr_edge_row0s(m, w), variant)
+        # eight panels a launch: a CTA's rows in global memory, f32 included
+        bsz, m, w = testing.QR_EDGE_OFFSET_GLOBAL
+        check(testing.qr_rows_in_global(kernels, dt, bsz, m, w),
+              f"qr edges {dname(dt)}: {bsz}x{m}x{w} did not take the global-memory form")
+        for variant in testing.QR_EDGE_VARIANTS:
+            offset_batch(dt, m, w, testing.qr_edge_row0s(m, w, bsz), variant)
+        # a NaN below the first pivot: every CTA's sums carry it, nothing hangs
+        a = torch.from_numpy(testing.qr_edge_panel(1000, 33, "neg0", SEED + 5)).to(dt).cuda()
+        a[700, 0] = float("nan")
+        got, want = kernels.qr_panel(a), kernels.qr_panel_plain(a)
+        torch.cuda.synchronize()
+        check(bool(got[1][0].isnan()) and bool(want[1][0].isnan()),
+              f"qr edges {dname(dt)}: a NaN column did not give the twin's NaN tau")
+    emit({"phase": "kernel_qr_edges", "cases": cases, "worst_reading": worst,
+          "seconds": time.perf_counter() - t0})
 
 
 def qr_panel_input(m, w, dtype, seed, torch, zero_col=None):
@@ -1441,13 +1514,21 @@ def kernel_qr_phase(dtype, kernels, torch):
     plain_ms = cuda_ms(lambda: kernels.qr_panel_plain(leaf), 2, torch)
     library_ms = cuda_ms(lambda: torch.geqrf(leaf), 10, torch)  # VR and tau, no T
     merge_ms = cuda_ms(lambda: kernels.qr_panel(merge), 10, torch)
+    merge_plain_ms = cuda_ms(lambda: kernels.qr_panel_plain(merge), 2, torch)
+    merge_library_ms = cuda_ms(lambda: torch.geqrf(merge), 10, torch)
     nbytes, flops = qr_bound(m_gels, QR_LEAF_W, 1, name, False)
     row = row_of("qr_panel", dtype, "slate_tpu_torch/csrc/qr_panel.cu",
                  "slate_tpu/ops/pallas_ops.py:632", out["qr_panel_leaf"]["max_abs_err"], ms,
                  plain_ms, library_ms, nbytes, flops)
-    out["qr_panel_timing"] = {"shape": [m_gels, QR_LEAF_W], "kernel_ms": ms, "plain_ms": plain_ms,
-                              "library_ms_geqrf_no_T": library_ms, "merge_kernel_ms": merge_ms,
-                              "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+    mbytes, mflops = qr_bound(2 * NB, NB, 1, name, False)
+    out["qr_panel_timing"] = {
+        "shape": [m_gels, QR_LEAF_W], "kernel_ms": ms, "plain_ms": plain_ms,
+        "library_ms_geqrf_no_T": library_ms, "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "barrier_floor_ms": qr_barrier_floor(kernels, dtype, 1, m_gels, QR_LEAF_W),
+        "merge_shape": [2 * NB, NB], "merge_kernel_ms": merge_ms, "merge_plain_ms": merge_plain_ms,
+        "merge_library_ms_geqrf_no_T": merge_library_ms,
+        "merge_bound_ms": max(mbytes / PEAK_BYTES_S, mflops / PEAK_FLOPS_S[name]) * 1e3,
+        "merge_barrier_floor_ms": qr_barrier_floor(kernels, dtype, 1, 2 * NB, NB)}
     rows.append(row)
     # qr_panel_offset: row0 at 0, a middle tile, the last tile; a zero column
     r0s = [0, (mfl // NB // 2) * NB, mfl - NB]
@@ -1485,7 +1566,8 @@ def kernel_qr_phase(dtype, kernels, torch):
                  flops)
     out["qr_panel_offset_timing"] = {"shape": [P, mfl, NB], "kernel_ms": ms, "plain_ms": plain_ms,
                                      "library_ms_geqrf_no_T": library_ms,
-                                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+                                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                                     "barrier_floor_ms": qr_barrier_floor(kernels, dtype, P, mfl, NB)}
     rows.append(row)
     emit(out)
     del leaf, merge, batch, path, got, want
@@ -1545,6 +1627,12 @@ def gels_phase(dtype, kernels, torch):
     seconds = time.perf_counter() - t0
     counts = read_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
+    repeats = []  # the same solve again: a first run's own cost shows against these
+    for _ in range(GELS_REPEATS):
+        t1 = time.perf_counter()
+        qr.gels_array(a, b, opts)
+        torch.cuda.synchronize()
+        repeats.append(time.perf_counter() - t1)
     res, gate = gels_residual(a, x, b), 100 * n * eps
     om, om_gate = testing.gels_omega(a, x, b), testing.gels_omega_gate(m, dtype)
     want = {"qr_panel": geqrf_leaves(n, qr), "qr_panel_offset": 0}
@@ -1575,7 +1663,8 @@ def gels_phase(dtype, kernels, torch):
     emit({"phase": f"gels_{name}", "m": m, "n": n, "nrhs": NRHS, "method": "QR",
           "normal_eq_residual": res, "gate": gate, "omega": om, "omega_gate": om_gate,
           "launches": counts, "expected_launches": want,
-          "seconds": seconds, "peak_mem_bytes": peak, "x_finite": bool(torch.isfinite(x).all()),
+          "seconds": seconds, "seconds_repeats": repeats, "peak_mem_bytes": peak,
+          "x_finite": bool(torch.isfinite(x).all()),
           "geqrf_qr_recon_ratio": recon, "geqrf_recon_shape": [rm, rn],
           "omega_at_recon_shape": om_sound, "omega_tf32_products": om_tf32,
           "omega_gate_at_recon_shape": om_gate4})
@@ -3041,7 +3130,13 @@ def main():
         list(pool.map(_build.load, names))
     emit({"phase": "build", "sources": names, "seconds": time.perf_counter() - t0})
     ptxas = {name: ptxas_report(_build.log_path(name)) for name in names}
-    emit({"phase": "ptxas", "kernels": ptxas})
+    # the QR panel's dynamic shared memory at its path shapes (bytes)
+    m_leaf = {dname(dt): GELS_MN[dname(dt)][0] for dt in (torch.float32, torch.float64)}
+    qr_smem = {f"{dn}": {"leaf": kernels.qr_panel_smem_bytes(dt, 1, m_leaf[dn], QR_LEAF_W),
+                         "merge": kernels.qr_panel_smem_bytes(dt, 1, 2 * NB, NB),
+                         "offset": kernels.qr_panel_smem_bytes(dt, P, m_leaf[dn] // NB // P * NB, NB)}
+               for dt, dn in ((torch.float32, "float32"), (torch.float64, "float64"))}
+    emit({"phase": "ptxas", "kernels": ptxas, "qr_panel_dynamic_smem_bytes": qr_smem})
     for name in ("tile_gemm", "ft_summa_update"):
         spills = {k: v["spill_bytes"] for k, v in ptxas[name].items() if v["spill_bytes"]}
         check(ptxas[name] and not spills, f"ptxas: {name} spills {spills}")
@@ -3102,6 +3197,7 @@ def main():
     for dt in (torch.float32, torch.float64):
         for row in kernel_qr_phase(dt, kernels, torch):
             qr_rows[(row["name"].split("[")[0], dt)] = row
+    kernel_qr_edges_phase(kernels, testing, torch)
     for dt in (torch.float32, torch.float64):
         gcounts, x_single = gels_phase(dt, kernels, torch)
         mcounts = mesh_gels_phase(dt, kernels, mp, x_single, torch)

@@ -633,52 +633,114 @@ lu_trailing_update.launches = 0
 # updates inside the panel and the compact-WY T in one cooperative launch)
 # ---------------------------------------------------------------------------
 
-# the widest panel the kernel takes (one thread of the T recurrence per row)
+# the widest panel the kernel takes (csrc/qr_panel.cu's kMaxW)
 QR_PANEL_MAX_W = 256
+
+_QR_FNS = {}  # dtype -> (plan, run) of csrc/qr_panel.cu
+_QR_PLANS = {}  # (dtype, batch, m, w, device index) -> (CTAs per panel, scratch elements)
 
 
 def _qr_fns(dtype: torch.dtype):
-    lib = _build.load("qr_panel")
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    plan = getattr(lib, f"qr_panel_plan_{sfx}")
-    plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-    plan.restype = ctypes.c_int
-    run = getattr(lib, f"qr_panel_{sfx}")
-    run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    run.restype = ctypes.c_int
-    return plan, run
+    fns = _QR_FNS.get(dtype)
+    if fns is None:
+        lib = _build.load("qr_panel")
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        plan = getattr(lib, f"qr_panel_plan_{sfx}")
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        plan.restype = ctypes.c_int
+        run = getattr(lib, f"qr_panel_{sfx}")
+        run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        run.restype = ctypes.c_int
+        fns = _QR_FNS[dtype] = (plan, run)
+    return fns
+
+
+def _qr_plan(dtype: torch.dtype, bsz: int, m: int, w: int, device: torch.device):
+    """(CTAs per panel, scratch elements) of one launch, asked of the
+    library once per (dtype, batch, m, w, device): the grid depends on the
+    shape and the card alone."""
+    key = (dtype, bsz, m, w, device.index)
+    got = _QR_PLANS.get(key)
+    if got is None:
+        elems = ctypes.c_longlong(0)
+        nc = _qr_fns(dtype)[0](bsz, m, w, ctypes.byref(elems))
+        got = _QR_PLANS[key] = (nc, elems.value)
+    return got
 
 
 def _launch_qr(a: torch.Tensor, row0, who: str):
     """One launch of csrc/qr_panel.cu over a (B, m, w) batch of panels;
-    ``row0`` is None (the plain panel) or B pivot-row offsets.  Returns
-    (work, v, tau, t): the packed VR (or r), the explicit reflectors (offset
-    form, else None), tau (B, w) and T (B, w, w)."""
+    ``row0`` is None (the plain panel) or B pivot-row offsets, passed to the
+    kernel by value (no copy to the device).  Returns (work, v, tau, t): the
+    packed VR (or r), the explicit reflectors (offset form, else None), tau
+    (B, w) and T (B, w, w)."""
     _check_cuda(who, a)
     bsz, m, w = a.shape
     if not 1 <= w <= QR_PANEL_MAX_W or m < 1 or bsz < 1:
         raise ValueError(f"{who}: need panels of width 1..{QR_PANEL_MAX_W}, got {tuple(a.shape)}")
     a = a.contiguous()
-    plan, run = _qr_fns(a.dtype)
-    elems = ctypes.c_longlong(0)
     with torch.cuda.device(a.device):
-        nc = plan(bsz, m, w, ctypes.byref(elems))
+        nc, elems = _qr_plan(a.dtype, bsz, m, w, a.device)
         if nc < 1:
             raise RuntimeError(f"{who}: no cooperative grid for {bsz} panel(s) of {m} x {w}")
         work = torch.empty_like(a)
         v = torch.empty_like(a) if row0 is not None else None
         tau = torch.empty((bsz, w), dtype=a.dtype, device=a.device)
         t = torch.empty((bsz, w, w), dtype=a.dtype, device=a.device)
-        scratch = torch.empty(elems.value, dtype=a.dtype, device=a.device)
-        r0 = (torch.tensor(row0, dtype=torch.int32).to(a.device)
-              if row0 is not None else None)
+        scratch = torch.empty(elems, dtype=a.dtype, device=a.device)
+        r0 = (ctypes.c_int * bsz)(*row0) if row0 is not None else None
         stream = torch.cuda.current_stream().cuda_stream
-        rc = run(a.data_ptr(), work.data_ptr(), v.data_ptr() if v is not None else None,
-                 tau.data_ptr(), t.data_ptr(), r0.data_ptr() if r0 is not None else None,
-                 scratch.data_ptr(), bsz, m, w, nc, int(row0 is not None), stream)
+        rc = _qr_fns(a.dtype)[1](
+            a.data_ptr(), work.data_ptr(), v.data_ptr() if v is not None else None,
+            tau.data_ptr(), t.data_ptr(), ctypes.cast(r0, ctypes.c_void_p) if r0 is not None else None,
+            scratch.data_ptr(), bsz, m, w, nc, int(row0 is not None), stream)
     if rc != 0:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error {rc}")
     return work, v, tau, t
+
+
+def qr_sync_ms(dtype: torch.dtype, bsz: int, m: int, w: int, mode: str = "exchange",
+               iters: int = 2000) -> float:
+    """Milliseconds of one empty round of csrc/qr_panel.cu's synchronisation
+    at the grid its plan gives (bsz, m, w) on the current card: ``exchange``,
+    the tagged column exchange of a column step (every CTA publishes 32
+    values and reads every CTA's), or ``barrier``, the block barrier.
+    ``iters`` rounds in one cooperative launch, timed by CUDA events after a
+    warm-up launch.  A measurement helper (no path calls it): w exchanges
+    and two barriers a 32-column block are the kernel's floor."""
+    nc, _ = _qr_plan(dtype, bsz, m, w, torch.device("cuda", torch.cuda.current_device()))
+    if nc < 1:
+        raise RuntimeError(f"qr_sync_ms: no cooperative grid for {bsz} panel(s) of {m} x {w}")
+    lib = _build.load("qr_panel")
+    fn = getattr(lib, "qr_probe_f32" if dtype == torch.float32 else "qr_probe_f64")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    size = lib.qr_probe_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    isz = torch.empty((), dtype=dtype).element_size()
+    scratch = torch.empty(size(isz, bsz, nc), dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for _ in range(2):  # the first is the warm-up
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = fn(bsz, nc, iters, int(mode == "barrier"), scratch.data_ptr(), stream)
+        stop.record()
+        if rc != 0:
+            raise RuntimeError(f"qr_sync_ms: launch failed with CUDA error {rc}")
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return times[-1] / iters
+
+
+def qr_panel_smem_bytes(dtype: torch.dtype, bsz: int, m: int, w: int) -> int:
+    """The dynamic shared memory of csrc/qr_panel.cu's launch for a
+    (bsz, m, w) batch on the current card, in bytes."""
+    fn = _build.load("qr_panel").qr_panel_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(torch.empty((), dtype=dtype).element_size(), bsz, m, w))
 
 
 def _row0_list(a: torch.Tensor, row0) -> list:

@@ -302,6 +302,68 @@ def qr_panel_mutants(got, offset: bool, row0: int = 0) -> dict:
             "WY": tuple(got[:-1]) + (t_col,)}
 
 
+# Edge shapes of the Householder panel kernels (csrc/qr_panel.cu: 32-column
+# blocks, 32 or more rows a CTA): widths off the block (1, 7, 33, 100) and at
+# it (64, 256), m < w, m ragged against the CTA rows, and for the offset form
+# row0 at 0, a middle row and m - w (three panels, one launch).  f64 adds a
+# single panel whose rows a CTA do not fit in shared memory (the kernel keeps
+# them in global memory); a single f32 panel reaches that form only past
+# ~121k rows, where qr_panel_check's limits (2 m eps32) would not stay under
+# 1e-2 of their scales.  QR_EDGE_OFFSET_GLOBAL reaches it in both dtypes at
+# a checkable height: eight offset panels in one launch get 16 CTAs each on
+# a 132-SM card, so 1250 rows a CTA (f32 keeps ~946 in shared memory).
+QR_EDGE_PLAIN = ((1, 1), (5, 7), (40, 64), (33, 33), (100, 33), (1000, 100), (3001, 7),
+                 (2000, 256))
+QR_EDGE_PLAIN_F64 = ((70000, 33),)
+QR_EDGE_OFFSET = ((640, 1), (700, 7), (1000, 33), (4100, 100), (1024, 256))
+QR_EDGE_OFFSET_GLOBAL = (8, 20000, 33)  # (panels, m, w)
+QR_EDGE_VARIANTS = ("neg0", "zero_below")
+
+
+def qr_edge_plain(dtype: torch.dtype) -> tuple:
+    """The plain form's edge shapes for a dtype."""
+    return QR_EDGE_PLAIN + (QR_EDGE_PLAIN_F64 if dtype == torch.float64 else ())
+
+
+def qr_edge_row0s(m: int, w: int, n: int = 3) -> list:
+    """The offset form's ``n`` pivot-row offsets for an (m, w) panel, spread
+    evenly from 0 to m - w (three: 0, the middle row, m - w)."""
+    return [(m - w) * i // (n - 1) for i in range(n)]
+
+
+def qr_edge_zero_col(m: int, w: int, row0: int = 0) -> int:
+    """The zero column of a ``neg0`` edge panel: clear of the first column
+    (the -0.0 pivot) and of column w // 2 (which ``qr_panel_mutants``
+    doubles in T: a dead column's T column is zero)."""
+    return max(1, min(m - row0, w) // 3)
+
+
+def qr_edge_panel(m: int, w: int, variant: str, seed: int, row0: int = 0) -> np.ndarray:
+    """A seeded randn (m, w) panel (f64 numpy; rows < row0 zero) with the
+    kernel's edge columns.  ``neg0``: the first pivot is -0.0 with weight
+    below it (where there are rows below: the sign must read +1, so
+    beta = -anorm < 0; copysign would flip it) and column
+    ``qr_edge_zero_col`` is zero (a dead column at its step: reflections
+    keep it zero).  ``zero_below``: column 0 is zero below
+    its pivot but not at it (xnorm2 = 0, tau = 2 for a pivot > 0) and the
+    last column is zero only below its pivot row too."""
+    a = np.random.default_rng(seed).standard_normal((m, w))
+    a[:row0] = 0
+    if variant == "neg0":
+        if m - row0 > 1:
+            a[row0, 0] = -0.0
+        if w > 1:
+            a[:, qr_edge_zero_col(m, w, row0)] = 0
+    elif variant == "zero_below":
+        a[row0 + 1:, 0] = 0
+        a[row0, 0] = abs(a[row0, 0]) + 0.5
+        if w > 1:
+            a[row0 + w:, w - 1] = 0
+    else:
+        raise ValueError(f"qr_edge_panel: unknown variant {variant!r}")
+    return a
+
+
 def gels_omega(a: torch.Tensor, x: torch.Tensor, b: torch.Tensor, chunk: int = 2048) -> float:
     """The componentwise residual of the normal equations of min ||A X - B||,
     max |A^T (A X - B)| / (|A^T| (|A| |X| + |B|)) entrywise, in f64 (0/0
@@ -395,3 +457,43 @@ def refine_gate_ok(a, x, b) -> bool:
     rn = (b - a @ x).abs().sum(dim=1).max()
     bound = x.abs().sum(dim=1).max() * a.abs().sum(dim=1).max()
     return bool(rn <= bound * torch.finfo(torch.float64).eps * math.sqrt(a.shape[0]))
+
+
+def qr_edge_checks(a, got, want, offset: bool, row0: int, variant: str):
+    """The edge rules of csrc/qr_panel.cu on one edge panel (``got`` the
+    kernel's or a model's outputs, ``want`` the twin's): every reading of
+    qr_panel_check within its limit; where the panel has off-diagonal parts
+    (w >= 8 and m - row0 >= 8) each of qr_panel_mutants failing the reading
+    named for it; in a ``neg0`` panel the dead column's tau 0 with a zero R
+    pivot (plain form) or a zero v pivot (offset form), and the -0.0 pivot
+    read as sign +1 (R's pivot < 0); in the offset form the rows above row0
+    as A has them in r and zero in v.  Returns (the readings, the rules
+    broken: an empty list when all hold)."""
+    c = qr_panel_check(a, got, want, offset, row0)
+    bad = [] if qr_panel_ok(c) else ["a reading over its limit"]
+    m, w = a.shape
+    if w >= 8 and m - row0 >= 8:
+        bad += [f"a wrong factor passed {k}" for k, mut in qr_panel_mutants(got, offset, row0).items()
+                if qr_panel_check(a, mut, want, offset, row0)[k] <= 1]
+    if variant == "neg0" and w > 1:
+        k = qr_edge_zero_col(m, w, row0)
+        if float(got[-2][k]) != 0.0:
+            bad.append("the dead column's tau is not 0")
+        if float(got[1][row0 + k, k] if offset else got[0][k, k]) != 0.0:
+            bad.append("the dead column's pivot is not 0")
+        if m - row0 > 1 and not float(got[0][row0, 0]) < 0:
+            bad.append("the -0.0 pivot read sign -1")
+    if offset and not (torch.equal(got[0][:row0], a[:row0]) and not bool(got[1][:row0].any())):
+        bad.append("rows above row0 were written")
+    return c, bad
+
+
+def qr_rows_in_global(kernels, dtype: torch.dtype, bsz: int, m: int, w: int) -> bool:
+    """Whether csrc/qr_panel.cu keeps a CTA's rows of the block in global
+    memory for a (bsz, m, w) launch on the current card: its dynamic shared
+    memory (``kernels.qr_panel_smem_bytes``) is then less than one CTA's
+    rows x 32 columns.  ``kernels`` is slate_tpu_torch.ops.kernels."""
+    nc = kernels._qr_plan(dtype, bsz, m, w, torch.device("cuda", torch.cuda.current_device()))[0]
+    rpc = -(-m // nc)
+    isz = torch.empty((), dtype=dtype).element_size()
+    return kernels.qr_panel_smem_bytes(dtype, bsz, m, w) < rpc * 32 * isz

@@ -34,6 +34,10 @@ from slate_tpu_torch.ops import kernels as tk
 from slate_tpu_torch.ops.matmul import matmul, matmul_sub_
 from slate_tpu_torch.utils import testing as tut
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 # the module (ops/__init__ exports the function matmul under the same name)
 mm = importlib.import_module("slate_tpu_torch.ops.matmul")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -36,13 +36,25 @@ from slate_tpu_torch.ops import kernels as tk
 from slate_tpu_torch.parallel import comm, from_dense, local_view, make_mesh, potrf_dist, to_dense
 from slate_tpu_torch.parallel.dryrun import posv_chain, posv_chain_operands
 from slate_tpu_torch.utils.testing import (
+    QR_EDGE_OFFSET,
+    QR_EDGE_OFFSET_GLOBAL,
+    QR_EDGE_VARIANTS,
     generate,
     gels_omega,
     gels_omega_gate,
+    qr_edge_checks,
+    qr_edge_panel,
+    qr_edge_plain,
+    qr_edge_row0s,
     qr_panel_check,
     qr_panel_mutants,
     qr_panel_ok,
+    qr_rows_in_global,
 )
+
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
 
 DTYPES = [torch.float32, torch.float64]
 
@@ -542,6 +554,83 @@ def test_qr_checks_fail_a_wrong_factor(card, offset):
     assert qr_panel_ok(qr_panel_check(a, got, want, offset, row0))
     for reading, bad in qr_panel_mutants(got, offset, row0).items():
         assert qr_panel_check(a, bad, want, offset, row0)[reading] > 1, reading
+
+
+def _edge_checks(a, got, want, offset, row0, variant):
+    res, bad = qr_edge_checks(a, got, want, offset, row0, variant)
+    assert not bad, (bad, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", QR_EDGE_VARIANTS)
+@pytest.mark.parametrize("dtype,shape", [(dt, sh) for dt in DTYPES for sh in qr_edge_plain(dt)],
+                         ids=lambda x: f"{x[0]}x{x[1]}" if isinstance(x, tuple) else str(x)[6:])
+def test_qr_panel_kernel_edge_shapes(card, dtype, shape, variant):
+    """Widths off and at the 32-column block, m < w, m ragged against the
+    CTA rows, in f64 a panel whose CTA rows stay in global memory."""
+    m, w = shape
+    a = torch.from_numpy(qr_edge_panel(m, w, variant, m + w)).to(dtype).cuda()
+    got = tk.qr_panel(a)
+    torch.cuda.synchronize()
+    _edge_checks(a, got, tk.qr_panel_plain(a), False, 0, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", QR_EDGE_VARIANTS)
+@pytest.mark.parametrize("shape", QR_EDGE_OFFSET, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_panel_offset_kernel_edge_shapes(card, dtype, shape, variant):
+    """row0 at 0, a middle row and m - w, three panels in one launch."""
+    m, w = shape
+    r0s = qr_edge_row0s(m, w)
+    a = torch.stack([torch.from_numpy(qr_edge_panel(m, w, variant, m + i, r)) for i, r in enumerate(r0s)])
+    a = a.to(dtype).cuda()
+    got = tk.qr_panel_offset(a, r0s)
+    torch.cuda.synchronize()
+    want = tk.qr_panel_offset_plain(a, r0s)
+    for i, r in enumerate(r0s):
+        _edge_checks(a[i], tuple(x[i] for x in got), tuple(x[i] for x in want), True, r, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", QR_EDGE_VARIANTS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_panel_offset_kernel_rows_in_global_memory(card, dtype, variant):
+    """Eight panels in one launch, more rows a CTA than shared memory holds
+    (the kernel's global-memory form, f32 included), row0 spread over
+    0 .. m - w."""
+    bsz, m, w = QR_EDGE_OFFSET_GLOBAL
+    assert qr_rows_in_global(tk, dtype, bsz, m, w)
+    r0s = qr_edge_row0s(m, w, bsz)
+    a = torch.stack([torch.from_numpy(qr_edge_panel(m, w, variant, m + i, r)) for i, r in enumerate(r0s)])
+    a = a.to(dtype).cuda()
+    got = tk.qr_panel_offset(a, r0s)
+    torch.cuda.synchronize()
+    want = tk.qr_panel_offset_plain(a, r0s)
+    for i, r in enumerate(r0s):
+        _edge_checks(a[i], tuple(x[i] for x in got), tuple(x[i] for x in want), True, r, variant)
+
+
+@pytest.mark.cuda
+def test_qr_panel_nan_gives_the_twins_nan_tau(card):
+    """A NaN below the first pivot reaches every CTA's sums: the kernel
+    returns (no hang) with the twin's NaN tau."""
+    for dtype in DTYPES:
+        a = torch.from_numpy(qr_edge_panel(1000, 33, "neg0", 5)).to(dtype).cuda()
+        a[700, 0] = float("nan")
+        got, want = tk.qr_panel(a), tk.qr_panel_plain(a)
+        torch.cuda.synchronize()
+        assert bool(got[1][0].isnan()) and bool(want[1][0].isnan())
+
+
+@pytest.mark.cuda
+def test_qr_sync_probes_time_the_grid(card):
+    """The floor helpers: one column exchange and one block barrier at the
+    mesh panel's grid take microseconds, not zero and not milliseconds."""
+    for dtype in DTYPES:
+        for mode in ("exchange", "barrier"):
+            ms = tk.qr_sync_ms(dtype, 2, 8192, 256, mode, iters=200)
+            assert 1e-5 < ms < 0.1, (dtype, mode, ms)
 
 
 @pytest.mark.cuda

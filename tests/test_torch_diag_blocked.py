@@ -29,6 +29,10 @@ import torch
 from slate_tpu.ops import pallas_ops as po
 from slate_tpu_torch.ops import kernels as tk
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 B = 32
 NS = [1, 7, 31, 32, 33, 72, 200, 256]
 DTYPES = [torch.float32, torch.float64]

@@ -54,6 +54,10 @@ from slate_tpu_torch.ft.policy import ft_counter_values as tcounters
 from slate_tpu_torch.obs import REGISTRY as TREG
 from slate_tpu_torch.types import Option as TOption
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 N, NB = 64, 8
 GRID = (2, 4)
 KEYS = ("detected", "corrected", "recomputed", "uncorrectable")

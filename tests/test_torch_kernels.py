@@ -20,6 +20,10 @@ from slate_tpu.utils.testing import generate
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as tk
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 DTYPES = [np.float32, np.float64]
 
 

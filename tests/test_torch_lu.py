@@ -46,6 +46,10 @@ from slate_tpu_torch.parallel import dryrun as tdry
 from slate_tpu_torch import parallel as tp
 from slate_tpu_torch.utils.testing import dist_from_numpy
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 NB = 8
 DTYPES = [np.float32, np.float64]
 SIZES = [64, 100]  # 100: a padded tile grid (13 tiles -> 16)

@@ -23,6 +23,10 @@ from slate_tpu.linalg import lu as jlu
 from slate_tpu.utils.testing import generate
 from slate_tpu_torch.linalg import lu as tlu
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 
 def _eps(dtype):
     return float(np.finfo(dtype).eps)

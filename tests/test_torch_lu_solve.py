@@ -33,6 +33,10 @@ from slate_tpu_torch.linalg import tri as ttri
 from slate_tpu_torch.types import Diag, MethodLU, Op, Option, Uplo
 from slate_tpu_torch.utils.testing import lufactors_from_numpy
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 N = 64
 
 

@@ -30,6 +30,10 @@ from slate_tpu_torch.ops import kernels as tk
 from slate_tpu_torch.types import Precision
 from slate_tpu_torch.utils.testing import matmul_pallas_excess
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 jmm = importlib.import_module("slate_tpu.ops.matmul")
 tmm = importlib.import_module("slate_tpu_torch.ops.matmul")
 

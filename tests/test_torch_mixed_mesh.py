@@ -41,6 +41,10 @@ from slate_tpu_torch.parallel import mixed_smoke
 from slate_tpu_torch.types import Option
 from slate_tpu_torch.utils.testing import refine_gate_ok as _gate
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 N, NB, NRHS = 96, 16, 2
 J_OPTS = {JOption.PanelImpl: "xla", JOption.NumMonitor: "off"}
 T_OPTS = {Option.PanelImpl: "xla"}

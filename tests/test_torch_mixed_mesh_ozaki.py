@@ -34,6 +34,10 @@ from slate_tpu_torch.parallel import summa as tsumma
 from slate_tpu_torch.types import Option
 from slate_tpu_torch.utils.testing import refine_gate_ok as _gate
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 N, NB, NRHS, MAX_ITER = 96, 12, 2, 5
 
 

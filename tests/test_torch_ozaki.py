@@ -24,6 +24,10 @@ import torch
 from slate_tpu.ops import ozaki as jo
 from slate_tpu_torch.ops import ozaki as to
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 SHAPES = [(64, 64, 64), (37, 300, 65), (16, 8200, 16)]
 
 # slate_tpu runs these inside its jitted matmul_f64 / SUMMA kernels; jitting

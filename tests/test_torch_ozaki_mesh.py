@@ -36,6 +36,10 @@ from slate_tpu_torch.parallel.dist_refine import residual_comm_bytes
 from slate_tpu_torch.types import MethodGemm
 from slate_tpu_torch.utils.testing import ozaki_split_from_numpy
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))

@@ -33,6 +33,10 @@ from slate_tpu_torch import types as tt
 from slate_tpu_torch.linalg import qr as tqr
 from slate_tpu_torch.ops import kernels as tk
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 DTYPES = [np.float32, np.float64]
 
 

@@ -42,6 +42,10 @@ from slate_tpu_torch.parallel import comm as tcomm
 from slate_tpu_torch.parallel import dist_qr as tdq
 from slate_tpu_torch.utils.testing import distqr_from_numpy, gels_omega, gels_omega_gate
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 NB = 8
 DTYPES = [np.float32, np.float64]
 SIZES = [(64, 64), (100, 40)]

@@ -28,6 +28,10 @@ from slate_tpu_torch.linalg import refine as tref
 from slate_tpu_torch.ops.tile_ops import genorm
 from slate_tpu_torch.types import Norm, Option
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 N = 48
 
 

@@ -37,6 +37,10 @@ from slate_tpu.ops import pallas_ops as po
 from slate_tpu_torch.ops import kernels as tk
 from slate_tpu_torch.ops import _build
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 NBS = [1, 7, 8, 31, 33, 100, 127, 128, 129, 200, 256]
 DTYPES = [torch.float32, torch.float64]
 

@@ -39,6 +39,10 @@ from slate_tpu_torch.ops import kernels as tk
 from slate_tpu_torch.ops import tile_ops as tto
 from slate_tpu_torch.types import Diag, Norm, NormScope, Uplo
 
+# the suite runs in several worker processes that share the cores: one
+# intra-op thread each (torch defaults to one a core, which oversubscribes them)
+torch.set_num_threads(1)
+
 DTYPES = [np.float32, np.float64, np.complex64, np.complex128]
 _T = {np.float32: torch.float32, np.float64: torch.float64,
       np.complex64: torch.complex64, np.complex128: torch.complex128}
