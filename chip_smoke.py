@@ -9,8 +9,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
 1. card:   device name, and the ``nvidia-smi`` name and power limit line;
 2. build:  every csrc/*.cu with nvcc into slate_tpu_torch/_build/, one nvcc
            per source, all started together (seconds); then ptxas: each
-           kernel's registers and spilled bytes from the build logs (a spill
-           in tile_gemm or ft_summa_update fails);
+           kernel's registers, spilled bytes and static shared memory from
+           the build logs, and the matmul core's dynamic shared memory (a
+           spill in tile_gemm, ft_summa_update or matmul fails);
 3. kernel: chol_diag_inv against its plain twin at nb = 256, f32 and f64
            (L and L^-1 each at its own scale, L L^T = A and L X = I by
            reconstruction, a non-SPD block NaN from the same column), with
@@ -140,14 +141,17 @@ printing one JSON line before the next starts (any failure exits non-zero):
 31. lu_misc: getri_array f64 at n = 4096, gecondest against the exact
    1 / kappa_1 of a 256 x 256 matrix, and a zero column giving info j + 1
    in the f32 and f64 forms;
-32. kernel_matmul: matmul_pallas (csrc/matmul.cu) against its twin
-   (utils.testing.matmul_pallas_excess: 9 sqrt(k) eps32 |A||B|
-   elementwise, Higham and Mary's probabilistic bound, plus one output ulp
-   in bf16) at f32 and bf16 8192^3, the thin-k f32 rank update
-   (32768 x 256)(256 x 32768) and a ragged 1000 x 777 x 1234, one launch
-   per call of ops.matmul_pallas, with kernel, twin and library
-   (torch.matmul, TF32 off) times and the bound (f32 67 TFLOP/s, bf16 the
-   tensor cores' 989); at each shape the kernel's C with one 8-deep k-slab
+32. kernel_matmul: matmul_pallas (csrc/matmul.cu: TMA + wgmma, f32 as six
+   bf16 plane products) against its twin (utils.testing.matmul_pallas_excess:
+   9 sqrt(k) eps32 |A||B| elementwise, Higham and Mary's probabilistic
+   bound, plus one output ulp in bf16/f16) at f32, bf16 and f16 8192^3, the
+   thin-k rank update (32768 x 256)(256 x 32768) in f32 and bf16 and a
+   ragged 1000 x 777 x 1234, one launch per call of ops.matmul_pallas and a
+   second call bitwise the first, with kernel, twin and library
+   (torch.matmul, TF32 off) times, each operand's path (in place or packed)
+   and the pack's share of the time, peak memory over the call, and the
+   bound (the tensor cores' 989 TFLOP/s; f32 six such passes, the FFMA
+   bound at 67 beside it); at each shape the kernel's C with 8 k indices
    dropped must read above the limit, and at 8192^3 the kernel's error from
    the f64 product must stay within 2 k / (bk + k / bk) times the twin's (a
    TF32 product's, which passes the elementwise limit, is read beside it);
@@ -172,8 +176,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
 37. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
-   their timed calls in phase 26, and matmul_pallas that of phase 32's
-   public 8192^3 call), then the card line and, last,
+   their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
+   rows those of phase 32's public 8192^3 calls), then the card line and,
+   last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -223,7 +228,8 @@ def check(cond, msg):
 
 
 def ptxas_report(log):
-    """{kernel: {"registers", "spill_bytes"}} from the build log of
+    """{kernel: {"registers", "spill_bytes", "smem_bytes"}} (static shared
+    memory) from the build log of
     ``nvcc -Xptxas -v`` (slate_tpu_torch/ops/_build.py keeps it beside the
     library); names demangled where c++filt is found."""
     with open(log) as f:
@@ -240,7 +246,9 @@ def ptxas_report(log):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
-            out[cur] = {"registers": int(m.group(1)), "spill_bytes": spill}
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur] = {"registers": int(m.group(1)), "spill_bytes": spill,
+                        "smem_bytes": int(smem.group(1)) if smem else 0}
             cur = None
     try:
         names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True, text=True,
@@ -2585,10 +2593,12 @@ def lu_misc_phase(torch):
 
 # the H100's dense tensor-core bf16 peak (the bound of the bf16 product)
 PEAK_BF16_TC = 989e12
-# (name, m, k, n, dtype): 8192^3 f32 and bf16, the factorizations' thin-k
-# rank update (matmul.py:131-133), one ragged f32 shape
+# (name, m, k, n, dtype): 8192^3 in f32, bf16 and f16, the factorizations'
+# thin-k rank update (matmul.py:131-133) in f32 and bf16, one ragged f32 shape
 MATMUL_CASES = (("8192^3", 8192, 8192, 8192, "float32"), ("8192^3", 8192, 8192, 8192, "bfloat16"),
-                ("thin_k", 32768, 256, 32768, "float32"), ("ragged", 1000, 777, 1234, "float32"))
+                ("8192^3", 8192, 8192, 8192, "float16"),
+                ("thin_k", 32768, 256, 32768, "float32"), ("thin_k", 32768, 256, 32768, "bfloat16"),
+                ("ragged", 1000, 777, 1234, "float32"))
 OZAKI_SMALL, OZAKI_N = 512, 8192
 MIXED_POSV_N, MIXED_GESV_N, MIXED_ESC_N, MIXED_FT_N = 16384, 8192, 2048, 8192
 MIXED_WARMUP_N = 1024
@@ -2607,19 +2617,29 @@ GESV_LADDER_SEEDS = (170, 172, 174)
 def kernel_matmul_phase(kernels, testing, torch):
     """matmul_pallas against its twin (utils.testing.matmul_pallas_excess:
     9 sqrt(k) eps32 |A||B| elementwise, Higham and Mary's probabilistic
-    bound, plus one output ulp in bf16) at the MATMUL_CASES shapes, with
+    bound, plus one output ulp in bf16/f16) at the MATMUL_CASES shapes, with
     kernel, twin and library times (CUDA events, L2 warm; library =
-    torch.matmul in the same dtype, TF32 off) and the bound (f32: 2mnk at 67
-    TFLOP/s; bf16: 2mnk at the tensor cores' 989; bytes at 3.35 TB/s where
-    larger).  The limit must sit between the sound reading and a planted
-    fault: the kernel's C with one 8-deep k-slab dropped reads above 1.  At
-    8192^3 each side's max error from the f64 product is read too (and, for
-    f32, a TF32 product's, which the elementwise limit passes), in units of
-    eps32 max(|A||B|), and the kernel's must stay within twice the ratio of
-    the two sums' worst-case bounds of the twin's.  Each case's
+    torch.matmul in the same dtype, TF32 off) and the bound (2mnk at the
+    tensor cores' 989 TFLOP/s, six times that for f32's six bf16 plane
+    products; bytes at 3.35 TB/s where larger; the f32 FFMA bound at 67
+    TFLOP/s beside it).  Each operand's path is kernels.matmul_operand_plan's
+    (in place K-major, in place MN-major for a row-major B, or packed);
+    a packed operand's pack is timed on its own (kernels.matmul_pack) and
+    given as a share of the call.  Peak memory is read over one call, above
+    what the operands held before it.  The limit must sit between the sound
+    reading and a planted fault: the kernel's C with 8 k indices dropped
+    reads above 1.  A second call must give the same bits (no atomics).  The
+    f32 form is also held to the six plane products it sums
+    (utils.testing.matmul_split6_reading, which the elementwise limit cannot
+    do: it passes a C with a plane pair dropped, and a TF32 product): within
+    MATMUL_SPLIT6_LIMIT, and its C with any one second-order plane pair
+    dropped must read above it.  At 8192^3 each side's max error from the
+    f64 product is read too (and, for f32, a TF32 product's), in units of
+    eps32 max(|A||B|), and the kernel's must stay within a fixed limit on
+    its ratio to the twin's.  Each case's
     launches are those of one call of the public ops.matmul_pallas (no
     driver reaches the kernel, as in slate_tpu); the kernels line takes the
-    8192^3 call's.  Returns the f32 and bf16 rows."""
+    8192^3 calls'.  Returns the f32, bf16 and f16 rows."""
     from slate_tpu_torch import ops
     from slate_tpu_torch.ops.matmul import pallas_blocks
 
@@ -2630,28 +2650,42 @@ def kernel_matmul_phase(kernels, testing, torch):
         a = randn((m, k), torch.float32, SEED + 140 + m + k, torch).to(dtype)
         b = randn((k, n), torch.float32, SEED + 141 + n, torch).to(dtype)
         blocks = pallas_blocks(m, k, n)  # slate_tpu's clamp: the twin pads to them
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         kernels.matmul_pallas.launches = 0
         c = ops.matmul_pallas(a, b)
         torch.cuda.synchronize()
         launches = kernels.matmul_pallas.launches
+        peak = torch.cuda.max_memory_allocated() - held
+        again = ops.matmul_pallas(a, b)
+        bitwise = bool(torch.equal(c, again))
+        del again
         want = kernels.matmul_pallas_plain(a, b, *blocks)
         excess = testing.matmul_pallas_excess(a, b, c, want)
         err = float((c.double() - want.double()).abs().max())
-        s0 = (k // 2) // 8 * 8  # a k-slab the kernel stages whole
+        s0 = (k // 2) // 8 * 8  # 8 k indices from the middle
         dropped = (c.float() - a[:, s0:s0 + 8].float() @ b[s0:s0 + 8].float()).to(dtype)
         fault = testing.matmul_pallas_excess(a, b, dropped, want)
         del dropped
-        res = {"m": m, "k": k, "n": n, "launches": launches, "excess": excess,
-               "dropped_slab_excess": fault, "max_abs_err": err}
+        res = {"m": m, "k": k, "n": n, "launches": launches, "bitwise_repeat": bitwise,
+               "excess": excess, "dropped_slab_excess": fault, "max_abs_err": err,
+               "peak_bytes_over_operands": peak}
+        if name == "float32":
+            split6, split6_faults = testing.matmul_split6_reading(a, b, c)
+            res.update(split6_reading=split6, split6_dropped_pair=split6_faults,
+                       split6_limit=testing.MATMUL_SPLIT6_LIMIT)
         if case == "8192^3":
             exact = a.double() @ b.double()
             scale = eps32 * float((a.double().abs() @ b.double().abs()).max())
             f64_err = {"kernel": float((c.double() - exact).abs().max()) / scale,
                        "twin": float((want.double() - exact).abs().max()) / scale}
             res["err_vs_f64_eps32_absab"] = f64_err
-            # the kernel sums k products in one chain, the twin bk-deep
-            # blocks and then k / bk partials: their worst-case bounds are
-            # k u and (bk + k / bk) u; twice that ratio leaves room
+            # a loose limit: twice the ratio of the worst-case bounds of a
+            # k-long chain (k u) and of the twin's bk-deep blocks summed in
+            # a k / bk chain ((bk + k / bk) u).  The kernel's 64-deep slabs,
+            # summed in a k / 64 chain, sit well inside it; the split6
+            # reading above is what guards the f32 form's plane products.
             res["f64_err_ratio_limit"] = 2 * k / (blocks[2] + k / blocks[2])
             check(f64_err["kernel"] <= res["f64_err_ratio_limit"] * f64_err["twin"],
                   f"matmul_pallas {case} {name}: error from the f64 product {f64_err}")
@@ -2662,6 +2696,7 @@ def kernel_matmul_phase(kernels, testing, torch):
                 res["err_vs_f64_eps32_absab"]["tf32_product"] = (
                     float((tf32.double() - exact).abs().max()) / scale)
                 res["tf32_product_excess"] = testing.matmul_pallas_excess(a, b, tf32, want)
+                res["tf32_product_split6_reading"] = testing.matmul_split6_reading(a, b, tf32)[0]
                 del tf32
             del exact
         del c, want
@@ -2670,23 +2705,44 @@ def kernel_matmul_phase(kernels, testing, torch):
         ms = cuda_ms(lambda: kernels.matmul_pallas(a, b, *blocks), reps, torch)
         plain_ms = cuda_ms(lambda: kernels.matmul_pallas_plain(a, b, *blocks), reps, torch)
         library_ms = cuda_ms(lambda: torch.matmul(a, b), reps, torch)
+        paths, pack_ms = {}, 0.0
+        for t, which in ((a, "a"), (b, "b")):
+            plan = kernels.matmul_operand_plan(which, t.shape, t.stride(), t.data_ptr(),
+                                               t.element_size())
+            paths[which] = ("packed" if not plan.in_place else "in_place" if plan.k_major
+                            else "in_place_mn")
+            if not plan.in_place:
+                pack_ms += cuda_ms(lambda: kernels.matmul_pack(t, which), reps, torch)
         s = a.element_size()
         flops = 2 * m * n * k
+        passes = 6 if name == "float32" else 1
         nbytes = (m * k + k * n + m * n) * s
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / (PEAK_BF16_TC if name == "bfloat16" else PEAK_FLOPS_S[name]) * 1e3
+        t_ops = passes * flops / PEAK_BF16_TC * 1e3
         res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations", tflops=flops / ms / 1e9)
+                   bound_by="bytes" if t_bytes >= t_ops else "operations", tflops=flops / ms / 1e9,
+                   paths=paths, pack_ms=pack_ms, pack_share=pack_ms / ms)
+        if name == "float32":
+            res["bound_ffma_ms"] = max(t_bytes, flops / PEAK_FLOPS_S["float32"] * 1e3)
         out[f"{case}_{name}"] = res
         check(launches == 1, f"matmul_pallas {case} {name}: {launches} launches")
+        check(bitwise, f"matmul_pallas {case} {name}: a second call gave other bits")
         check(excess <= 1.0, f"matmul_pallas {case} {name}: {excess} of the tolerance")
         check(fault > 1.0, f"matmul_pallas {case} {name}: the tolerance passes a dropped k-slab "
                            f"({fault})")
+        if name == "float32":
+            check(split6 <= testing.MATMUL_SPLIT6_LIMIT,
+                  f"matmul_pallas {case} {name}: {split6} from its six plane products")
+            check(min(split6_faults.values()) > testing.MATMUL_SPLIT6_LIMIT,
+                  f"matmul_pallas {case} {name}: the split6 limit passes a dropped plane pair "
+                  f"{split6_faults}")
         if case == "8192^3":
-            row = row_of("matmul_pallas", dtype, "slate_tpu_torch/csrc/matmul.cu",
-                         "slate_tpu/ops/matmul.py:73", err, ms, plain_ms, library_ms, nbytes, 0)
-            row.update(bound_ms=res["bound_ms"], bound_by=res["bound_by"], launches=launches)
-            rows[name] = row
+            rows[name] = {"name": f"matmul_pallas[{name}]", "route": "cuda",
+                          "source": "slate_tpu_torch/csrc/matmul.cu",
+                          "replaces": "slate_tpu/ops/matmul.py:73", "launches": launches,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                          "library_ms": library_ms}
         del a, b
         torch.cuda.empty_cache()
     emit({"phase": "kernel_matmul", **out})
@@ -3136,8 +3192,11 @@ def main():
                          "merge": kernels.qr_panel_smem_bytes(dt, 1, 2 * NB, NB),
                          "offset": kernels.qr_panel_smem_bytes(dt, P, m_leaf[dn] // NB // P * NB, NB)}
                for dt, dn in ((torch.float32, "float32"), (torch.float64, "float64"))}
-    emit({"phase": "ptxas", "kernels": ptxas, "qr_panel_dynamic_smem_bytes": qr_smem})
-    for name in ("tile_gemm", "ft_summa_update"):
+    mm_smem = {f"{name}_k{k}": kernels.matmul_core_smem_bytes(getattr(torch, name), k)
+               for _, _, k, _, name in MATMUL_CASES}
+    emit({"phase": "ptxas", "kernels": ptxas, "qr_panel_dynamic_smem_bytes": qr_smem,
+          "matmul_core_dynamic_smem_bytes": mm_smem})
+    for name in ("tile_gemm", "ft_summa_update", "matmul"):
         spills = {k: v["spill_bytes"] for k, v in ptxas[name].items() if v["spill_bytes"]}
         check(ptxas[name] and not spills, f"ptxas: {name} spills {spills}")
 

@@ -50,10 +50,12 @@ of the XLA ops ``slate_tpu`` uses there.  A CUDA tensor never falls back to
 the twin: the kernel builds and launches, or the call raises.  The update
 wrappers work in place, where ``slate_tpu``'s return a new array.
 
-- the blocked GEMM on ``csrc/matmul.cu``: :func:`matmul_pallas`
-  (``slate_tpu/ops/matmul.py``'s ``matmul_pallas``: C = A B summed in f32),
-  with its twin :func:`matmul_pallas_plain`; ``ops.matmul.matmul_pallas``
-  is the public entry.
+- the GEMM on ``csrc/matmul.cu``'s tensor-core core: :func:`matmul_pallas`
+  (``slate_tpu/ops/matmul.py``'s ``matmul_pallas``: C = A B summed in f32;
+  f32 operands as six bf16 plane products, as the TPU's HIGHEST computes
+  them), with its twin :func:`matmul_pallas_plain`, its per-operand layout
+  plan :func:`matmul_operand_plan` and its pack :func:`matmul_pack`;
+  ``ops.matmul.matmul_pallas`` is the public entry.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
 call (the twin) does not count.  With ``matmul_pallas`` every Pallas kernel
@@ -65,7 +67,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -1165,8 +1167,71 @@ genorm_max_tiles.launches = 0
 # the blocked GEMM with an f32 accumulator: csrc/matmul.cu
 # ---------------------------------------------------------------------------
 
-_MATMUL_DTYPES = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16",
-                  torch.float16: "matmul_f16"}
+# the core's dtype codes (matmul.cu's C interface): f32 as three bf16 planes
+_MATMUL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the 16-bit form the core reads of each operand dtype
+_MATMUL_PLANE_DTYPE = {torch.float32: torch.bfloat16, torch.bfloat16: torch.bfloat16,
+                       torch.float16: torch.float16}
+
+
+class MatmulOperand(NamedTuple):
+    """How one operand of :func:`matmul_pallas` reaches the GEMM core, which
+    reads 16-bit planes through TMA: ``in_place`` (the tensor as it lies) or
+    packed into scratch by ``csrc/matmul.cu``'s pack kernel; ``k_major``
+    (k contiguous; False only for a B read in place with n contiguous);
+    ``planes`` (3 for f32: x = x0 + x1 + x2 in bf16, else 1), and the row
+    stride ``ld`` and plane stride ``plane_stride`` in elements of the form
+    the core reads."""
+
+    in_place: bool
+    k_major: bool
+    planes: int
+    ld: int
+    plane_stride: int
+
+
+def _tma_rows(inner: int, outer: int, s_inner: int, s_outer: int, ptr: int) -> Optional[int]:
+    """The row stride a TMA tensor map reads a 16-bit (outer, inner) view at,
+    inner contiguous: its own if the inner index has stride 1 (or one
+    element), the base is 16-byte aligned and the outer stride is a multiple
+    of 16 bytes and at least inner (or one row: then any legal stride);
+    None if TMA cannot read the view as it lies."""
+    if ptr % 16 or not (inner == 1 or s_inner == 1):
+        return None
+    if outer == 1:
+        return -(-inner // 8) * 8
+    return s_outer if s_outer % 8 == 0 and s_outer >= inner else None
+
+
+def matmul_operand_plan(which: str, shape, strides, ptr: int, itemsize: int) -> MatmulOperand:
+    """Whether operand ``which`` ("a": (m, k); "b": (k, n)) goes to the GEMM
+    core in place or through the pack, as a pure function of the view.
+
+    In place takes a 16-bit operand that a TMA tensor map reads as it lies
+    (``_tma_rows``): A with k contiguous; B with k contiguous (K-major) or,
+    failing that, n contiguous (MN-major, a row-major B).  Anything else, and
+    every f32 operand (split into three bf16 planes), is packed K-major at
+    row stride k rounded up to 8 elements (16 bytes), the planes one after
+    the other."""
+    if which == "a":
+        (rows, k), (s_row, s_k) = shape, strides
+    elif which == "b":
+        (k, rows), (s_k, s_row) = shape, strides
+    else:
+        raise ValueError(f"matmul_operand_plan: operand 'a' or 'b', got {which!r}")
+    if itemsize == 2:
+        ld = _tma_rows(k, rows, s_k, s_row, ptr)
+        if ld is not None:
+            return MatmulOperand(True, True, 1, ld, rows * ld)
+        ld = _tma_rows(rows, k, s_row, s_k, ptr) if which == "b" else None
+        if ld is not None:
+            return MatmulOperand(True, False, 1, ld, k * ld)
+    ld = -(-k // 8) * 8
+    return MatmulOperand(False, True, 3 if itemsize == 4 else 1, ld, rows * ld)
+
+
+def _matmul_plan(t: torch.Tensor, which: str) -> MatmulOperand:
+    return matmul_operand_plan(which, t.shape, t.stride(), t.data_ptr(), t.element_size())
 
 
 def _check_matmul(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -1198,22 +1263,57 @@ def matmul_pallas_plain(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int
     return acc.to(a.dtype)[:m, :n]
 
 
-def _matmul_fn(dtype: torch.dtype):
-    fn = getattr(_build.load("matmul"), _MATMUL_DTYPES[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 7 + [ctypes.c_void_p]
+def _matmul_fn(name: str, nargs: str):
+    """matmul.cu's ``name``: an int dtype code, then pointers (c_void_p),
+    sizes (c_longlong) and flags (c_int) as ``nargs`` gives them ("p" / "i"
+    / "f"), then the stream."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_longlong, "f": ctypes.c_int}
+    fn = getattr(_build.load("matmul"), name)
+    fn.argtypes = [ctypes.c_int] + [kinds[x] for x in nargs] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _matmul_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        cause = ("no CUDA driver found" if rc == -1 else f"tensor map refused, CUresult {-1 - rc}"
+                 if rc < 0 else f"CUDA error {rc}")
+        raise RuntimeError(f"matmul_pallas: {what} failed: {cause}")
+
+
+def matmul_pack(t: torch.Tensor, which: str) -> torch.Tensor:
+    """The K-major planes of operand ``which`` of a CUDA tensor, as the pack
+    kernel writes them: a (planes, rows, ld) tensor of the core's 16-bit
+    dtype (rows m for "a", n for "b"; columns k..ld-1 are padding).  One
+    launch of the pack kernel, whatever the plan says (the wrapper packs only
+    what the plan does not take in place); counted in ``matmul_pack.launches``."""
+    k, rows = (t.shape[1], t.shape[0]) if which == "a" else t.shape
+    s_row, s_k = (t.stride(0), t.stride(1)) if which == "a" else (t.stride(1), t.stride(0))
+    ld = -(-k // 8) * 8
+    planes = 3 if t.dtype == torch.float32 else 1
+    out = torch.empty((planes, rows, ld), dtype=_MATMUL_PLANE_DTYPE[t.dtype], device=t.device)
+    fn = _matmul_fn("matmul_pack", "ppiiiiii")
+    with torch.cuda.device(t.device):
+        rc = fn(_MATMUL_DTYPES[t.dtype], t.data_ptr(), out.data_ptr(), rows, k, s_row, s_k, ld,
+                rows * ld, torch.cuda.current_stream().cuda_stream)
+    _matmul_rc(rc, "the pack kernel's launch")
+    matmul_pack.launches += 1
+    return out
+
+
+matmul_pack.launches = 0
 
 
 def matmul_pallas(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512,
                   bk: int = 512) -> torch.Tensor:
     """C = A @ B, products summed in f32, C in ``a.dtype`` (the port of
     ``matmul_pallas``; ``ops.matmul.matmul_pallas`` is the public entry and
-    clamps the blocks).  A
-    CPU tensor takes :func:`matmul_pallas_plain`.  A CUDA tensor (f32, bf16
-    or f16, any strides) launches ``csrc/matmul.cu`` once
-    (``matmul_pallas.launches``), whose tile is its own (the blocks are
-    the twin's), or the call raises."""
+    clamps the blocks).  A CPU tensor takes :func:`matmul_pallas_plain`.  A
+    CUDA tensor (f32, bf16 or f16, any strides) runs ``csrc/matmul.cu``: the
+    pack kernel for each operand :func:`matmul_operand_plan` does not take
+    in place, then the GEMM core (f32 as six bf16 plane products), counted
+    once per call in ``matmul_pallas.launches`` (its tile is its own; the
+    blocks are the twin's), or the call raises."""
     if a.device.type == "cpu":
         return matmul_pallas_plain(a, b, bm, bn, bk)
     _check_matmul(a, b)
@@ -1224,15 +1324,32 @@ def matmul_pallas(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return c  # nothing to launch, nothing counted
-    fn = _matmul_fn(a.dtype)
+    forms = []  # (tensor the core reads, row stride, plane stride, k-major) of a and b
+    for t, which in ((a, "a"), (b, "b")):
+        plan = _matmul_plan(t, which)
+        if k == 0:
+            forms.append((None, 0, 0, True))  # the core reads nothing and writes zeros
+        elif plan.in_place:
+            forms.append((t, plan.ld, plan.plane_stride, plan.k_major))
+        else:
+            forms.append((matmul_pack(t, which), plan.ld, plan.plane_stride, True))
+    (ta, a_ld, a_ps, _), (tb, b_ld, b_ps, b_k_major) = forms
+    fn = _matmul_fn("matmul_core", "piipiifpiii")
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, *a.stride(), *b.stride(),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"matmul_pallas: kernel launch failed with CUDA error {rc}")
+        rc = fn(_MATMUL_DTYPES[a.dtype], ta.data_ptr() if ta is not None else None, a_ld, a_ps,
+                tb.data_ptr() if tb is not None else None, b_ld, b_ps, int(not b_k_major),
+                c.data_ptr(), m, n, k, torch.cuda.current_stream().cuda_stream)
+    _matmul_rc(rc, "the GEMM core's launch")
     matmul_pallas.launches += 1
     return c
 
 
 matmul_pallas.launches = 0
+
+
+def matmul_core_smem_bytes(dtype: torch.dtype, k: int) -> int:
+    """The GEMM core's dynamic shared memory for ``dtype`` at depth ``k``
+    (bytes; the f32 form's stage depth follows k)."""
+    fn = _build.load("matmul").matmul_core_smem
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_longlong], ctypes.c_int
+    return fn(_MATMUL_DTYPES[dtype], k)

@@ -32,9 +32,10 @@ names, so a test can force each branch by monkeypatching as
   (PERF.md times both forms on the card).
   ``f64_emulation()`` is the global opt-out.  The gate reads 2-D operands
   only (a batched product never takes the branch);
-- :func:`matmul_pallas`, the blocked GEMM with an f32 accumulator (the
-  port of ``slate_tpu/ops/matmul.py:73``'s Pallas kernel, on
-  ``csrc/matmul.cu``).  ``_use_pallas`` stays False, as in ``slate_tpu``:
+- :func:`matmul_pallas`, the GEMM with an f32 accumulator (the port of
+  ``slate_tpu/ops/matmul.py:73``'s Pallas kernel, on ``csrc/matmul.cu``'s
+  tensor-core core; f32 as six bf16 plane products, as HIGHEST computes
+  them on the TPU).  ``_use_pallas`` stays False, as in ``slate_tpu``:
   the default dispatch never takes it.
 """
 
@@ -94,14 +95,15 @@ def pallas_blocks(m: int, k: int, n: int, bm: int = 512, bn: int = 512,
 
 def matmul_pallas(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512,
                   bk: int = 512) -> torch.Tensor:
-    """C = A @ B with the products summed in full f32 and C in ``a.dtype``:
+    """C = A @ B with the products summed in f32 and C in ``a.dtype``:
     the blocked GEMM of ``slate_tpu``'s ``matmul_pallas``.  ``bm``, ``bn``
     and ``bk`` keep its clamp (:func:`pallas_blocks`); the plain twin pads
     to those blocks, the CUDA kernel picks its own tile and masks the
     ragged edges, and no padding shows in the result.  f32, bf16 and f16
     operands; f64 and complex raise ``TypeError`` (the TPU's Mosaic takes
     neither).  A CPU tensor takes ``ops.kernels.matmul_pallas_plain``, a
-    CUDA tensor launches ``csrc/matmul.cu`` or raises."""
+    CUDA tensor runs ``csrc/matmul.cu`` (TMA + wgmma; f32 operands as six
+    bf16 plane products) or raises."""
     from .kernels import _check_matmul, matmul_pallas as _kernel
 
     _check_matmul(a, b)

@@ -10,7 +10,9 @@ stack (so a test can feed one package's factor to the other's solves), and
 ``lufactors_from_numpy`` single-chip LU factors, and ``ozaki_split_from_numpy``
 an Ozaki digit-plane split (for ``gemm_summa_ozaki(a_split=...)``).
 ``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin,
-``matmul_pallas_excess`` the blocked GEMM to its twin, and
+``matmul_pallas_excess`` the blocked GEMM to its twin (``bf16_planes``
+and ``matmul_split6_model`` model its f32 form, ``matmul_split6_reading``
+holds it to them), and
 ``refine_gate_ok`` a solve to the mixed-precision refinement's gate.
 """
 
@@ -445,6 +447,98 @@ def matmul_pallas_excess(a: torch.Tensor, b: torch.Tensor, got: torch.Tensor,
         ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / tol)
         worst = max(worst, float(ratio.max()))
     return worst
+
+
+# csrc/matmul.cu's f32 form: the plane pairs (A plane, B plane) of a k slab,
+# in the order the core sums them (its kPlaneA / kPlaneB), and the slab depth
+MATMUL_PLANE_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+MATMUL_SLAB = 64
+
+
+def bf16_planes(x: torch.Tensor) -> torch.Tensor:
+    """The three-plane split of csrc/matmul.cu's pack kernel, in plain
+    PyTorch: (3, *x.shape) f32 values, each exact in bf16.  Each plane is the
+    leading 16 bits of the f32 word of what the planes before it left (the
+    leading 8 significant bits, rounded toward zero), so x0 + x1 + x2 == x
+    for finite |x| >= 2^-110, and every plane has x's sign or is zero.  NaN
+    and +-inf go whole into plane 0 (NaN as the quiet NaN 0x7fc0), with zero
+    planes below.  A testing model, never on a path."""
+    x = x.float()
+    top = torch.tensor(-65536, dtype=torch.int32)  # 0xffff0000
+
+    def trunc16(v):
+        return (v.view(torch.int32) & top).view(torch.float32)
+
+    x0 = trunc16(x)
+    r1 = x - x0
+    x1 = trunc16(r1)
+    x2 = trunc16(r1 - x1)
+    bad = ~torch.isfinite(x)
+    zero = torch.zeros_like(x)
+    x0 = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), torch.where(bad, x, x0))
+    return torch.stack([x0, torch.where(bad, zero, x1), torch.where(bad, zero, x2)])
+
+
+def matmul_split6_model(a: torch.Tensor, b: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """csrc/matmul.cu's f32 product in plain PyTorch: per 64-deep k slab, the
+    six plane products of MATMUL_PLANE_PAIRS summed in that order in f32,
+    each slab's sum then added to the running f32 sum in k order.  (The
+    tensor cores sum a product's 16 terms in their own way, so the card
+    differs in rounding, not in what is summed.  The plane products are
+    exact in TF32 too, so the TF32 flag does not matter.)  ``dtype`` f64
+    gives the same six-product sum without the f32 rounding.  A testing
+    model, never on a path."""
+    pa, pb = bf16_planes(a).to(dtype), bf16_planes(b).to(dtype)
+    m, k = a.shape
+    total = torch.zeros((m, b.shape[1]), dtype=dtype, device=a.device)
+    for k0 in range(0, k, MATMUL_SLAB):
+        sl = slice(k0, k0 + MATMUL_SLAB)
+        slab = torch.zeros_like(total)
+        for i, j in MATMUL_PLANE_PAIRS:
+            slab += pa[i][:, sl] @ pb[j][sl]
+        total += slab
+    return total
+
+
+# the f32 form's second-order plane pairs, the smallest terms it sums
+MATMUL_SPLIT6_SECOND = tuple((i, j) for i, j in MATMUL_PLANE_PAIRS if i + j == 2)
+# The f32 form's limit for matmul_split6_reading.  It must sit between the
+# sound kernel's reading and the reading of its C with one second-order
+# plane pair dropped, which is near 1 by construction.  On an H100 the
+# kernel read 0.005-0.077 (k = 3 to 8192; 0.077 at 8192^3) and its C with a
+# pair dropped 0.994-1.295 (PERF.md).
+MATMUL_SPLIT6_LIMIT = 0.5
+
+
+def matmul_split6_reading(a: torch.Tensor, b: torch.Tensor, got: torch.Tensor,
+                          rows: int = 4096) -> tuple:
+    """How far an f32 product ``got`` of ``a @ b`` lies from the six plane
+    products csrc/matmul.cu's f32 form sums (``matmul_split6_model`` in f64),
+    in units of the smallest term it must keep: max |got - M| over the least,
+    among the second-order plane pairs (x0y2, x1y1, x2y0), of the pair
+    product's largest entry.  The elementwise twin tolerance
+    (``matmul_pallas_excess``) passes a C that drops such a pair, or a TF32
+    product; this reading does not (``MATMUL_SPLIT6_LIMIT``).  Returns
+    (reading, {"x{i}y{j}": reading of ``got`` minus that pair's product}),
+    the planted faults.  Works through ``rows`` rows of A at a time, in f64
+    on ``a``'s device; finite operands with nonzero lower planes."""
+    a, b = a.float(), b.float()
+    pa, pb = bf16_planes(a).double(), bf16_planes(b).double()
+    worst, faults = 0.0, {p: 0.0 for p in MATMUL_SPLIT6_SECOND}
+    pair_max = dict(faults)
+    for r0 in range(0, a.shape[0], rows):
+        r1 = min(r0 + rows, a.shape[0])
+        diff = got[r0:r1].double() - matmul_split6_model(a[r0:r1], b, torch.float64)
+        worst = max(worst, float(diff.abs().max()))
+        for i, j in MATMUL_SPLIT6_SECOND:
+            term = pa[i][r0:r1] @ pb[j]
+            pair_max[(i, j)] = max(pair_max[(i, j)], float(term.abs().max()))
+            faults[(i, j)] = max(faults[(i, j)], float((diff - term).abs().max()))
+            del term
+        del diff
+    scale = min(pair_max.values())
+    return worst / scale, {f"x{i}y{j}": v / scale for (i, j), v in faults.items()}
 
 
 def refine_gate_ok(a, x, b) -> bool:

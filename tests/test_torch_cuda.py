@@ -906,13 +906,19 @@ def test_ops_transpose_takes_the_kernel_through_the_gate(card):
 # ---------------------------------------------------------------------------
 
 
+MATMUL_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("shape", [(1000, 777, 1234), (17, 3, 5), (300, 1, 129), (129, 2048, 257)])
+@pytest.mark.parametrize("dtype", MATMUL_DTYPES)
+@pytest.mark.parametrize("shape", [(1000, 777, 1234), (17, 3, 5), (300, 1, 129), (129, 2048, 257),
+                                   (32768, 256, 32768)])
 def test_matmul_pallas_kernel_matches_its_twin(card, dtype, shape):
     """The kernel against its twin within utils.testing.matmul_pallas_excess
     (9 sqrt(k) eps32 |A||B| elementwise, plus one output ulp for bf16/f16),
-    one launch per call, any strides."""
+    one launch per call, any strides, and a second call bitwise the first
+    (no atomics, one k order).  (32768, 256, 32768) is the factorizations'
+    thin-k rank update."""
     from slate_tpu_torch.ops.matmul import matmul_pallas, pallas_blocks
     from slate_tpu_torch.utils.testing import matmul_pallas_excess
 
@@ -924,10 +930,164 @@ def test_matmul_pallas_kernel_matches_its_twin(card, dtype, shape):
     torch.cuda.synchronize()
     assert tk.matmul_pallas.launches - before == 1
     assert c.shape == (m, n) and c.dtype == dtype
+    assert torch.equal(matmul_pallas(a, b), c)
     want = tk.matmul_pallas_plain(a, b, *pallas_blocks(m, k, n))
     assert matmul_pallas_excess(a, b, c, want) <= 1.0
     ct = matmul_pallas(a.T.contiguous().T, b.T.contiguous().T)  # column-major operands
     assert matmul_pallas_excess(a, b, ct, want) <= 1.0
+
+
+def _matmul_views(dtype, seed):
+    """(name, a, b, a's path, b's path) operand views, a path being "k" (in
+    place, k contiguous), "mn" (in place, a row-major B) or "pack": each
+    16-bit operand goes to the core in place exactly where TMA can read it."""
+    big_a = _randn((401, 530), torch.float32, seed).to(dtype)
+    big_b = _randn((530, 1300), torch.float32, seed + 1).to(dtype)
+    wide_b = _randn((520, 1304), torch.float32, seed + 3).to(dtype)  # rows of 1304 elements
+    bt = _randn((1234, 512), torch.float32, seed + 2).to(dtype)
+    return [
+        ("row_major", big_a[:, :512].contiguous(), big_b[:512, :1234].contiguous(), "k", "pack"),
+        ("row_major_b", big_a[:, :512].contiguous(), big_b[:512, :1000].contiguous(), "k", "mn"),
+        ("col_major", big_a[:, :512].T.contiguous().T, bt.T, "pack", "k"),
+        ("offset", big_a[1:, 3:], big_b[3:, 5:], "pack", "pack"),  # bases off 16 bytes
+        ("offset_b", big_a[:, 8:520], wide_b[2:514, 8:1008], "pack", "mn"),  # a row stride of 530
+        ("odd_n", big_a[:, :512].contiguous(), big_b[:512, :777].contiguous(), "k", "pack"),
+        ("strided", big_a[::2, ::3], big_b[::3, ::2], "pack", "pack"),
+        ("b_transposed", big_a[:, 8:520], bt.T, "pack", "k"),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MATMUL_DTYPES)
+def test_matmul_pallas_any_layout(card, dtype):
+    """Offset views, odd strides, an odd n, a transposed B, a row-major B
+    read MN-major: each operand takes the path matmul_operand_plan gives it,
+    and C holds to the twin."""
+    from slate_tpu_torch.ops.matmul import matmul_pallas, pallas_blocks
+    from slate_tpu_torch.utils.testing import matmul_pallas_excess
+
+    paths = {"k": (True, True), "mn": (True, False), "pack": (False, True)}
+    for name, a, b, a_path, b_path in _matmul_views(dtype, 30):
+        if dtype == torch.float32:
+            a_path = b_path = "pack"
+        plan_a, plan_b = tk._matmul_plan(a, "a"), tk._matmul_plan(b, "b")
+        assert (plan_a.in_place, plan_a.k_major) == paths[a_path], name
+        assert (plan_b.in_place, plan_b.k_major) == paths[b_path], name
+        packs = tk.matmul_pack.launches
+        c = matmul_pallas(a, b)
+        torch.cuda.synchronize()
+        assert tk.matmul_pack.launches - packs == (a_path == "pack") + (b_path == "pack"), name
+        want = tk.matmul_pallas_plain(a, b, *pallas_blocks(a.shape[0], a.shape[1], b.shape[1]))
+        assert matmul_pallas_excess(a, b, c, want) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MATMUL_DTYPES)
+def test_matmul_pack_matches_its_model(card, dtype):
+    """The pack kernel's K-major planes, bitwise: utils.testing.bf16_planes
+    of the operand for f32 (NaN, +-inf, zeros and huge values included), the
+    operand itself for bf16 / f16."""
+    from slate_tpu_torch.utils.testing import bf16_planes
+
+    for name, a, b, _, _ in _matmul_views(dtype, 40):
+        if dtype == torch.float32:
+            a = a.clone()
+            a[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0])
+            a[1, :3] = torch.tensor([3.4e38, -3.4e38, 2.0 ** -120])
+        for t, which in ((a, "a"), (b, "b")):
+            planes = tk.matmul_pack(t, which)
+            kmajor = t if which == "a" else t.T
+            k = kmajor.shape[1]
+            got = planes[:, :, :k]
+            if dtype == torch.float32:
+                want = bf16_planes(kmajor)
+                assert got.shape == want.shape
+                same = (got.float() == want) | (got.float().isnan() & want.isnan())
+                assert bool(same.all()), (name, which)
+            else:
+                assert got.shape == (1, *kmajor.shape)
+                assert torch.equal(got[0], kmajor), (name, which)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MATMUL_DTYPES)
+def test_matmul_pallas_nan_and_inf(card, dtype):
+    """NaN propagates exactly where the twin's does.  bf16/f16: the +-inf
+    pattern is the twin's too.  f32: an inf goes whole into plane 0 with zero
+    planes below, so where the other operand's value is exact in bf16 (zero
+    lower planes) 0 * inf reads NaN where the twin reads +-inf: the kernel's
+    non-finite pattern is the six-product model's (utils.testing.
+    matmul_split6_model), signs included."""
+    from slate_tpu_torch.utils.testing import matmul_split6_model
+
+    a = _randn((200, 300), torch.float32, 50).to(dtype)
+    b = _randn((300, 150), torch.float32, 51).to(dtype)
+    a[3, 7] = float("nan")
+    a[5, 11] = float("inf")
+    a[9, 13] = -float("inf")
+    b[20, 40] = float("inf")
+    b[:, 60] = b[:, 60].to(torch.bfloat16).to(dtype)  # exact in bf16: zero lower planes
+    b[11, 70] = 1.0
+    c = tk.matmul_pallas(a, b)
+    want = tk.matmul_pallas_plain(a, b)
+    assert torch.equal(c.isnan() & want.isnan(), want.isnan())  # NaN wherever the twin's is
+    if dtype == torch.float32:
+        model = matmul_split6_model(a, b)
+        assert torch.equal(c.isnan(), model.isnan())
+        assert torch.equal(c.isinf(), model.isinf())
+        assert torch.equal(c[c.isinf()], model[model.isinf()])
+        assert bool(c[5, 60].isnan()) and bool(want[5, 60].isinf())  # 0 * inf: NaN, the twin inf
+    else:
+        assert torch.equal(c.isnan(), want.isnan())
+        assert torch.equal(c.isinf(), want.isinf())
+        assert torch.equal(c[c.isinf()], want[want.isinf()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(17, 3, 5), (300, 256, 400), (129, 2048, 257), (1000, 777, 1234),
+                                   (64, 8192, 96)])
+def test_matmul_pallas_f32_matches_split6_model(card, shape):
+    """The f32 form against the six plane products it sums
+    (utils.testing.matmul_split6_reading), at both stage depths (k <= 256
+    and above): within MATMUL_SPLIT6_LIMIT, while the kernel's C with any
+    one second-order plane pair dropped, and a TF32-like product (operands
+    cut to TF32's 10 mantissa bits), read above it.  The twin tolerance
+    passes both of those."""
+    from slate_tpu_torch.utils.testing import MATMUL_SPLIT6_LIMIT, matmul_split6_reading
+
+    m, k, n = shape
+    a = _randn((m, k), torch.float32, 70)
+    b = _randn((k, n), torch.float32, 71)
+    c = tk.matmul_pallas(a, b)
+    reading, faults = matmul_split6_reading(a, b, c)
+    cut = torch.tensor(-8192, dtype=torch.int32, device="cuda")  # 0xffffe000: 10 mantissa bits
+    tf32 = (a.view(torch.int32) & cut).view(torch.float32) @ (b.view(torch.int32) & cut).view(torch.float32)
+    tf32_reading = matmul_split6_reading(a, b, tf32)[0]
+    print(f"split6 {shape}: kernel {reading:.4f}, dropped pair {faults}, tf32 {tf32_reading:.1f}")
+    assert reading <= MATMUL_SPLIT6_LIMIT
+    assert min(faults.values()) > MATMUL_SPLIT6_LIMIT
+    assert tf32_reading > MATMUL_SPLIT6_LIMIT
+
+
+@pytest.mark.cuda
+def test_matmul_pallas_tiny_f32(card):
+    """f32 values near 2^-115, below the range (|x| >= 2^-110) where the
+    three bf16 planes hold every bit: the lowest plane is a bf16 subnormal
+    (under 2^-126).  The tensor cores keep bf16 subnormals: the kernel's
+    error from the exact product is the split's own, as the model's (which
+    keeps them) is, ~2^-21 of max |A||B| (H100: 5.66e-7 against the
+    model's 5.56e-7); flushing the lowest plane would read ~2^-16."""
+    from slate_tpu_torch.utils.testing import matmul_split6_model
+
+    a = _randn((256, 512), torch.float32, 60) * 2.0 ** -115
+    b = _randn((512, 256), torch.float32, 61)
+    c = tk.matmul_pallas(a, b).double()
+    exact = a.double() @ b.double()
+    scale = float((a.double().abs() @ b.double().abs()).max())
+    model = matmul_split6_model(a, b).double()
+    err, model_err = float((c - exact).abs().max()) / scale, float((model - exact).abs().max()) / scale
+    print(f"tiny f32: kernel {err:.3e}, model {model_err:.3e} of max|A||B|")
+    assert err <= 2.0 ** -20
 
 
 @pytest.mark.cuda
