@@ -11,7 +11,7 @@ printing one JSON line before the next starts (any failure exits non-zero):
            per source, all started together (seconds); then ptxas: each
            kernel's registers, spilled bytes and static shared memory from
            the build logs, and the matmul core's dynamic shared memory (a
-           spill in tile_gemm, ft_summa_update or matmul fails);
+           spill in tile_gemm, ft_summa_update, matmul or tile_ops fails);
 3. kernel: chol_diag_inv against its plain twin at nb = 256, f32 and f64
            (L and L^-1 each at its own scale, L L^T = A and L X = I by
            reconstruction, a non-SPD block NaN from the same column), with
@@ -124,7 +124,17 @@ printing one JSON line before the next starts (any failure exits non-zero):
    their twins, f32 and bf16, at the (16384, 256, 256) tile stack of an
    n = 32768 matrix and a small mb != nb stack with a NaN tile (transpose
    and genorm_max bitwise, NaN included; geadd within eps (|alpha a| +
-   |beta b|)), with kernel, twin and library times and the bound;
+   |beta b|)), with kernel, twin and library times, the bound and a copy
+   of the stack as the card's copy rate; then the stacks that reach every
+   path of csrc/tile_ops.cu (TILE_EDGES: an aligned ragged stack, a
+   misaligned a[1:] view, a whole-vector stack one word off, k > 65535 of
+   two- and eight-row tiles; TILE_SPECIAL: NaN in a vector's last lane and
+   a peeled head and tail, +-inf, -0.0, subnormals), each one launch a
+   kernel, bitwise, printing the path the host rule names and the one the
+   source picks (they must agree); then kernel_tile_max_split: the max's
+   two splits (a CTA a tile, a warp a tile) both timed on 256 MiB stacks
+   of 512 B to 128 KB tiles, on a 12-tile stack and on the full stack,
+   each bitwise the twin, beside the split the host rule picks;
 27. tile_transpose: slate_tpu_torch.ops.transpose on that stack, f32 and
    bf16: one transpose_tiles launch each, bitwise the swapped axes; a k = 4
    stack (below the gate) launches nothing;
@@ -2259,37 +2269,142 @@ def geadd_excess(g, gp, a, b, dtype, torch, chunk=1024):
     return worst, err
 
 
-def tile_checks(kernels, a, b, dtype, torch):
-    """The three kernels against their twins on one stack: (transpose and
-    genorm_max equal as bits / NaN patterns, geadd excess, max abs errs)."""
-    bits = getattr(torch, TILE_BITS[dname(dtype)])
+def tile_checks(kernels, testing, a, b, dtype, torch):
+    """The three kernels against their twins on one stack: (transpose equal
+    as words, genorm_max equal as words where not NaN and NaN at the same
+    tiles, geadd excess, max abs errs), the launches of each call, the
+    transpose's path (the host rule's and the source's own) and the max's
+    split (the host's, which the launch takes)."""
+    counted = ("transpose_tiles", "genorm_max_tiles", "geadd_tiles")
+    before = [getattr(kernels, w).launches for w in counted]
     t, tp = kernels.transpose_tiles(a), kernels.transpose_tiles_plain(a)
-    same_t = bool(torch.equal(t.view(bits), tp.view(bits)))
+    same_t = testing.tile_bits_equal(t, tp)
+    rule = {"transpose": kernels.tile_path("transpose", a.shape, a.element_size(), a.data_ptr(),
+                                           t.data_ptr()),
+            "genorm_max": kernels.tile_path("genorm_max", a.shape, a.element_size(),
+                                            a.data_ptr())}
+    paths = {"transpose": [rule["transpose"].name, kernels.transpose_path_on_card(a, t)]}
     del t, tp
     n, np_ = kernels.genorm_max_tiles(a), kernels.genorm_max_tiles_plain(a)
-    same_n = bool(torch.equal(torch.isnan(n), torch.isnan(np_))
-                  and torch.equal(n.nan_to_num(), np_.nan_to_num()))
+    same_n = testing.tile_max_equal(n, np_)
     nan_tiles = int(torch.isnan(n).sum())
     g = kernels.geadd_tiles(TILE_ALPHA, a, TILE_BETA, b)
     gp = kernels.geadd_tiles_plain(TILE_ALPHA, a, TILE_BETA, b)
     torch.cuda.synchronize()
+    launches = [getattr(kernels, w).launches - x for w, x in zip(counted, before)]
     excess, err = geadd_excess(g, gp, a, b, dtype, torch)
     return {"transpose_bitwise": same_t, "genorm_max_bitwise": same_n, "nan_tiles": nan_tiles,
-            "geadd_excess": excess, "geadd_max_abs_err": err}
+            "geadd_excess": excess, "geadd_max_abs_err": err, "launches": launches,
+            "paths": paths, "max_split": rule["genorm_max"].name,
+            "ragged": [rule["transpose"].ragged, rule["genorm_max"].ragged]}
 
 
-def kernel_tile_phase(dtype, kernels, torch):
+# (label, shape, offset in words): the stacks that reach every path of the
+# transpose (vec16 whole and masked, scalar) and the max (a CTA or a warp a
+# tile, tiles peeled or not); the special-value stacks of
+# utils.testing.tile_special_stack the same way
+TILE_EDGES = (("aligned_ragged", (10, 136, 264), 0),
+              ("misaligned_view", (8, 100, 37), 3700),  # a[1:] of (9, 100, 37)
+              ("offset_view", (9, 64, 136), 1),
+              ("k_over_65535_scalar", (70000, 2, 128), 0),
+              ("k_over_65535_vec16", (66000, 8, 128), 0))
+TILE_SPECIAL = (("special_vec16_cta", (12, 64, 136), 0),
+                ("special_scalar_peeled", (12, 37, 129), 1),
+                ("special_vec16_warp", (12, 8, 128), 0))
+
+
+def tile_edges_phase(dtype, kernels, testing, torch):
+    """TILE_EDGES and TILE_SPECIAL against the twins: one launch a kernel,
+    transpose and genorm_max bitwise, geadd within its excess, the host's
+    path the source's."""
+    name = dname(dtype)
+    out = {}
+    for label, shape, offset in TILE_EDGES + TILE_SPECIAL:
+        if label.startswith("special"):
+            a = testing.tile_special_stack(shape, dtype, offset, seed=SEED + 95)
+        else:  # made on the card: k > 65535 stacks hold 18-68 M words
+            n = math.prod(shape)
+            a = randn((offset + n,), torch.float32, SEED + 94, torch).to(dtype)[offset:]
+            a = a.view(shape)
+            a[1, 0, 2] = float("nan")
+        b = randn(shape, torch.float32, SEED + 96, torch).to(dtype)
+        c = tile_checks(kernels, testing, a, b, dtype, torch)
+        c.update(shape=list(shape), offset_words=offset, base_mod16=a.data_ptr() % 16)
+        out[label] = c
+        del a, b
+    emit({"phase": f"kernel_tile_edges_{name}", "cases": out})
+    for label, c in out.items():
+        check(c["transpose_bitwise"] and c["genorm_max_bitwise"],
+              f"tile kernels {name} {label}: not the twins' words")
+        check(c["geadd_excess"] <= 1.0, f"geadd_tiles {name} {label}: {c['geadd_excess']}")
+        check(c["launches"] == [1, 1, 1], f"tile kernels {name} {label}: {c['launches']} launches")
+        for kern, (host, card) in c["paths"].items():
+            check(host == card, f"{kern} {name} {label}: host rule {host}, source {card}")
+        want_nan = 3 if label.startswith("special") else 1
+        check(c["nan_tiles"] == want_nan, f"genorm_max_tiles {name} {label}: {c['nan_tiles']} NaN")
+    torch.cuda.empty_cache()
+
+
+# (label, tile bytes, k): the max's splits timed against each other; the
+# sweep's stacks hold 256 MiB (5x the L2), "tiny" is launch-bound, "full" is
+# TILE_SHAPE
+TILE_SPLIT_MIB = 256
+TILE_SPLIT_BYTES = (512, 2048, 8192, 16384, 32768, 131072)
+
+
+def tile_max_split_phase(dtype, kernels, testing, torch):
+    """genorm_max_tiles' two work splits (a CTA a tile, a warp a tile),
+    each launched directly (not counted), timed by CUDA events and checked
+    bitwise against the twin, over tile sizes at a fixed stack size, a
+    12-tile stack and the full stack: the readings behind
+    kernels.TILE_MAX_CTA_BYTES."""
+    name = dname(dtype)
+    s = torch.tensor([], dtype=dtype).element_size()
+    nb = 128
+    cases = [(f"tile_{t}B", (TILE_SPLIT_MIB * 2 ** 20 // t, t // (nb * s), nb))
+             for t in TILE_SPLIT_BYTES if t >= nb * s]
+    cases += [("tiny", (12, 8, 128)), ("full", TILE_SHAPE)]
+    codes = kernels._TILE_PATH_CODES["genorm_max"]
+    out = {}
+    for label, shape in cases:
+        a = randn(shape, torch.float32, SEED + 97, torch).to(dtype)
+        a[shape[0] // 2, 0, 1] = float("nan")
+        want = kernels.genorm_max_tiles_plain(a)
+        row = {"shape": list(shape), "tile_bytes": shape[1] * shape[2] * s,
+               "rule": kernels.tile_path("genorm_max", shape, s, a.data_ptr()).name}
+        for split in codes:
+            got = torch.empty((shape[0],), dtype=dtype, device="cuda")
+
+            def launch():
+                kernels._launch_tiles("genorm_max_tiles", "genorm_max", dtype, a.device,
+                                      a.data_ptr(), got.data_ptr(), shape[0], shape[1] * shape[2],
+                                      codes.index(split))
+
+            row[f"{split}_ms"] = cuda_ms(launch, 10, torch)
+            row[f"{split}_bitwise"] = testing.tile_max_equal(got, want)
+        row["faster"] = min(codes, key=lambda c: row[f"{c}_ms"])
+        out[label] = row
+        del a, want, got
+        torch.cuda.empty_cache()
+    emit({"phase": f"kernel_tile_max_split_{name}", "cases": out})
+    for label, row in out.items():
+        for split in codes:
+            check(row[f"{split}_bitwise"], f"genorm_max {split} split {name} {label}: not the twin")
+
+
+def kernel_tile_phase(dtype, kernels, testing, torch):
     """The tile kernels against their twins at the (16384, 256, 256) stack
     and a small mb != nb stack with a NaN tile; kernel, twin and library ms
-    (CUDA events, L2 warm) and the bound.  geadd_tiles and genorm_max_tiles
-    have no consumer on a driver path (as in slate_tpu): their launches are
-    those of this phase's timed calls."""
+    (CUDA events, L2 warm: the stack is 43-86x the L2) and the bound, and a
+    copy of the stack (``clone``) as the card's copy rate in this run.
+    geadd_tiles and genorm_max_tiles have no consumer on a driver path (as
+    in slate_tpu): their launches are those of this phase's timed calls."""
     name = dname(dtype)
     small_a, small_b = tile_stacks(TILE_SMALL, dtype, SEED + 92, torch)
     small_a[4, 7, 11] = float("nan")
-    small = tile_checks(kernels, small_a, small_b, dtype, torch)
+    small = tile_checks(kernels, testing, small_a, small_b, dtype, torch)
     a, b = tile_stacks(TILE_SHAPE, dtype, SEED + 90, torch)
-    big = tile_checks(kernels, a, b, dtype, torch)
+    big = tile_checks(kernels, testing, a, b, dtype, torch)
     k, mb, nb = TILE_SHAPE
     s = a.element_size()
     elems = k * mb * nb
@@ -2327,13 +2442,20 @@ def kernel_tile_phase(dtype, kernels, torch):
         row["launches"] = timed_launches
         rows.append(row)
         times[kname] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "share_of_bound": row["bound_ms"] / ms}
+    # the card's copy rate in this run: a copy moves the transpose's bytes
+    copy_ms = cuda_ms(lambda: a.clone(), 10, torch)
+    copy = {"ms": copy_ms, "bytes": 2 * elems * s, "TB_s": 2 * elems * s / copy_ms / 1e9}
     emit({"phase": f"kernel_tile_{name}", "shape": list(TILE_SHAPE), "small": small, "big": big,
-          "times": times})
+          "times": times, "copy": copy})
     for part in (small, big):
         check(part["transpose_bitwise"], f"transpose_tiles {name}: not the twin's bits")
         check(part["genorm_max_bitwise"], f"genorm_max_tiles {name}: not the twin's maxima")
         check(part["geadd_excess"] <= 1.0, f"geadd_tiles {name}: {part['geadd_excess']} eps scale")
+        check(part["launches"] == [1, 1, 1], f"tile kernels {name}: {part['launches']} launches")
+        for kern, (host, card) in part["paths"].items():
+            check(host == card, f"{kern} {name}: host rule {host}, source {card}")
     check(small["nan_tiles"] == 1, f"genorm_max_tiles {name}: {small['nan_tiles']} NaN tiles")
     del a, b
     torch.cuda.empty_cache()
@@ -3196,7 +3318,7 @@ def main():
                for _, _, k, _, name in MATMUL_CASES}
     emit({"phase": "ptxas", "kernels": ptxas, "qr_panel_dynamic_smem_bytes": qr_smem,
           "matmul_core_dynamic_smem_bytes": mm_smem})
-    for name in ("tile_gemm", "ft_summa_update", "matmul"):
+    for name in ("tile_gemm", "ft_summa_update", "matmul", "tile_ops"):
         spills = {k: v["spill_bytes"] for k, v in ptxas[name].items() if v["spill_bytes"]}
         check(ptxas[name] and not spills, f"ptxas: {name} spills {spills}")
 
@@ -3291,8 +3413,10 @@ def main():
     # solves and the mixed-precision solves
     tile_rows = {}
     for dt in (torch.float32, torch.bfloat16):
-        for row in kernel_tile_phase(dt, kernels, torch):
+        for row in kernel_tile_phase(dt, kernels, testing, torch):
             tile_rows[(row["name"].split("[")[0], dt)] = row
+        tile_edges_phase(dt, kernels, testing, torch)
+        tile_max_split_phase(dt, kernels, testing, torch)
     for dt in (torch.float32, torch.bfloat16):
         tile_rows[("transpose_tiles", dt)]["launches"] = tile_transpose_phase(dt, kernels, torch)
     for row in tile_rows.values():

@@ -40,7 +40,12 @@ Counterpart of ``slate_tpu/ops/pallas_ops.py``.  This module holds:
   :func:`genorm_max_tiles` (``genorm_max_pallas``), each with its
   ``*_plain`` twin, and their gate :func:`use_cuda_tiles` (the counterpart
   of ``use_pallas_tiles``, read by ``ops.tile_ops.transpose``).  These take
-  no Option: a CPU tensor takes the twin, a CUDA tensor the kernel.
+  no Option: a CPU tensor takes the twin, a CUDA tensor the kernel.  The
+  transpose and the max pick a path inside the one launch (16-byte vectors
+  where rows and pointers allow, else a general path); :func:`tile_path` is
+  the host's pure rule: the max's split is passed to the launch, the
+  transpose's path mirrors the source's, which :func:`transpose_path_on_card`
+  asks.
 
 Dispatch of the panel and update kernels: ``pallas`` and ``auto`` take the
 CUDA kernel for a CUDA tensor and the plain twin for a CPU tensor (the wrapper decides by the tensor's
@@ -1047,9 +1052,68 @@ def _tile_fn(kernel: str, dtype: torch.dtype):
     ll, vp = ctypes.c_longlong, ctypes.c_void_p
     fn.argtypes = {"transpose": [vp, vp, ll, ll, ll, vp],
                    "geadd": [vp, vp, vp, ctypes.c_double, ctypes.c_double, ll, vp],
-                   "genorm_max": [vp, vp, ll, ll, vp]}[kernel]
+                   "genorm_max": [vp, vp, ll, ll, ctypes.c_int, vp]}[kernel]
     fn.restype = ctypes.c_int
     return fn
+
+
+# csrc/tile_ops.cu's path rule: a 16-byte vector a thread access; the
+# transpose's vec16 block is 64 input rows of 128 bytes, its scalar block
+# 32 x 32; the max gives a tile of 16 KB or more a CTA of its own, a
+# smaller one a warp (where the two splits cross on the H100: chip_smoke.py's
+# kernel_tile_max_split phase times both, PERF.md)
+TILE_VEC_BYTES = 16
+TILE_VEC_ROWS, TILE_VEC_ROW_BYTES, TILE_SCALAR_BLOCK = 64, 128, 32
+TILE_MAX_CTA_BYTES = 16 * 256 * 4
+_TILE_PATH_CODES = {"transpose": ("scalar", "vec16"), "genorm_max": ("cta", "warp")}
+
+
+class TilePath(NamedTuple):
+    """The path a tile kernel of ``csrc/tile_ops.cu`` takes for one stack:
+    ``name`` (transpose: ``vec16`` or ``scalar``; genorm_max: ``cta``, a CTA
+    a tile, or ``warp``, a warp a tile), ``vec_bytes`` (the bytes a thread
+    moves in one global access of the body: 16, or the word on the scalar
+    transpose) and ``ragged`` (transpose: some block is cut by the tile's
+    edge and masked; genorm_max: some tile starts or ends off a 16-byte
+    boundary and peels its head or tail as single words)."""
+
+    name: str
+    vec_bytes: int
+    ragged: bool
+
+
+def tile_path(kernel: str, shape, itemsize: int, a_ptr: int, out_ptr: int = 0) -> TilePath:
+    """The path ``csrc/tile_ops.cu`` takes for a contiguous (k, mb, nb) stack
+    of ``itemsize`` byte words at ``a_ptr`` (the transpose's output at
+    ``out_ptr``).  The transpose takes vec16 when mb and nb are whole 16-byte
+    vectors and both pointers are 16-byte aligned, else scalar (the pure
+    mirror of the source's ``transpose_path``); the max takes a CTA a tile
+    from ``TILE_MAX_CTA_BYTES`` a tile, else a warp (the split
+    :func:`genorm_max_tiles` passes to the launch), and always reads each
+    tile's body 16 bytes at a time."""
+    k, mb, nb = shape
+    vec = TILE_VEC_BYTES // itemsize
+    if kernel == "transpose":
+        if mb % vec == 0 and nb % vec == 0 and a_ptr % 16 == 0 and out_ptr % 16 == 0:
+            cols = TILE_VEC_ROW_BYTES // itemsize
+            return TilePath("vec16", TILE_VEC_BYTES, bool(mb % TILE_VEC_ROWS or nb % cols))
+        blk = TILE_SCALAR_BLOCK
+        return TilePath("scalar", itemsize, bool(mb % blk or nb % blk))
+    if kernel == "genorm_max":
+        tile_bytes = mb * nb * itemsize
+        return TilePath("cta" if tile_bytes >= TILE_MAX_CTA_BYTES else "warp", TILE_VEC_BYTES,
+                        bool(a_ptr % 16 or tile_bytes % 16))
+    raise ValueError(f"tile_path: no path rule for {kernel!r}")
+
+
+def transpose_path_on_card(a: torch.Tensor, out: torch.Tensor) -> str:
+    """The path ``csrc/tile_ops.cu`` itself picks to transpose the stack
+    ``a`` into ``out``: the name :func:`tile_path` mirrors."""
+    fn = _build.load("tile_ops").tile_transpose_path
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    fn.argtypes, fn.restype = [vp, vp, ll, ll, ctypes.c_int], ctypes.c_int
+    code = fn(a.data_ptr(), out.data_ptr(), a.shape[1], a.shape[2], a.element_size())
+    return _TILE_PATH_CODES["transpose"][code]
 
 
 def _check_tiles(who: str, *stacks: torch.Tensor) -> None:
@@ -1154,8 +1218,9 @@ def genorm_max_tiles(a: torch.Tensor) -> torch.Tensor:
     _check_tiles("genorm_max_tiles", a)
     k, mb, nb = a.shape
     out = torch.empty((k,), dtype=a.dtype, device=a.device)
-    _launch_tiles("genorm_max_tiles", "genorm_max", a.dtype, a.device,
-                  a.data_ptr(), out.data_ptr(), k, mb * nb)
+    split = tile_path("genorm_max", a.shape, a.element_size(), a.data_ptr()).name
+    _launch_tiles("genorm_max_tiles", "genorm_max", a.dtype, a.device, a.data_ptr(),
+                  out.data_ptr(), k, mb * nb, _TILE_PATH_CODES["genorm_max"].index(split))
     genorm_max_tiles.launches += 1
     return out
 

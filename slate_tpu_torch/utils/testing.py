@@ -12,7 +12,10 @@ an Ozaki digit-plane split (for ``gemm_summa_ozaki(a_split=...)``).
 ``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin,
 ``matmul_pallas_excess`` the blocked GEMM to its twin (``bf16_planes``
 and ``matmul_split6_model`` model its f32 form, ``matmul_split6_reading``
-holds it to them), and
+holds it to them), ``tile_stack_at`` / ``tile_special_stack`` build the
+tile kernels' stacks at any word offset, with NaN, +-inf, -0.0 and
+subnormals placed against their 16-byte vectors, ``tile_bits_equal`` /
+``tile_max_equal`` compare their results as words, and
 ``refine_gate_ok`` a solve to the mixed-precision refinement's gate.
 """
 
@@ -591,3 +594,93 @@ def qr_rows_in_global(kernels, dtype: torch.dtype, bsz: int, m: int, w: int) -> 
     rpc = -(-m // nc)
     isz = torch.empty((), dtype=dtype).element_size()
     return kernels.qr_panel_smem_bytes(dtype, bsz, m, w) < rpc * 32 * isz
+
+
+# csrc/tile_ops.cu's stacks: the integer word of each dtype, and the special
+# tiles tile_special_stack plants, in tile order
+TILE_WORDS = {torch.float32: (torch.int32, 23), torch.bfloat16: (torch.int16, 7)}
+TILE_SPECIAL = ("neg_zero", "nan_last_lane", "nan_tail", "neg_nan_head", "pos_inf", "neg_inf",
+                "subnormal", "neg_zero_and_subnormal")
+
+
+def tile_stack_at(shape, dtype: torch.dtype, offset: int = 0, seed: int = 0,
+                  device="cuda") -> torch.Tensor:
+    """A contiguous (k, mb, nb) stack of N(0, 1) values (numpy, seeded)
+    rounded to ``dtype``, starting ``offset`` words into an allocation of its
+    own (which torch aligns to 64 bytes or more): ``offset`` 0 is 16-byte
+    aligned, ``a[1:]`` of a (k + 1, mb, nb) stack is offset mb nb."""
+    n = offset + math.prod(shape)
+    vals = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    flat = torch.empty(n, dtype=dtype, device=device)
+    flat.copy_(torch.from_numpy(vals))
+    return flat[offset:].view(shape)
+
+
+def _word(value: int, bits: int) -> int:
+    return value - (1 << bits) if value >= 1 << (bits - 1) else value
+
+
+def tile_special_stack(shape, dtype: torch.dtype, offset: int = 0, seed: int = 0,
+                       device="cuda") -> torch.Tensor:
+    """:func:`tile_stack_at` with ``TILE_SPECIAL``'s values planted in tiles
+    0-7 (k >= 8), placed against the 16-byte vectors csrc/tile_ops.cu's max
+    reads: a tile of only -0.0; a NaN in the last lane of the tile's last
+    whole vector; a NaN as the tile's last word (in its peeled tail when the
+    tile ends off 16 bytes); a negative NaN as its first word (in its peeled
+    head when it starts off 16 bytes); +inf; -inf; a tile of subnormals of
+    random sign; a tile of -0.0 with one negative subnormal at its first
+    whole vector."""
+    k, mb, nb = shape
+    if k < len(TILE_SPECIAL):
+        raise ValueError(f"tile_special_stack: need k >= {len(TILE_SPECIAL)}, got {k}")
+    a = tile_stack_at(shape, dtype, offset, seed, device)
+    itype, mant = TILE_WORDS[dtype]
+    bits = 8 * a.element_size()
+    sign, qnan = 1 << (bits - 1), (0x7fc1 if bits == 16 else 0x7fc00001)
+    inf = 0x7f80 if bits == 16 else 0x7f800000
+    w = a.view(itype).view(k, mb * nb)
+    t_el, vec = mb * nb, 16 // a.element_size()
+    rng = np.random.default_rng(seed + 1)
+    for t, kind in enumerate(TILE_SPECIAL):
+        e0 = offset + t * t_el
+        head = min((-e0) % vec, t_el)
+        nv = (t_el - head) // vec
+        last_lane = head + nv * vec - 1 if nv else t_el - 1
+        row = w[t]
+        if kind == "neg_zero":
+            row.fill_(_word(sign, bits))
+        elif kind == "nan_last_lane":
+            row[last_lane] = _word(qnan, bits)
+        elif kind == "nan_tail":
+            row[t_el - 1] = _word(qnan, bits)
+        elif kind == "neg_nan_head":
+            row[0] = _word(sign | qnan, bits)
+        elif kind == "pos_inf":
+            row[t_el // 2] = _word(inf, bits)
+        elif kind == "neg_inf":
+            row[t_el - 1] = _word(sign | inf, bits)
+        elif kind == "subnormal":
+            mags = rng.integers(1, 1 << mant, t_el)
+            signs = rng.integers(0, 2, t_el) * sign
+            words = (mags | signs).astype(np.uint16 if bits == 16 else np.uint32)
+            row.copy_(torch.from_numpy(words.view(np.int16 if bits == 16 else np.int32)))
+        else:
+            row.fill_(_word(sign, bits))
+            row[min(head, t_el - 1)] = _word(sign | 1, bits)
+    return a
+
+
+def tile_bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal as words of csrc/tile_ops.cu's dtypes: NaN payloads and -0.0
+    included."""
+    itype = TILE_WORDS[got.dtype][0]
+    return got.shape == want.shape and torch.equal(got.view(itype), want.view(itype))
+
+
+def tile_max_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Per-tile maxima equal: NaN at the same tiles, every other tile's word
+    equal (so -0.0 against +0.0 fails)."""
+    nan = torch.isnan(got)
+    itype = TILE_WORDS[got.dtype][0]
+    return (got.shape == want.shape and torch.equal(nan, torch.isnan(want))
+            and torch.equal(got.view(itype)[~nan], want.view(itype)[~nan]))

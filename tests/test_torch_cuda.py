@@ -50,6 +50,10 @@ from slate_tpu_torch.utils.testing import (
     qr_panel_mutants,
     qr_panel_ok,
     qr_rows_in_global,
+    tile_bits_equal,
+    tile_max_equal,
+    tile_special_stack,
+    tile_stack_at,
 )
 
 # the suite runs in several worker processes that share the cores: one
@@ -827,21 +831,39 @@ TILE_DTYPES = [torch.float32, torch.bfloat16]
 _BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 
 
-def _tile_stack(shape, dtype, seed):
-    a = _randn(shape, torch.float32, seed).to(dtype)
+def _tile_stack(shape, dtype, seed, offset=0):
+    """A stack with one NaN tile; ``offset`` > 0 starts it that many words
+    into its allocation (``a[1:]`` of a (k + 1, mb, nb) stack is offset mb nb)."""
+    if offset:
+        n = math.prod(shape)
+        a = _randn((offset + n,), torch.float32, seed).to(dtype)[offset:].view(shape)
+    else:
+        a = _randn(shape, torch.float32, seed).to(dtype)
     a[min(1, shape[0] - 1), 0, min(2, shape[2] - 1)] = float("nan")  # one NaN tile
     return a
 
 
+# (shape, offset in words): every path of csrc/tile_ops.cu's transpose and max
+TILE_CASES = [
+    ((8, 128, 256), 0),
+    ((3, 100, 37), 0),
+    ((70000, 2, 128), 0),  # k > 65535, the scalar transpose, a warp a tile
+    ((10, 136, 264), 0),  # aligned, ragged against the vec16 block: masked vectors
+    ((8, 100, 37), 3700),  # a[1:] of a contiguous (9, 100, 37) stack: 8 B off in bf16
+    ((66000, 8, 128), 0),  # k > 65535 of aligned tiles: vec16
+    ((9, 64, 136), 1),  # whole vectors at a base one word off: scalar, peeled tiles
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128, 256), (3, 100, 37), (70000, 2, 128)])
+@pytest.mark.parametrize("shape,offset", TILE_CASES)
 @pytest.mark.parametrize("dtype", TILE_DTYPES)
-def test_tile_kernels_match_twins(card, shape, dtype):
+def test_tile_kernels_match_twins(card, shape, offset, dtype):
     """transpose and genorm_max bitwise the twin, NaN included (compared as
     bits); geadd within eps (|alpha a| + |beta b|) of it (the kernel rounds
-    the same exact sum once, as the twin); one launch each.  (70000, 2, 128)
-    strides the stack index past the grid's 65535."""
-    a, b = _tile_stack(shape, dtype, 1), _randn(shape, torch.float32, 2).to(dtype)
+    the same exact sum once, as the twin); one launch each.  The k > 65535
+    stacks walk past what one grid dimension holds."""
+    a, b = _tile_stack(shape, dtype, 1, offset), _randn(shape, torch.float32, 2).to(dtype)
     before = [getattr(tk, w).launches for w in ("transpose_tiles", "geadd_tiles",
                                                  "genorm_max_tiles")]
     t = tk.transpose_tiles(a)
@@ -864,6 +886,65 @@ def test_tile_kernels_match_twins(card, shape, dtype):
     diff = (g.double() - gp.double()).abs()
     assert bool((diff[ok] <= torch.finfo(dtype).eps * scale[ok]).all())
     assert torch.equal(torch.isnan(g), torch.isnan(gp))
+    assert tile_max_equal(n, np_)
+
+
+# (shape, offset in words) of the special-value stacks: vec16 and a CTA a tile;
+# scalar and peeled tiles; vec16 and a warp a tile
+TILE_SPECIAL_CASES = [((12, 64, 136), 0), ((12, 37, 129), 1), ((12, 8, 128), 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", TILE_SPECIAL_CASES)
+@pytest.mark.parametrize("dtype", TILE_DTYPES)
+def test_tile_kernels_special_values(card, shape, offset, dtype):
+    """NaN in a vector's last lane, in a peeled tail and head, +-inf, -0.0,
+    subnormals and a tile of only -0.0 (``tile_special_stack``): the
+    transpose word for word, the max word for word where not NaN."""
+    a = tile_special_stack(shape, dtype, offset, seed=5)
+    before = (tk.transpose_tiles.launches, tk.genorm_max_tiles.launches)
+    t, n = tk.transpose_tiles(a), tk.genorm_max_tiles(a)
+    torch.cuda.synchronize()
+    assert (tk.transpose_tiles.launches - before[0], tk.genorm_max_tiles.launches - before[1]) \
+        == (1, 1)
+    assert tile_bits_equal(t, tk.transpose_tiles_plain(a))
+    assert tile_max_equal(n, tk.genorm_max_tiles_plain(a))
+    assert int(torch.isnan(n).sum()) == 3 and not bool(torch.signbit(n).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", TILE_CASES + TILE_SPECIAL_CASES)
+@pytest.mark.parametrize("dtype", TILE_DTYPES)
+def test_tile_kernel_paths_follow_the_rule(card, shape, offset, dtype):
+    """The transpose's path csrc/tile_ops.cu picks on the card is the one the
+    host's pure rule (``kernels.tile_path``) names; the max, which takes its
+    split from the host, gives the twin's words under either split."""
+    a = tile_stack_at(shape, dtype, offset, seed=6)
+    t = tk.transpose_tiles(a)
+    want_t = tk.tile_path("transpose", a.shape, a.element_size(), a.data_ptr(), t.data_ptr())
+    assert tk.transpose_path_on_card(a, t) == want_t.name
+    want = tk.genorm_max_tiles_plain(a)
+    codes = tk._TILE_PATH_CODES["genorm_max"]
+    for split in codes:
+        got = torch.empty((shape[0],), dtype=dtype, device="cuda")
+        tk._launch_tiles("genorm_max_tiles", "genorm_max", dtype, a.device, a.data_ptr(),
+                         got.data_ptr(), shape[0], shape[1] * shape[2], codes.index(split))
+        assert tile_max_equal(got, want), split
+
+
+@pytest.mark.cuda
+def test_transpose_walks_past_2_31_blocks(card):
+    """A (k, 1, 1) bf16 stack with k above 2^31 is k blocks of the scalar
+    path: the flat walk indexes them in 64 bits (4.3 GB each way)."""
+    k = (1 << 31) + (1 << 20)
+    a = torch.randint(-32768, 32768, (k, 1, 1), dtype=torch.int16, device="cuda")
+    a = a.view(torch.bfloat16)
+    before = tk.transpose_tiles.launches
+    t = tk.transpose_tiles(a)
+    torch.cuda.synchronize()
+    assert tk.transpose_tiles.launches - before == 1
+    assert tk.transpose_path_on_card(a, t) == "scalar"
+    assert t.shape == (k, 1, 1) and torch.equal(t.view(torch.int16), a.view(torch.int16))
 
 
 @pytest.mark.cuda
