@@ -114,7 +114,7 @@ printing one JSON line before the next starts (any failure exits non-zero):
 22. ft_drivers: posv_mesh and gesv_nopiv_mesh f32 at n = 16384 under
    FaultTolerance correct (eta, omega, info 0), and a persistent double
    fault raising FtError;
-23. ft_smoke: slate_tpu_torch.ft.smoke on the card;
+23. ft_smoke: slate_tpu_torch.ft.smoke on the card (seven scenarios);
 24. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
    the psum/ring/doubling lowerings, and the non-SPD info rule;
 25. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
@@ -181,20 +181,38 @@ printing one JSON line before the next starts (any failure exits non-zero):
    posv (n = 16384) and gesv (n = 8192) auto runs, summa_update's f64 row
    taking the posv run's launches;
 35. mixed_smoke: slate_tpu_torch.parallel.mixed_smoke on the card;
-36. dryrun: the port's dryrun (posv_chain, gesv_pp, the LU panel_pallas
-   half; n = 64, nb = 8, 2 x 4);
-37. total: the script's seconds; then kernels: the line of every ported
+36. mesh_blas3 f32 at n = 16384 and f64 at n = 8192 (2 x 4, nb = 256):
+   hemm_summa Left under HemmC (B n x n) and HemmA (B n x 1024, the rule's
+   pick), hemm_summa Right, her2k_dist full, trmm_dist Left lower,
+   herk_dist and trsm_dist_right: seconds after a warm-up, peak memory,
+   the error against an f64 product on the card within gemm_tol plus
+   2 sqrt(k) eps |C| per entry, lookahead 0 bitwise lookahead 1;
+37. mesh_inverse: potri_mesh (f32 16384 / f64 8192) and getri_mesh (f32
+   8192 / f64 4096): info, max|A X - I| / (n eps max|A| max|X|) < 100, the
+   launches of chol_panel_tiles, chol_trailing_update and
+   lu_rowsolve_tiles derived from the loops, then pocondest_dist /
+   gecondest_dist on the drivers' factors against 1 / kappa_1 of the
+   computed inverse;
+38. ft_her2k: her2k_mesh under FaultTolerance, f64 n = 8192 (clean
+   overhead, a seeded trailing fault corrected to 1e-12 max|C|) and f32
+   n = 16384 (its action and floor ratio);
+39. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa, the LU
+   panel_pallas half; n = 64, nb = 8, 2 x 4);
+40. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
-   rows those of phase 32's public 8192^3 calls), then the card line and,
-   last,
+   rows those of phase 32's public 8192^3 calls; the chol_panel_tiles,
+   chol_trailing_update and lu_rowsolve_tiles rows also carry
+   ``launches_by_path``, their mesh posv / nopiv launches beside those of
+   phase 37's potri_mesh / getri_mesh), then the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 
+import importlib
 import json
 import math
 import os
@@ -3242,6 +3260,334 @@ def mixed_mesh_phase(kernels, mp, torch):
     return ladder_kernels_phase(kernels, caps, out["posv_auto"]["launches"]["summa_update"], torch)
 
 
+# ---------------------------------------------------------------------------
+# slice 4c: the mesh BLAS-3, the mesh inverses and estimators, the ABFT her2k
+# ---------------------------------------------------------------------------
+
+BLAS3_N = {"float32": GEMM_N, "float64": GEMM_N // 2}
+BLAS3_THIN = 1024  # HemmA's B: n x 1024, which select_hemm_method gives HemmA
+INVERSE_N = {("potri", "float32"): 16384, ("potri", "float64"): 8192,
+             ("getri", "float32"): 8192, ("getri", "float64"): 4096}
+FT_HER2K_N = {"float64": 8192, "float32": 16384}
+CONDEST_OVER = 10  # the estimate of rcond within 10x of 1 / kappa_1
+CONDEST_ROUNDING = 1e-3  # the probe sweeps' rounding, relative (the driver's X reads it)
+
+
+def product_ratio(out, ref64, k, terms, eps, amax, bmax):
+    """Largest |out - ref| / bound over the entries, ``ref64`` the f64
+    product.  The bound is gemm_tol's random walk of k terms (``terms``
+    products summed) plus 2 sqrt(k) eps |ref| entry by entry: where the k
+    terms share a sign (herk's diagonal, sum a_ik^2, grows as k) the
+    rounding grows with the entry, as in the probabilistic bound
+    sqrt(k) eps (|A||B|)_ij of Higham and Mary.  A TF32 product (~4e3 f32
+    eps per term) still lies far outside."""
+    bound = ref64.abs().mul_(2 * math.sqrt(k) * eps).add_(terms * gemm_tol(k, eps, amax, bmax, 0))
+    return float(((out.double() - ref64).abs_() / bound).max())
+
+
+def mesh_blas3_phase(dtype, mp, torch):
+    """The mesh BLAS-3 of slice 4c on a virtual 2 x 4 mesh (nb = 256) at
+    f32 n = 16384 / f64 n = 8192: hemm_summa Left under HemmC (B n x n)
+    and HemmA (B n x 1024, the rule's pick), hemm_summa Right, her2k_dist
+    full (k = n), trmm_dist Left lower, herk_dist and trsm_dist_right on a
+    diagonally dominant triangle.  For each: seconds after one warm-up
+    (operands already distributed), peak memory, the error against an f64
+    product on the card held to product_ratio's bound (gemm_tol over k = n
+    terms, twice for the rank-2k, plus 2 sqrt(k) eps |C| per entry; the
+    solve's residual X L - B), and the lookahead 0 run bitwise the
+    lookahead 1 run.  In f32, H B at TF32 is the control: it must read
+    outside the bound."""
+    from slate_tpu_torch.types import Diag, MethodHemm, Op, Side, Uplo, select_hemm_method
+
+    name = dname(dtype)
+    n = BLAS3_N[name]
+    eps = torch.finfo(dtype).eps
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    g = randn((n, n), dtype, SEED + 201, torch)
+    h = (g + g.T) / 2
+    b = randn((n, n), dtype, SEED + 202, torch)
+    thin = randn((n, BLAS3_THIN), dtype, SEED + 203, torch)
+    tri = dominant_spd(n, dtype, SEED + 204, torch)  # its lower triangle: diag n + uniform
+    gd, hd, bd = (mp.from_dense(x, mesh, NB) for x in (g, h, b))
+    thd = mp.from_dense(thin, mesh, NB)
+    trd = mp.from_dense(tri, mesh, NB, diag_pad_one=True)
+    hmax, gmax, bmax = (float(x.abs().max()) for x in (h, g, b))
+    check(select_hemm_method(hd.mt, bd.nt) == MethodHemm.HemmC
+          and select_hemm_method(hd.mt, thd.nt) == MethodHemm.HemmA,
+          f"mesh_blas3 {name}: the rule picks {select_hemm_method(hd.mt, bd.nt)} / "
+          f"{select_hemm_method(hd.mt, thd.nt)}")
+
+    def l64(x):
+        return x.double().tril()
+
+    # (label, op(lookahead) -> DistMatrix, f64 reference, gemm_tol's operand
+    # scales, products summed, the operation's flops); herk has no lookahead
+    n3 = n * n * n
+    cases = (
+        ("hemm_left_hemmc", lambda la: mp.hemm_summa(Side.Left, 1.0, hd, bd, lookahead=la),
+         lambda: h.double() @ b.double(), (hmax, bmax), 1, 2 * n3),
+        ("hemm_left_hemma", lambda la: mp.hemm_summa(Side.Left, 1.0, hd, thd, lookahead=la),
+         lambda: h.double() @ thin.double(), (hmax, float(thin.abs().max())), 1,
+         2 * n * n * BLAS3_THIN),
+        ("hemm_right", lambda la: mp.hemm_summa(Side.Right, 1.0, hd, bd, lookahead=la),
+         lambda: b.double() @ h.double(), (bmax, hmax), 1, 2 * n3),
+        ("her2k_full", lambda la: mp.her2k_dist(1.0, gd, bd, full=True, lookahead=la),
+         lambda: g.double() @ b.double().T + b.double() @ g.double().T, (gmax, bmax), 2, 4 * n3),
+        ("trmm_left_lower", lambda la: mp.trmm_dist(Side.Left, Uplo.Lower, Op.NoTrans,
+                                                    Diag.NonUnit, 1.0, gd, bd, lookahead=la),
+         lambda: l64(g) @ b.double(), (gmax, bmax), 1, n3),
+        ("herk_full", lambda la: mp.herk_dist(1.0, gd, full=True),
+         lambda: g.double() @ g.double().T, (gmax, gmax), 1, n3),
+        ("trsm_right_lower", lambda la: mp.trsm_dist_right(trd, bd, Uplo.Lower, Op.NoTrans,
+                                                           lookahead=la),
+         None, None, 1, n3),
+    )
+    out = {}
+    for label, run, ref_fn, scales, terms, flops in cases:
+        run(1)  # warm-up: handles, allocator
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        d, seconds = timed(lambda: run(1), torch)
+        peak = torch.cuda.max_memory_allocated()
+        x = mp.to_dense(d)
+        del d
+        bitwise = bool(torch.equal(mp.to_dense(run(0)), x))
+        if ref_fn is None:
+            # X L = B: the residual of the solve, in f64, X L's products as the bound's
+            ratio = product_ratio(x.double() @ l64(tri), b.double(), n, 1, eps,
+                                  float(x.abs().max()), float(tri.abs().max()))
+            err = float((x.double() @ l64(tri) - b.double()).abs().max())
+        else:
+            ref = ref_fn()
+            ratio = product_ratio(x, ref, n, terms, eps, *scales)
+            err = float((x.double() - ref).abs().max())
+            del ref
+        out[label] = {"seconds": seconds, "peak_mem_bytes": peak, "max_abs_err_vs_f64": err,
+                      "err_over_tol": ratio, "lookahead_0_1_bitwise": bitwise,
+                      "tflops": flops / seconds / 1e12, "shape": list(x.shape)}
+        del x
+        torch.cuda.empty_cache()
+    # the control: H B at TF32 must read outside the same bound
+    tf32 = None
+    if dtype == torch.float32:
+        flags = torch.backends.cuda.matmul
+        old = flags.allow_tf32
+        flags.allow_tf32 = True
+        try:
+            x = h @ b
+        finally:
+            flags.allow_tf32 = old
+        tf32 = product_ratio(x, h.double() @ b.double(), n, 1, eps, hmax, bmax)
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": f"mesh_blas3_{name}", "n": n, "nb": NB, "grid": [P, Q], "thin": BLAS3_THIN,
+          "ops": out, "tf32_control_over_tol": tf32})
+    for label, v in out.items():
+        check(v["err_over_tol"] < 1, f"mesh_blas3 {name} {label}: error {v}")
+        check(v["lookahead_0_1_bitwise"], f"mesh_blas3 {name} {label}: lookahead 0 != 1")
+    check(tf32 is None or tf32 > 1, f"mesh_blas3 {name}: a TF32 product passes ({tf32})")
+    del g, h, b, thin, tri, gd, hd, bd, thd, trd
+    torch.cuda.empty_cache()
+
+
+def inverse_gate(a, x, torch):
+    """max|A X - I| / (n eps max|A| max|X|) with the product in f64, and
+    rho = ||I - A X||_1 (the computed inverse's own error scale)."""
+    n = a.shape[0]
+    r = a.double() @ x.double()
+    r.diagonal().sub_(1)
+    ratio = float(r.abs().max()) / (n * torch.finfo(a.dtype).eps * float(a.abs().max())
+                                    * float(x.abs().max()))
+    rho = float(r.abs().sum(dim=0).max())
+    return ratio, rho
+
+
+class Keep:
+    """Stands in for a function in the module that calls it, for one driver
+    run, and keeps what its last call returned."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn, self.result = getattr(module, name), None
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def __call__(self, *args, **kw):
+        self.result = self.fn(*args, **kw)
+        return self.result
+
+
+def norm1(x):
+    return float(x.abs().sum(dim=0).max())
+
+
+def factor_readings(a, fac, perm, x, torch, mp):
+    """In f64 by the library: ||M^-1||_1, M the product of the factor
+    (L L^T, or P^T L U), the matrix whose inverse the estimator probes;
+    and the driver's X against M^-1, ||X - M^-1||_1 / ||M^-1||_1: the
+    rounding of the sweeps the probes also run."""
+    d = mp.to_dense(fac).double()
+    if perm is None:
+        low = d.tril()
+        m = low @ low.T
+    else:
+        low = d.tril(-1)
+        low.diagonal().fill_(1)
+        m = low @ d.triu()
+    del d, low
+    minv = torch.linalg.inv(m)
+    del m
+    if perm is not None:
+        minv = minv[:, torch.argsort(perm[: a.shape[0]])]  # (P^T L U)^-1 = (L U)^-1 P
+    minv1 = norm1(minv)
+    return minv1, norm1(minv.sub_(x.double())) / minv1
+
+
+def mesh_inverse_phase(dtype, kernels, mp, bucket_plan, torch):
+    """potri_mesh (f32 n = 16384 / f64 8192, a diagonally dominant SPD
+    matrix) and getri_mesh (f32 8192 / f64 4096, uniform[-1, 1)) on a
+    virtual 2 x 4 mesh: info 0, max|A X - I| / (n eps max|A| max|X|) < 100,
+    seconds, peak memory, and each kernel's launches equal to the count
+    derived from the loop (potrf_dist's panels and trailing updates; the
+    partial-pivot factor's nt panel rows).  Then pocondest_dist /
+    gecondest_dist on the factor each driver made (kept from its run):
+    kappa_1 = ||A||_1 ||A^-1||_1 with A^-1 from torch.linalg.inv in f64,
+    not from the port.  The estimate of ||A^-1||_1 is a lower bound of
+    the norm of the inverse of the factor's product M, up to the probe
+    sweeps' rounding, which the driver's X reads (||X - M^-1|| / ||M^-1||
+    under CONDEST_ROUNDING).  So rcond kappa_1 may not be under
+    (||A^-1||_1 / ||M^-1||_1) / (1 + CONDEST_ROUNDING), M^-1 from the
+    library in f64 too; and it must be within 10x of 1."""
+    from slate_tpu_torch.types import Norm
+
+    drivers = importlib.import_module("slate_tpu_torch.parallel.drivers")
+    name = dname(dtype)
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    warm = WARMUP_N
+    mp.potri_mesh(dominant_spd(warm, dtype, SEED + 210, torch), mesh, NB)
+    mp.getri_mesh(lu_matrix("pp", warm, dtype, SEED + 211, torch), mesh, NB)
+    out, counts = {}, {}
+    for kind in ("potri", "getri"):
+        n = INVERSE_N[(kind, name)]
+        nt = n // NB
+        a = (dominant_spd(n, dtype, SEED + 212, torch) if kind == "potri"
+             else lu_matrix("pp", n, dtype, SEED + 213, torch))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        drv = mp.potri_mesh if kind == "potri" else mp.getri_mesh
+        with Keep(drivers, "potrf_mesh" if kind == "potri" else "getrf_mesh") as kept:
+            (x, info), seconds = timed(lambda: drv(a, mesh, NB), torch)
+        counts[kind] = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        want = (expected_potrf_launches(nt, 1, bucket_plan) if kind == "potri"
+                else {"lu_rowsolve_tiles": nt})
+        ratio, rho = inverse_gate(a, x, torch)
+        fac, perm = kept.result[0], (None if kind == "potri" else kept.result[1])
+        finfo = kept.result[-1]
+        kept.result = None
+        torch.cuda.empty_cache()
+        # the yardstick: A^-1 in f64 by the library, not by the port
+        ainv1 = norm1(torch.linalg.inv(a.double()))
+        anorm1 = norm1(a.double())
+        kappa = anorm1 * ainv1
+        minv1, x_err = factor_readings(a, fac, perm, x, torch, mp)
+        del x
+        torch.cuda.empty_cache()
+        anorm = mp.norm_dist(Norm.One, mp.from_dense(a, mesh, NB))
+        if kind == "potri":
+            rc, est_s = timed(lambda: mp.pocondest_dist(fac, anorm), torch)
+        else:
+            rc, est_s = timed(lambda: mp.gecondest_dist(fac, perm, anorm), torch)
+        rc = float(rc)
+        lower = ainv1 / minv1 / (1 + CONDEST_ROUNDING)
+        out[kind] = {"n": n, "info": int(info), "seconds": seconds, "peak_mem_bytes": peak,
+                     "resid_ratio": ratio, "rho": rho, "launches": {k: counts[kind][k] for k in want},
+                     "expected_launches": want, "rcond_est": rc, "inv_kappa1": 1 / kappa,
+                     "est_over_inv_kappa": rc * kappa, "lower_limit": lower,
+                     "factor_inv_over_inv": minv1 / ainv1, "x_vs_factor_inverse": x_err,
+                     "factor_info": int(finfo), "condest_seconds": est_s,
+                     "anorm1_dist_over_f64": float(anorm) / anorm1}
+        del a, fac, perm
+        torch.cuda.empty_cache()
+    emit({"phase": f"mesh_inverse_{name}", "nb": NB, "grid": [P, Q], "runs": out})
+    for kind, v in out.items():
+        check(v["info"] == 0 and v["factor_info"] == 0, f"{kind}_mesh {name}: info {v}")
+        check(v["resid_ratio"] < 100, f"{kind}_mesh {name}: |A X - I| ratio {v['resid_ratio']}")
+        for k, c in v["expected_launches"].items():
+            check(v["launches"][k] == c, f"{kind}_mesh {name}: {v['launches'][k]} {k} launches, "
+                                         f"expected {c}")
+        check(v["x_vs_factor_inverse"] < CONDEST_ROUNDING,
+              f"{kind}_mesh {name}: the sweeps' rounding {v['x_vs_factor_inverse']}")
+        check(v["lower_limit"] <= v["est_over_inv_kappa"] <= CONDEST_OVER,
+              f"{kind} condest {name}: {v}")
+    return counts
+
+
+def ft_her2k_phase(mp, torch):
+    """her2k_mesh under Option.FaultTolerance (virtual 2 x 4, nb = 256): in
+    f64 at n = 8192 a clean run against the plain her2k_mesh (report clean,
+    the overhead), then a seeded trailing fault (31) under Correct, which
+    must be detected, name the injected tile and end corrected within
+    1e-12 max|C| of the clean result; in f32 at n = 16384 the same fault's
+    action and floor ratio (slate_tpu's threshold, 64 ops eps mt max|C|,
+    is blind there, as for the other FT phases)."""
+    from slate_tpu_torch.ft import FaultPlan, FtPolicy, abft, checksum, fault_scope, inject
+    from slate_tpu_torch.types import Option
+
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    w = randn((FT_WARMUP_N, FT_WARMUP_N), torch.float64, SEED + 220, torch)
+    abft.her2k_ft(1.0, w, w, mesh, NB, policy=FtPolicy.Detect)
+    mp.her2k_mesh(1.0, w, w, mesh, NB)
+    del w
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = dname(dtype)
+        n = FT_HER2K_N[name]
+        mt = kt = n // NB
+        a = randn((n, n), dtype, SEED + 221, torch)
+        b = randn((n, n), dtype, SEED + 222, torch)
+        plain, plain_s = timed(lambda: mp.her2k_mesh(1.0, a, b, mesh, NB), torch)
+        torch.cuda.reset_peak_memory_stats()
+        clean, ft_s = timed(lambda: mp.her2k_mesh(1.0, a, b, mesh, NB,
+                                                  opts={Option.FaultTolerance: "correct"}), torch)
+        peak = torch.cuda.max_memory_allocated()
+        _, rep0 = abft.her2k_ft(1.0, a, b, mesh, NB, policy=FtPolicy.Detect)
+        cmax = float(clean.abs().max())
+        f = inject.seeded_fault(31, "her2k", kt, (P, Q), phase="trailing")
+        with fault_scope(FaultPlan([f])):
+            (c, rep), s = timed(lambda: abft.her2k_ft(1.0, a, b, mesh, NB,
+                                                      policy=FtPolicy.Correct), torch)
+        wheres = [tuple(d["where"]) for d in rep.detections]
+        out[name] = {"n": n, "clean_report": rep0.clean, "seconds": ft_s,
+                     "plain_seconds": plain_s, "overhead": ft_s / plain_s, "peak_mem_bytes": peak,
+                     "max_abs_diff_clean_vs_plain": float((clean - plain).abs().max()),
+                     "fault": fault_fields(f), "action": rep.action, "detections": wheres,
+                     "names_tile": any(f.ti in wh or f.tj in wh for wh in wheres),
+                     "fault_seconds": s,
+                     "rel_diff_vs_clean": float((c - clean).abs().max()) / cmax,
+                     "floor_ratio": floor_ratio(c - clean, c, (kt + mt) * NB, mt, NB, checksum)}
+        del a, b, plain, clean, c
+        torch.cuda.empty_cache()
+    emit({"phase": "ft_her2k", "nb": NB, "grid": [P, Q], "runs": out})
+    v = out["float64"]
+    check(v["clean_report"] and v["action"] == "corrected" and v["names_tile"]
+          and v["rel_diff_vs_clean"] < 1e-12, f"ft_her2k float64: {v}")
+    v = out["float32"]
+    check(v["clean_report"], f"ft_her2k float32: clean run {v}")
+    if v["action"] == "clean":  # below the reference's threshold: its decision too
+        check(v["floor_ratio"] < 1, f"ft_her2k float32: undetected at floor ratio {v}")
+    else:
+        check(v["action"] == "corrected" and v["names_tile"], f"ft_her2k float32: {v}")
+
+
 def mixed_smoke_phase():
     """``python -m slate_tpu_torch.parallel.mixed_smoke``'s run on the card."""
     from slate_tpu_torch.parallel import mixed_smoke
@@ -3257,7 +3603,7 @@ def ft_smoke_phase():
 
     res = smoke.run_smoke("cuda")
     emit({"phase": "ft_smoke", **res})
-    check(res["ok"], f"ft smoke failed: {res['scenarios']}")
+    check(res["ok"] and len(res["scenarios"]) == 8, f"ft smoke failed: {res['scenarios']}")
 
 
 def dryrun_phase():
@@ -3265,7 +3611,8 @@ def dryrun_phase():
 
     res = dryrun.dryrun("cuda")
     emit({"phase": "dryrun", **res})
-    check(res["ok"], f"dryrun failed: {res['phases']}")
+    check(res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa",
+                                                "panel_pallas"], f"dryrun failed: {res['phases']}")
 
 
 def main():
@@ -3434,10 +3781,24 @@ def main():
     rows.append(mixed_mesh_phase(kernels, mp, torch))
     mixed_smoke_phase()
 
-    # 36. the dryrun
+    # 36-38. slice 4c: the mesh BLAS-3, the mesh inverses and estimators
+    # (their launches of rows 6, 8 and 12 join those rows), the ABFT her2k
+    for dt in (torch.float32, torch.float64):
+        mesh_blas3_phase(dt, mp, torch)
+    for dt in (torch.float32, torch.float64):
+        inv = mesh_inverse_phase(dt, kernels, mp, bucket_plan, torch)
+        for name, path in (("chol_panel_tiles", "potri"), ("chol_trailing_update", "potri"),
+                           ("lu_rowsolve_tiles", "getri")):
+            row = (mesh_rows if name.startswith("chol") else lu_rows)[(name, dt)]
+            row["launches_by_path"] = {"mesh_posv" if path == "potri" else "mesh_gesv_nopiv":
+                                       row["launches"], f"{path}_mesh": inv[path][name]}
+            check(inv[path][name], f"{row['name']}: no launch on {path}_mesh")
+    ft_her2k_phase(mp, torch)
+
+    # 39. the dryrun
     dryrun_phase()
 
-    # 37. the script's seconds, kernels line, card line, result
+    # 40. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

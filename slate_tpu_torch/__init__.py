@@ -1,9 +1,10 @@
 """slate_tpu_torch — the PyTorch/CUDA port of slate_tpu.
 
 A second package beside ``slate_tpu`` (the JAX reference, which this package
-never imports).  Ported so far: the single-chip Cholesky, LU (with getri,
-the norms and condition estimators and mixed-precision refinement) and QR
-drivers, the tile operations, the mesh solvers on a virtual mesh, the ABFT
+never imports).  Ported so far: the single-chip BLAS-3 verbs, the
+Cholesky (with potri), LU (with getri, the norms and condition estimators
+and mixed-precision refinement) and QR drivers, the tile operations, the
+mesh solvers, BLAS-3, inverses and estimators on a virtual mesh, the ABFT
 layer, and hand-written Hopper kernels for every Pallas kernel on those
 paths (``ops/kernels.py``, ``csrc/*.cu``).  Entry points compute on the
 tensors' device: pass CUDA tensors for the card, CPU tensors for the plain
@@ -34,7 +35,7 @@ from .core import (
     TriangularBandMatrix,
     TriangularMatrix,
 )
-from .blas3 import gemm, trsm
+from .blas3 import gbmm, gemm, hbmm, hemm, her2k, herk, symm, syr2k, syrk, trmm, trsm
 from . import api, linalg, ops
 from .linalg import (
     gecondest,

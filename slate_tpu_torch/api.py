@@ -1,9 +1,12 @@
-"""Simplified verb-named API of the port (multiply, the LU, Cholesky and QR
-verbs).
+"""Simplified verb-named API of the port (multiply, the BLAS-3 verbs, the
+LU, Cholesky and QR verbs).
 
-Counterpart of ``multiply``, ``lu_factor`` / ``lu_solve`` /
+Counterpart of ``multiply``, ``hermitian_multiply`` /
+``symmetric_multiply`` / ``triangular_multiply`` / ``rank_k_update`` /
+``rank_2k_update``, ``lu_factor`` / ``lu_solve`` /
 ``lu_solve_using_factor`` / ``lu_inverse``, ``chol_factor`` /
-``chol_solve`` / ``chol_solve_using_factor`` and ``least_squares_solve`` / ``qr_factor`` /
+``chol_solve`` / ``chol_solve_using_factor`` / ``chol_inverse`` and
+``least_squares_solve`` / ``qr_factor`` /
 ``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` in
 ``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
 computes on ``operand_device(first operand, device)``: tensors where they
@@ -47,6 +50,44 @@ def multiply(alpha, a: ArrayLike, b: ArrayLike, beta=0.0, c: Optional[ArrayLike]
         am, bm = blas3._arr(a, dev), blas3._arr(b, dev)
         c = torch.zeros((am.shape[0], bm.shape[1]), dtype=am.dtype, device=dev)
     return blas3.gemm(alpha, a, b, beta, c, opts=opts, device=dev)
+
+
+def hermitian_multiply(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta=0.0, c=None,
+                       opts: Optional[Options] = None, device=None):
+    """C = alpha A B + beta C (Left) or alpha B A + beta C (Right), A
+    Hermitian (slate::multiply -> hemm)."""
+    dev = operand_device(a, device)
+    if c is None:
+        c = torch.zeros_like(blas3._arr(b, dev))
+    return blas3.hemm(side, alpha, a, b, beta, c, opts=opts, device=dev)
+
+
+def symmetric_multiply(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta=0.0, c=None,
+                       opts: Optional[Options] = None, device=None):
+    """As hermitian_multiply with A symmetric (symm)."""
+    dev = operand_device(a, device)
+    if c is None:
+        c = torch.zeros_like(blas3._arr(b, dev))
+    return blas3.symm(side, alpha, a, b, beta, c, opts=opts, device=dev)
+
+
+def triangular_multiply(side: Side, alpha, a: ArrayLike, b: ArrayLike,
+                        opts: Optional[Options] = None, device=None):
+    """B = alpha op(A) B or alpha B op(A), A triangular (trmm)."""
+    return blas3.trmm(side, alpha, a, b, opts=opts, device=device)
+
+
+def rank_k_update(alpha, a: ArrayLike, beta, c: ArrayLike, uplo: Optional[Uplo] = None,
+                  opts: Optional[Options] = None, device=None):
+    """C = alpha A A^H + beta C on C's ``uplo`` triangle (herk)."""
+    return blas3.herk(alpha, a, beta, c, uplo, opts=opts, device=device)
+
+
+def rank_2k_update(alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike, uplo=None,
+                   opts: Optional[Options] = None, device=None):
+    """C = alpha A B^H + conj(alpha) B A^H + beta C on C's ``uplo``
+    triangle (her2k)."""
+    return blas3.her2k(alpha, a, b, beta, c, uplo, opts=opts, device=device)
 
 
 def _data(a: ArrayLike, device: torch.device) -> torch.Tensor:
@@ -107,6 +148,11 @@ def chol_solve(a: ArrayLike, b: ArrayLike, device=None):
 def chol_solve_using_factor(l: ArrayLike, b: ArrayLike, uplo: Uplo = Uplo.Lower, device=None):
     dev = operand_device(l, device)
     return chol.potrs_array(_data(l, dev), blas3._arr(b, dev), uplo)
+
+
+def chol_inverse(l: ArrayLike, uplo: Uplo = Uplo.Lower, device=None):
+    """A^-1's ``uplo`` triangle from the Cholesky factor (potri)."""
+    return chol.potri_array(_data(l, operand_device(l, device)), uplo)
 
 
 # -- least squares / QR / LQ -------------------------------------------------

@@ -1,12 +1,18 @@
-"""Level-3 BLAS drivers of the port: gemm and the recursive triangular solve.
+"""Level-3 BLAS drivers of the port.
 
-Counterpart of the gemm and trsm parts of ``slate_tpu/blas3/blas3.py``.
-The triangular solve keeps ``slate_tpu``'s recursive blocking: split at a
-power-of-two multiple of ``_NB``, solve the leading block, one ``matmul``
-for the off-diagonal block, recurse on the trailing block.  The leaves are
+Counterpart of ``slate_tpu/blas3/blas3.py`` (``src/{gemm,hemm,symm,herk,
+syrk,her2k,syr2k,trmm,trsm,gbmm,hbmm}.cc``): gemm; hemm / symm (the full
+matrix rebuilt from its stored triangle, one product); herk / syrk /
+her2k / syr2k (the products, then only the ``uplo`` triangle of C
+updated); the recursive triangular multiply and solve; gbmm / hbmm (band
+operands stored dense, projected on their (kl, ku)).  The recursions keep
+``slate_tpu``'s blocking: split at a power-of-two multiple of ``_NB``, one
+``matmul`` for the off-diagonal block.  The solve's leaves are
 ``torch.linalg.solve_triangular`` (cuBLAS/LAPACK trsm), the counterpart of
 XLA's ``triangular_solve`` (:func:`solve_tri`: in f32 for bf16/f16, which
-PyTorch's solve does not take).
+PyTorch's solve does not take).  Every product is ``ops.matmul.matmul`` at
+Option.Precision (Highest unless asked: never TF32).  ``tbsm`` comes with
+the band slice.
 """
 
 from __future__ import annotations
@@ -16,7 +22,16 @@ from typing import Optional, Union
 
 import torch
 
-from ..core.matrix import BaseMatrix, TriangularMatrix, operand_device
+from ..core.matrix import (
+    BaseMatrix,
+    HermitianMatrix,
+    SymmetricMatrix,
+    TriangularMatrix,
+    band_project,
+    operand_device,
+    symmetrize,
+    tri_project,
+)
 from ..ops.matmul import matmul
 from ..types import Diag, Op, Option, Options, Precision, Side, Uplo, get_option
 
@@ -54,6 +69,13 @@ def _other(uplo: Uplo) -> Uplo:
     return Uplo.Upper if uplo == Uplo.Lower else Uplo.Lower
 
 
+def conj_scalar(x):
+    """conj of a scalar alpha / beta (a Python number or a 0-d tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.conj()
+    return x.conjugate() if isinstance(x, complex) else x
+
+
 def gemm_array(
     alpha, a: torch.Tensor, b: torch.Tensor, beta, c: torch.Tensor,
     precision: Optional[Precision] = None,
@@ -69,6 +91,162 @@ def gemm(alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike, opts: Optional[O
     dev = operand_device(a, device)
     return _wrap_like(c, gemm_array(alpha, _arr(a, dev), _arr(b, dev), beta, _arr(c, dev),
                                     precision=_mul_prec(opts)))
+
+
+def _side_mul(side: Side, alpha, afull: torch.Tensor, b: torch.Tensor, beta, c: torch.Tensor,
+              precision: Optional[Precision] = None) -> torch.Tensor:
+    prod = matmul(afull, b, precision=precision) if side == Side.Left else matmul(b, afull, precision=precision)
+    return alpha * prod.to(c.dtype) + beta * c
+
+
+def _sym_mul(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike, opts, device,
+             conj: bool):
+    dev = operand_device(a, device)
+    kind = HermitianMatrix if conj else SymmetricMatrix
+    am = a if isinstance(a, BaseMatrix) else kind.from_array(a, Uplo.Lower)
+    afull = symmetrize(torch.as_tensor(am.data, device=dev), am.uplo, conj=conj)
+    return _wrap_like(c, _side_mul(side, alpha, afull, _arr(b, dev), beta, _arr(c, dev),
+                                   precision=_mul_prec(opts)))
+
+
+def hemm(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike,
+         opts: Optional[Options] = None, device=None):
+    """slate::hemm (src/hemm.cc): C := alpha A B + beta C (Left) or
+    alpha B A + beta C (Right), A Hermitian; a plain tensor is read as its
+    lower triangle."""
+    return _sym_mul(side, alpha, a, b, beta, c, opts, device, conj=True)
+
+
+def symm(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike,
+         opts: Optional[Options] = None, device=None):
+    """slate::symm (src/symm.cc): A symmetric (not conjugated)."""
+    return _sym_mul(side, alpha, a, b, beta, c, opts, device, conj=False)
+
+
+def _rank_k_update(alpha, a: torch.Tensor, beta, c, uplo: Uplo, conj: bool,
+                   two_sided_b: Optional[torch.Tensor] = None,
+                   precision: Optional[Precision] = None):
+    """alpha A op(A) (or alpha A op(B) + op(alpha) B op(A)) + beta C, where
+    only the ``uplo`` triangle of C is written; a Hermitian / symmetric
+    view of C is read through its stored triangle."""
+    cm = c if isinstance(c, BaseMatrix) else None
+    cdata = torch.as_tensor(cm.data if cm is not None else c, device=a.device)
+    at = a.conj().T if conj else a.T
+    if two_sided_b is None:
+        new = alpha * matmul(a, at, precision=precision).to(cdata.dtype)
+    else:
+        bt = two_sided_b.conj().T if conj else two_sided_b.T
+        upd1 = matmul(a, bt, precision=precision).to(cdata.dtype)
+        upd2 = matmul(two_sided_b, at, precision=precision).to(cdata.dtype)
+        new = alpha * upd1 + (conj_scalar(alpha) if conj else alpha) * upd2
+    full = new + beta * (symmetrize(cdata, uplo, conj) if cm is not None else cdata)
+    out = (tri_project(full, uplo) + tri_project(cdata, _other(uplo), Diag.NonUnit)
+           - torch.diag(cdata.diagonal()))
+    return replace(cm, data=out) if cm is not None else out
+
+
+def _c_uplo(c, uplo: Optional[Uplo]) -> Uplo:
+    return uplo or (c.uplo if isinstance(c, BaseMatrix) else Uplo.Lower)
+
+
+def herk(alpha, a: ArrayLike, beta, c: ArrayLike, uplo: Optional[Uplo] = None,
+         opts: Optional[Options] = None, device=None):
+    """slate::herk (src/herk.cc): C := alpha A A^H + beta C, C Hermitian."""
+    dev = operand_device(a, device)
+    return _rank_k_update(alpha, _arr(a, dev), beta, c, _c_uplo(c, uplo), conj=True,
+                          precision=_mul_prec(opts))
+
+
+def syrk(alpha, a: ArrayLike, beta, c: ArrayLike, uplo: Optional[Uplo] = None,
+         opts: Optional[Options] = None, device=None):
+    """slate::syrk: C := alpha A A^T + beta C, C symmetric."""
+    dev = operand_device(a, device)
+    return _rank_k_update(alpha, _arr(a, dev), beta, c, _c_uplo(c, uplo), conj=False,
+                          precision=_mul_prec(opts))
+
+
+def her2k(alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike, uplo: Optional[Uplo] = None,
+          opts: Optional[Options] = None, device=None):
+    """slate::her2k: C := alpha A B^H + conj(alpha) B A^H + beta C."""
+    dev = operand_device(a, device)
+    return _rank_k_update(alpha, _arr(a, dev), beta, c, _c_uplo(c, uplo), conj=True,
+                          two_sided_b=_arr(b, dev), precision=_mul_prec(opts))
+
+
+def syr2k(alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike, uplo: Optional[Uplo] = None,
+          opts: Optional[Options] = None, device=None):
+    """slate::syr2k: C := alpha A B^T + alpha B A^T + beta C."""
+    dev = operand_device(a, device)
+    return _rank_k_update(alpha, _arr(a, dev), beta, c, _c_uplo(c, uplo), conj=False,
+                          two_sided_b=_arr(b, dev), precision=_mul_prec(opts))
+
+
+# below this size the dense-masked multiply (one matmul on the projected
+# triangle) replaces the recursion, as in slate_tpu
+_TRMM_DENSE_MAX = 1024
+
+
+def _tri_full(a: torch.Tensor, uplo: Uplo, diag: Diag) -> torch.Tensor:
+    return tri_project(a, uplo, diag)
+
+
+def _trmm_ll(a: torch.Tensor, b: torch.Tensor, diag: Diag, precision) -> torch.Tensor:
+    """B := L B, recursive blocked (half the flops of the dense-masked form)."""
+    n = a.shape[0]
+    if n <= _TRMM_DENSE_MAX:
+        return matmul(_tri_full(a, Uplo.Lower, diag), b, precision=precision).to(b.dtype)
+    h = _split(n)
+    top = _trmm_ll(a[:h, :h], b[:h], diag, precision)
+    bot = matmul(a[h:, :h], b[:h], precision=precision).to(b.dtype)
+    bot = bot + _trmm_ll(a[h:, h:], b[h:], diag, precision)
+    return torch.cat([top, bot], dim=0)
+
+
+def _trmm_lu(a: torch.Tensor, b: torch.Tensor, diag: Diag, precision) -> torch.Tensor:
+    """B := U B, recursive blocked."""
+    n = a.shape[0]
+    if n <= _TRMM_DENSE_MAX:
+        return matmul(_tri_full(a, Uplo.Upper, diag), b, precision=precision).to(b.dtype)
+    h = _split(n)
+    top = _trmm_lu(a[:h, :h], b[:h], diag, precision)
+    top = top + matmul(a[:h, h:], b[h:], precision=precision).to(b.dtype)
+    bot = _trmm_lu(a[h:, h:], b[h:], diag, precision)
+    return torch.cat([top, bot], dim=0)
+
+
+def trmm_array(side: Side, uplo: Uplo, op: Op, diag: Diag, alpha, a: torch.Tensor,
+               b: torch.Tensor, precision: Optional[Precision] = None) -> torch.Tensor:
+    """B := alpha op(A) B (Left) or alpha B op(A) (Right), A triangular
+    (src/trmm.cc).  All eight (side, uplo, op) combinations reduce to the
+    two left-notrans recursions, as trsm_array's routing."""
+    b = torch.as_tensor(b, device=a.device)
+    if side == Side.Right:
+        # B op(A) = (op(A)^T B^T)^T
+        if op == Op.NoTrans:
+            out = trmm_array(Side.Left, uplo, Op.Trans, diag, alpha, a, b.T, precision)
+        elif op == Op.Trans:
+            out = trmm_array(Side.Left, uplo, Op.NoTrans, diag, alpha, a, b.T, precision)
+        else:  # B A^H = (conj(A) B^T)^T
+            out = trmm_array(Side.Left, uplo, Op.NoTrans, diag, alpha, a.conj(), b.T, precision)
+        return out.T
+    if op == Op.Trans:
+        return trmm_array(Side.Left, _other(uplo), Op.NoTrans, diag, alpha, a.T, b, precision)
+    if op == Op.ConjTrans:
+        return trmm_array(Side.Left, _other(uplo), Op.NoTrans, diag, alpha, a.conj().T, b,
+                          precision)
+    core = _trmm_ll if uplo == Uplo.Lower else _trmm_lu
+    return alpha * core(a, b, diag, precision)
+
+
+def trmm(side: Side, alpha, a: ArrayLike, b: ArrayLike, opts: Optional[Options] = None,
+         device=None):
+    """slate::trmm over matrix views, on ``operand_device(a, device)``; a
+    plain tensor is read as its lower triangle."""
+    dev = operand_device(a, device)
+    am = a if isinstance(a, BaseMatrix) else TriangularMatrix.from_array(_arr(a, dev), Uplo.Lower)
+    out = trmm_array(side, am.uplo, am.op, am.diag, alpha, torch.as_tensor(am.data, device=dev),
+                     _arr(b, dev), precision=_mul_prec(opts))
+    return _wrap_like(b, out)
 
 
 def split_pow2(n: int, base: int) -> int:
@@ -152,3 +330,36 @@ def trsm(side: Side, alpha, a: ArrayLike, b: ArrayLike, opts: Optional[Options] 
     am = a if isinstance(a, BaseMatrix) else TriangularMatrix.from_array(_arr(a, dev), Uplo.Lower)
     out = trsm_array(side, am.uplo, am.op, am.diag, alpha, torch.as_tensor(am.data, device=dev), _arr(b, dev))
     return _wrap_like(b, out)
+
+
+# ---------------------------------------------------------------------------
+# band (src/gbmm.cc, hbmm.cc): dense storage, the zero pattern by (kl, ku)
+# ---------------------------------------------------------------------------
+
+
+def gbmm(alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike, opts: Optional[Options] = None,
+         device=None):
+    """slate::gbmm: general band times dense; a band view is projected on
+    its (kl, ku) first, a plain tensor taken whole."""
+    dev = operand_device(a, device)
+    am = a if isinstance(a, BaseMatrix) else None
+    ad = _arr(a, dev)
+    if am is not None and am.kl is not None:
+        ad = band_project(ad, am.kl, am.ku)
+    return _wrap_like(c, gemm_array(alpha, ad, _arr(b, dev), beta, _arr(c, dev),
+                                    precision=_mul_prec(opts)))
+
+
+def hbmm(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike,
+         opts: Optional[Options] = None, device=None):
+    """slate::hbmm: Hermitian band times dense; a plain tensor is read as
+    its lower triangle."""
+    dev = operand_device(a, device)
+    am = a if isinstance(a, BaseMatrix) else None
+    if am is not None and am.kl is not None:
+        stored = band_project(torch.as_tensor(am.data, device=dev), am.kl, am.ku)
+        afull = symmetrize(stored, am.uplo, conj=True)
+    else:
+        afull = symmetrize(_arr(a, dev), Uplo.Lower, conj=True)
+    return _wrap_like(c, _side_mul(side, alpha, afull, _arr(b, dev), beta, _arr(c, dev),
+                                   precision=_mul_prec(opts)))

@@ -8,8 +8,8 @@ generalized to full factorizations by Du, Bosilca & Dongarra (PPoPP 2012).
 - ``checksum``: tile-level row/column checksum encode / residual on the
   device, locate / threshold on the host.
 - ``abft``: checksum-carrying SUMMA gemm (the hand-written
-  ``csrc/ft_summa_update.cu`` step), mesh Cholesky, LU-nopiv and trsm on
-  the virtual mesh, with fault hooks at the panel / broadcast / trailing
+  ``csrc/ft_summa_update.cu`` step), mesh Cholesky, LU-nopiv, trsm and
+  her2k / syr2k on the virtual mesh, with fault hooks at the panel / broadcast / trailing
   phases of every k-step, and the dense ``gemm_checked``.
 - ``inject``: deterministic seeded fault plans (zero / scale /
   bitflip-style element perturbation of a chosen tile at a chosen k-step
@@ -21,8 +21,8 @@ generalized to full factorizations by Du, Bosilca & Dongarra (PPoPP 2012).
 - ``python -m slate_tpu_torch.ft.smoke`` is the acceptance run: one
   injected fault per op class on the virtual 2 x 4 mesh.
 
-``slate_tpu``'s checkpoint/restart (``ft.ckpt``, ``ft.elastic``) and the
-checksum-carrying her2k come with later PRs.
+``slate_tpu``'s checkpoint/restart (``ft.ckpt``, ``ft.elastic``) comes
+with a later PR.
 """
 
 from .policy import (  # noqa: F401

@@ -24,7 +24,12 @@ broadcast simply carries one more augmented tile row or column:
   (checksum rows verify L, checksum columns verify U), reusing
   ``dist_lu._nopiv_panel/_narrow/_bulk`` and so the three LU kernels.
 - :func:`trsm_ft`: the TrsmB left solve with the weighted column sums of
-  B appended as extra right-hand sides (the solution-checksum carrier).
+  B appended as extra right-hand sides (the solution-checksum carrier);
+- :func:`her2k_ft`: the her2k / syr2k SUMMA of ``parallel.dist_blas3``
+  (its ``her2k_acc`` loop, the same two panel broadcasts and gathers a
+  step) over row-augmented A and B, computed FULL: [A; WA][B; WB]^H +
+  [B; WB][A; WA]^H is C wearing its own row (W C) and column (C W^H)
+  checksums, the GEMM structure, so the GEMM verify and repair judge it.
 
 Fault hooks.  ``slate_tpu`` lowers an armed ``inject.FaultPlan`` into a
 traced mask; here the loops run eagerly with the step k a Python int, so
@@ -75,6 +80,7 @@ from ..parallel.comm import (
     resolve_bcast_impl,
 )
 from ..parallel.dist import DistMatrix, from_dense, local_view, padded_tiles, to_dense
+from ..parallel.dist_blas3 import acc_tiles, her2k_acc, her2k_dist, tiles_of
 from ..parallel.dist_chol import _chol_panel_factor_solve
 from ..parallel.dist_lu import _nopiv_bulk, _nopiv_narrow, _nopiv_panel
 from ..parallel.dist_trsm import _trsm_b, trsm_dist
@@ -928,6 +934,124 @@ def _gemm_ft(
 
 
 # ---------------------------------------------------------------------------
+# checksum-carrying her2k / syr2k
+# ---------------------------------------------------------------------------
+
+
+def _ft_her2k(at, bt, alpha, p, q, kt, k_true, conj, la, nb, slots) -> torch.Tensor:
+    """The her2k loop over row-augmented stacks with the fault hooks: a
+    ``bcast`` fault rots one device's RECEIVED copy of A's column panel
+    before its updates consume it (one tile row of that device's
+    accumulator: the single-row repair class), a ``trailing`` (or
+    ``panel``) fault one accumulator tile right after step k's update
+    lands (final data: the GEMM class).  Returns the per-device
+    accumulators."""
+
+    def on_fetch(k, panels):
+        hits = _bcast_hits(slots, k)
+        if not hits:
+            return panels
+        (acol, a_t), b_panels = panels
+        return (_rot_received(acol, hits, p, q), a_t), b_panels
+
+    def on_step(k, acc):
+        tiles = acc_tiles(acc, nb)
+        for f in slots:
+            if f.phase in (PH_TRAIL, PH_PANEL) and f.k == k:
+                _hit4(tiles, f.ti % p, f.tj % q, f.ti // p, f.tj // q, f)
+
+    return her2k_acc(at, bt, alpha, p, q, kt, k_true, conj, la, on_fetch, on_step)
+
+
+def _encode_her2k(a: torch.Tensor, b: torch.Tensor, c, nb: int, mesh):
+    """The rank-2k operands gain checksum tile ROWS; a C gains the full
+    GEMM-output augmentation (row and column checksums and the cross), so
+    beta C folds into the carried checksums (linearity)."""
+    n, kdim = a.shape
+    mt = padded_tiles(n, nb, mesh)
+    kt = padded_tiles(kdim, nb, mesh)
+    Nm, Kp = mt * nb, kt * nb
+    ap = cks.pad_dense(a, Nm, Kp)
+    bp = cks.pad_dense(b, Nm, Kp)
+    a_aug = torch.cat([ap, cks.row_checksums(ap, nb)], dim=0)
+    b_aug = torch.cat([bp, cks.row_checksums(bp, nb)], dim=0)
+    del ap, bp
+    c_aug = None
+    if c is not None:
+        cp = cks.pad_dense(c, Nm, Nm)
+        crow = cks.row_checksums(cp, nb)
+        c_aug = torch.cat([torch.cat([cp, cks.col_checksums(cp, nb)], dim=1),
+                           torch.cat([crow, cks.col_checksums(crow, nb)], dim=1)], dim=0)
+    return a_aug, b_aug, c_aug, mt, kt
+
+
+def her2k_ft(
+    alpha, a, b, mesh: VirtualMesh, nb: int = 256, beta=0.0, c=None, conj: bool = True,
+    policy: FtPolicy = FtPolicy.Correct, lookahead=None, bcast_impl=None, _rerun: bool = False,
+) -> Tuple[torch.Tensor, FtReport]:
+    """ABFT distributed rank-2k update C = alpha A op(B) + op(alpha) B op(A)
+    + beta C (conj=True: her2k; conj=False: syr2k).  Returns (dense FULL C,
+    n x n, and FtReport); raises FtError per policy.  Accumulator damage is
+    final data, so single row / column / tile patterns repair exactly, and
+    received-panel corruption escalates to one recompute."""
+    dev = mesh.device
+    a, b = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+    c = None if c is None else torch.as_tensor(c, device=dev)
+    if a.shape != b.shape:
+        raise ValueError(f"her2k_ft: A and B must be same-shape, got {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)}")
+    n = int(a.shape[0])  # the rank-2k output is square: C is n x n
+    p, q = mesh_shape(mesh)
+    if policy == FtPolicy.Off:
+        cd = from_dense(c, mesh, nb) if c is not None else None
+        out = her2k_dist(alpha, from_dense(a, mesh, nb), from_dense(b, mesh, nb), beta, cd,
+                         conj=conj, full=True, lookahead=lookahead, bcast_impl=bcast_impl)
+        return to_dense(out)[:n, :n], FtReport(op="her2k")
+    a_aug, b_aug, c_aug, mt, kt = _encode_her2k(a, b, c, nb, mesh)
+    m_aug = a_aug.shape[0]
+    ad, bd = from_dense(a_aug, mesh, nb), from_dense(b_aug, mesh, nb)
+    del a_aug, b_aug
+    ints, vals = inject.spec_arrays("her2k")
+    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)):
+        acc = _ft_her2k(ad.tiles, bd.tiles, alpha, p, q, kt, int(a.shape[1]), conj,
+                        la_depth(lookahead, kt), nb, _slots(ints, vals))
+    del ad, bd
+    inject.consume("her2k")
+    out_t = tiles_of(acc, nb)
+    del acc
+    if c_aug is not None:
+        out_t.add_(from_dense(c_aug, mesh, nb).tiles * beta)
+    out = to_dense(DistMatrix(tiles=out_t, m=m_aug, n=m_aug, nb=nb, mesh=mesh))
+    del out_t
+    verdR, verdC, dr, dc = _gemm_verify(out, nb, mt, mt, kt)
+    report = FtReport(op="her2k")
+    if verdR.clean and verdC.clean:
+        return out[:n, :n], report
+    dets = verdR.detections + verdC.detections
+    count("ft.detected", "her2k", len(dets))
+    if policy == FtPolicy.Detect:
+        raise FtError("her2k", "corruption detected (policy=detect)", dets)
+    if policy == FtPolicy.Correct and not _rerun:
+        fixed = _gemm_try_repair(out, dr, dc, verdR, verdC, nb, mt, mt)
+        if fixed is not None:
+            v2R, v2C, _, _ = _gemm_verify(fixed, nb, mt, mt, kt)
+            if v2R.clean and v2C.clean:
+                count("ft.corrected", "her2k", len(dets))
+                report.action, report.detections = "corrected", dets
+                return fixed[:n, :n], report
+    if _rerun:
+        count("ft.uncorrectable", "her2k")
+        raise FtError("her2k", "recompute still fails verification", dets)
+    count("ft.recomputed", "her2k")
+    del out, dr, dc
+    out2, rep2 = her2k_ft(alpha, a, b, mesh, nb, beta, c, conj, policy, lookahead, bcast_impl,
+                          _rerun=True)
+    rep2.action = "recomputed"
+    rep2.detections = dets + rep2.detections
+    return out2, rep2
+
+
+# ---------------------------------------------------------------------------
 # public drivers
 # ---------------------------------------------------------------------------
 
@@ -985,6 +1109,14 @@ def gemm_mesh_ft(alpha, a, b, mesh, nb=256, beta=0.0, c=None,
                      lookahead=get_option(opts, Option.Lookahead),
                      bcast_impl=get_option(opts, Option.BcastImpl),
                      panel_impl=get_option(opts, Option.PanelImpl))
+    return out
+
+
+def her2k_mesh_ft(alpha, a, b, mesh, nb=256, beta=0.0, c=None, conj: bool = True,
+                  opts: Optional[Options] = None) -> torch.Tensor:
+    out, _ = her2k_ft(alpha, a, b, mesh, nb, beta, c, conj=conj, policy=resolve_policy(opts),
+                      lookahead=get_option(opts, Option.Lookahead),
+                      bcast_impl=get_option(opts, Option.BcastImpl))
     return out
 
 

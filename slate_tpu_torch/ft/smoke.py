@@ -11,12 +11,13 @@ detect -> locate -> correct path, with ``slate_tpu``'s seeds and operands
 4. recompute: live-data (trailing) corruption of potrf -> one recompute;
 5. a persistent double fault in LU-nopiv -> ``FtError``;
 6. trsm: a corrupted already-solved X tile -> exact correction;
+7. her2k: a trailing-accumulator fault -> exact correction from the
+   dual-sided carried checksums (the GEMM repair class);
 
-then the ``ft.*`` counters (detected >= 6, corrected >= 4, recomputed >= 1,
-uncorrectable >= 1; ``slate_tpu``'s scenario 7, her2k, is not ported, so
-each bound is one lower).  Prints one JSON line (the scenarios and the
-counters; RunReports come with the observability slice) and exits
-non-zero if any scenario failed.
+then the ``ft.*`` counters (detected >= 7, corrected >= 5, recomputed >= 1,
+uncorrectable >= 1, ``slate_tpu``'s floors).  Prints one JSON line (the
+scenarios and the counters; RunReports come with the observability slice)
+and exits non-zero if any scenario failed.
 
 Usage::
 
@@ -31,7 +32,7 @@ import sys
 
 
 def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8) -> dict:
-    """Run the six scenarios; returns {"ok", "scenarios", "counters"}."""
+    """Run the seven scenarios; returns {"ok", "scenarios", "counters"}."""
     import numpy as np
     import torch
 
@@ -123,9 +124,18 @@ def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8) -> dict:
     terr = rel(x.cpu().numpy(), np.linalg.solve(tl_np, brhs_np))
     record("trsm", rep.action == "corrected" and terr < 1e-10, action=rep.action, err=terr)
 
+    # (7) her2k: an injected accumulator fault is final data, exactly
+    # repaired from the dual-sided carried checksums (the GEMM repair class)
+    f = inject.Fault("her2k", k=nt - 1, phase="trailing", ti=3, tj=1, r=3 % 2, c=1 % 4,
+                     mode=inject.MODE_SCALE, value=3.0)
+    with inject.fault_scope(inject.FaultPlan([f])):
+        c2k, rep = abft.her2k_ft(1.0, a, b, mesh, nb, policy=FtPolicy.Correct)
+    herr = rel(c2k.cpu().numpy(), a_np @ b_np.T + b_np @ a_np.T)
+    record("her2k", rep.action == "corrected" and herr < 1e-12, action=rep.action, err=herr)
+
     ftv = ft_counter_values()
     counters = {k: ftv[k] for k in ("detected", "corrected", "recomputed", "uncorrectable")}
-    record("counters", counters["detected"] >= 6 and counters["corrected"] >= 4
+    record("counters", counters["detected"] >= 7 and counters["corrected"] >= 5
            and counters["recomputed"] >= 1 and counters["uncorrectable"] >= 1)
     return {"ok": all(s["ok"] for s in scenarios.values()), "device": device, "n": n, "nb": nb,
             "grid": "2x4", "scenarios": scenarios, "counters": counters}

@@ -3,6 +3,8 @@ from .chol import (
     posv_array,
     potrf,
     potrf_array,
+    potri,
+    potri_array,
     potrs,
     potrs_array,
 )

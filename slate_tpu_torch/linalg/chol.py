@@ -1,6 +1,6 @@
-"""Cholesky family of the port: potrf / potrs / posv.
+"""Cholesky family of the port: potrf / potrs / posv / potri.
 
-Counterpart of the potrf/potrs/posv part of ``slate_tpu/linalg/chol.py``,
+Counterpart of the potrf/potrs/posv/potri part of ``slate_tpu/linalg/chol.py``,
 with the same forms, thresholds and info code:
 
 - f32 (and any non-f64 dtype) with n > ``_POTRF_SCAN_MIN_N`` runs
@@ -28,7 +28,13 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..blas3.blas3 import _NB, _split, trsm_array
-from ..core.matrix import BaseMatrix, TriangularMatrix, operand_device, symmetrize
+from ..core.matrix import (
+    BaseMatrix,
+    HermitianMatrix,
+    TriangularMatrix,
+    operand_device,
+    symmetrize,
+)
 from ..ops.kernels import chol_diag_inv, panel_engaged
 from ..ops.matmul import matmul, matmul_sub_
 from ..types import Diag, Op, Options, Side, Uplo
@@ -321,3 +327,18 @@ def posv(a: ArrayLike, b: ArrayLike, opts: Optional[Options] = None, device=None
     if isinstance(b, BaseMatrix):
         x = replace(b, data=x)
     return x, TriangularMatrix(data=f, uplo=uplo), info
+
+
+def potri_array(l: torch.Tensor, uplo: Uplo = Uplo.Lower) -> torch.Tensor:
+    """A^-1 from the Cholesky factor (src/potri.cc): trtri, then the
+    triangle product of trtrm; returns the ``uplo`` triangle of A^-1."""
+    from .tri import trtri_array, trtrm_array
+
+    return trtrm_array(trtri_array(l, uplo, Diag.NonUnit), uplo)
+
+
+def potri(factor: TriangularMatrix, device=None) -> HermitianMatrix:
+    """slate::potri over the factor's view, on ``operand_device(factor,
+    device)``."""
+    data = torch.as_tensor(factor.data, device=operand_device(factor, device))
+    return HermitianMatrix(data=potri_array(data, factor.uplo), uplo=factor.uplo)

@@ -8,7 +8,8 @@ slice.
 
 The flat ``serve.*`` counters of ``slate_tpu/serve/metrics.py`` that the
 port's code bumps so far live here too (:func:`serve_count`): the Ozaki
-digit-plane cache's ``ozaki_presplits`` and ``ozaki_presplit_hits``.
+digit-plane cache's ``ozaki_presplits`` and ``ozaki_presplit_hits``, and
+the mesh condest memo's ``condest_cache_hits``.
 """
 
 from __future__ import annotations
@@ -70,7 +71,8 @@ REGISTRY = MetricsRegistry()
 
 # flat serve.* counters (slate_tpu/serve/metrics.py names); the rest of the
 # serving layer comes with its slice
-_SERVE_COUNTS: Dict[str, float] = {"ozaki_presplits": 0.0, "ozaki_presplit_hits": 0.0}
+_SERVE_COUNTS: Dict[str, float] = {"ozaki_presplits": 0.0, "ozaki_presplit_hits": 0.0,
+                                   "condest_cache_hits": 0.0}
 
 
 def serve_count(name: str, n: float = 1.0) -> None:

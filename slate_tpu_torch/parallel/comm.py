@@ -334,7 +334,8 @@ def bcast_diag_tile(t_loc: torch.Tensor, k: int, p: int, q: int, roff: int = 0,
 
 
 def route_to_block_cyclic_rows(part: torch.Tensor, targets: torch.Tensor, p: int,
-                               mtl_out: int) -> torch.Tensor:
+                               mtl_out: int, extra: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Deliver per-target-row partials to their block-cyclic owners.
 
     ``part`` is (P, Q, t, q, ntl, nb, nb): on each device slot t carries the
@@ -345,8 +346,10 @@ def route_to_block_cyclic_rows(part: torch.Tensor, targets: torch.Tensor, p: int
     then the row slots; the result is the (p, q, mtl_out, ntl, nb, nb)
     per-device delivery.  Here the slots are one global accumulator filled
     by one indexed add -- the same sums -- and the audit records the two
-    psum-scatters with ``slate_tpu``'s payloads.  (``slate_tpu``'s
-    ``extra`` operand, hemmA's own-row part, comes with the hemm slice.)"""
+    psum-scatters with ``slate_tpu``'s payloads.  ``extra``, when given, is
+    a (p, Q, mtl_out, q, ntl, nb, nb) contribution that already belongs to
+    each device's own mesh row (hemmA's stored part): it joins the row
+    slots of its mesh row before the scatters."""
     P, Q, t, q_, ntl, nb, nb2 = part.shape
     routed_payload = (p, mtl_out, q_, ntl, nb, nb2)
     numel = 1
@@ -354,7 +357,10 @@ def route_to_block_cyclic_rows(part: torch.Tensor, targets: torch.Tensor, p: int
         numel *= s
     audit(f"psum_scatter[{COL_AXIS}]", numel * part.element_size())
     audit(f"psum_scatter[{ROW_AXIS}]", numel // q_ * part.element_size())
-    out = torch.zeros(routed_payload, dtype=part.dtype, device=part.device)
+    if extra is not None:
+        out = extra.sum(dim=1)  # (p, mtl_out, q, ntl, nb, nb): summed over the row's devices
+    else:
+        out = torch.zeros(routed_payload, dtype=part.dtype, device=part.device)
     tg = targets.expand(P, Q, t).reshape(-1)
     keep = (tg >= 0) & (tg // p < mtl_out)  # mode="drop"
     src = part.reshape(P * Q * t, q_, ntl, nb, nb2)

@@ -1,17 +1,19 @@
 """Distributed triangular solve over the block-cyclic virtual mesh.
 
-Counterpart of ``trsm_dist`` in ``slate_tpu/parallel/dist_trsm.py`` (the
-reference's ``src/trsm.cc`` / ``trsmA.cc``), left side, every (uplo, op).
-Per tile row k: the diagonal tile reaches every device, the owning mesh row
-solves its row of B and broadcasts the solution down the mesh columns, and
-every device subtracts the panel update.  TrsmB broadcasts A's panel to
-B's owners; TrsmA keeps A's tiles where they are, replicates the solved
-row and routes the partial updates back to B's owners (psum-scatters).
-There is no Pallas kernel on this path in ``slate_tpu``: the solves and
-products are ``torch.linalg.solve_triangular`` (in f32 for a half-precision
-B) and batched ``matmul`` over
-the grid, as ``slate_tpu`` left them to XLA.  ``trsm_dist_right`` is not
-ported yet.
+Counterpart of ``trsm_dist`` and ``trsm_dist_right`` in
+``slate_tpu/parallel/dist_trsm.py`` (the reference's ``src/trsm.cc`` /
+``trsmA.cc``), both sides, every (uplo, op).  Left, per tile row k: the
+diagonal tile reaches every device, the owning mesh row solves its row of B
+and broadcasts the solution down the mesh columns, and every device
+subtracts the panel update.  TrsmB broadcasts A's panel to B's owners;
+TrsmA keeps A's tiles where they are, replicates the solved row and routes
+the partial updates back to B's owners (psum-scatters).  Right
+(X op(A) = B), per tile column k: the owning mesh column solves its column
+of B and broadcasts it along the rows, with row k of op(A) as the
+prefetched panel.  There is no Pallas kernel on this path in
+``slate_tpu``: the solves and products are
+``torch.linalg.solve_triangular`` (in f32 for a half-precision B) and
+batched ``matmul`` over the grid, as ``slate_tpu`` left them to XLA.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..blas3.blas3 import solve_tri
 from ..types import Diag, MethodTrsm, Op, Side, Uplo, select_trsm_method
 from .comm import (
     COL_AXIS,
+    ROW_AXIS,
     all_gather_a,
     bcast_diag_tile,
     bcast_from_col,
@@ -37,6 +40,7 @@ from .comm import (
     route_to_block_cyclic_rows,
 )
 from .dist import DistMatrix, local_view
+from .dist_blas3 import tile_outer
 from .mesh import mesh_shape
 
 
@@ -175,6 +179,75 @@ def _trsm_a(at, bt, p, q, nt, uplo, op, diag, la):
         pan = torch.where(keep, opt(a_loc[:, :, k // p]), 0)
         part = torch.matmul(pan[:, :, :, None, None], xfull[:, :, None])  # (p,q,ntl,q,ntl_b,..)
         b_loc -= route_to_block_cyclic_rows(part, j_log, p, mtl_b)
+        return b_loc
+
+    prefetch_bcast(nt, la, fetch, consume, b_loc)
+
+
+def trsm_dist_right(
+    a: DistMatrix,
+    b: DistMatrix,
+    uplo: Uplo = Uplo.Lower,
+    op: Op = Op.NoTrans,
+    diag: Diag = Diag.NonUnit,
+    lookahead: Optional[int] = None,
+    bcast_impl: Optional[str] = None,
+) -> DistMatrix:
+    """Solve X op(A) = B; A triangular-distributed (n, n), B (m, n); X
+    comes back in B's layout (a new tile stack).  ``lookahead`` prefetches
+    A's read-only per-step panels, ``bcast_impl`` is the audited lowering;
+    bitwise the same at every depth and lowering."""
+    p, q = mesh_shape(a.mesh)
+    if b.grid != a.grid or b.nb != a.nb or b.nt != a.nt or b.n != a.m:
+        raise ValueError(
+            f"trsm_dist_right operands mismatch: A {a.m}x{a.n} nb={a.nb}, "
+            f"B {b.m}x{b.n} nb={b.nb}"
+        )
+    a.require_diag_pad("trsm_dist_right")
+    xt = b.tiles.clone()
+    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)):
+        _trsm_right(a.tiles, xt, p, q, a.nt, uplo, op, diag, la_depth(lookahead, a.nt))
+    return DistMatrix(tiles=xt, m=b.m, n=b.n, nb=b.nb, mesh=b.mesh)
+
+
+def _trsm_right(at, bt, p, q, nt, uplo, op, diag, la):
+    """``slate_tpu``'s ``_trsm_right_jit``, in place on B's tile copy."""
+    trans, conj = op != Op.NoTrans, op == Op.ConjTrans
+    eff_lower = (uplo == Uplo.Lower) != trans
+    forward = not eff_lower  # X op(A) = B with op(A) upper: leading columns first
+    unit = diag == Diag.Unit
+    a_loc, b_loc = local_view(at, p, q), local_view(bt, p, q)
+    _, _, _, j_log = local_indices(p, q, a_loc.shape[2], a_loc.shape[3], at.device)
+
+    def opt(t):
+        t = t.transpose(-1, -2)
+        return t.conj() if conj else t
+
+    def fetch(s):
+        k = s if forward else nt - 1 - s
+        dtile = bcast_diag_tile(a_loc, k, p, q)
+        if trans:
+            dtile = opt(dtile)
+        remaining = ((j_log > k) if forward else (j_log < k))[..., None, None]  # (1, q, ntl)
+        if not trans:
+            arow = bcast_from_row(a_loc[k % p:k % p + 1, :, k // p], k % p, p)
+        else:
+            # op(A)[k, j] = op(A[j, k]): transpose-gather of A's column k
+            acol = bcast_from_col(a_loc[:, k % q:k % q + 1, :, k // q], k % q, q)
+            allcol = all_gather_a(acol, ROW_AXIS, p)[0, 0]  # (p, mtl, nb, nb)
+            arow = opt(allcol[j_log % p, j_log // p])
+        return dtile, torch.where(remaining, arow, 0)
+
+    def consume(s, panels, b_loc):
+        k = s if forward else nt - 1 - s
+        dtile, arow = panels
+        c0, kc = k % q, k // q
+        # solve X[:, k] on the owning mesh column, in place, and broadcast it
+        bcol = b_loc[:, c0:c0 + 1, :, kc]
+        bcol.copy_(solve_tri(dtile[0, 0], bcol, upper=not eff_lower, left=False,
+                             unitriangular=unit))
+        xcol = bcast_from_col(bcol, c0, q)  # (p, 1, mtl_b, nb, nb)
+        b_loc -= tile_outer(xcol, arow)
         return b_loc
 
     prefetch_bcast(nt, la, fetch, consume, b_loc)

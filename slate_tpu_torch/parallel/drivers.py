@@ -8,15 +8,20 @@ Counterpart of ``slate_tpu/parallel/drivers.py`` (the reference's
 ``getrf_nopiv_mesh`` / ``gesv_nopiv_mesh`` (no pivoting),
 ``getrf_tntpiv_mesh`` / ``gesv_tntpiv_mesh`` (tournament pivoting, CALU),
 ``getrf_mesh`` / ``gesv_mesh`` (partial pivoting, the reference's default
-``MethodLU::PartialPiv``) and ``geqrf_mesh`` / ``gels_mesh`` (CAQR), with
-the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs are padded
-with an identity diagonal block (``from_dense(..., diag_pad_one=True)``),
-so padded runs stay exact.
+``MethodLU::PartialPiv``), ``geqrf_mesh`` / ``gels_mesh`` (CAQR),
+``her2k_mesh`` (her2k / syr2k, both triangles), the inverses ``getri_mesh``
+and ``potri_mesh`` (src/getri.cc, potri.cc: the factor, then the two
+sweeps on the identity) and the band multiplies ``gbmm_mesh`` /
+``hbmm_mesh`` (band storage on the dense tile stack, projected on (kl,
+ku)), with the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs
+are padded with an identity diagonal block (``from_dense(...,
+diag_pad_one=True)``), so padded runs stay exact.
 
 ``Option.FaultTolerance`` (``ft.policy.FtPolicy``; off by default) reroutes
-``gemm_mesh``, ``potrf_mesh`` (and so ``posv_mesh``) and
-``getrf_nopiv_mesh`` (and so ``gesv_nopiv_mesh``) to the checksum-carrying
-drivers of ``ft/abft.py``; off runs the plain kernels untouched.  As in
+``gemm_mesh``, ``potrf_mesh`` (and so ``posv_mesh``),
+``getrf_nopiv_mesh`` (and so ``gesv_nopiv_mesh``) and ``her2k_mesh`` to the
+checksum-carrying drivers of ``ft/abft.py``; off runs the plain kernels
+untouched.  As in
 ``slate_tpu``, the pivoted LU and QR drivers have no ABFT form and run
 plain under an active policy, and FaultTolerance together with
 ``Option.Checkpoint`` raises ``ValueError``.
@@ -41,7 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..types import Diag, Op, Option, Options, Uplo, get_option
+from ..types import Diag, Op, Option, Options, Side, Uplo, get_option
 from .dist import DistMatrix, from_dense, to_dense
 from .dist_chol import potrf_dist
 from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
@@ -324,3 +329,84 @@ def gels_mesh(
     zero = torch.diagonal(r) == 0
     info = torch.where(zero.any(), zero.to(torch.int8).argmax() + 1, 0).to(torch.int32)
     return to_dense(xd), info
+
+
+def her2k_mesh(
+    alpha, a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0, c=None, conj: bool = True,
+    opts: Optional[Options] = None,
+) -> torch.Tensor:
+    """Distributed rank-2k update C = alpha A op(B) + op(alpha) B op(A) +
+    beta C (conj=True: her2k, src/her2k.cc; conj=False: syr2k), returned
+    FULL (both triangles).  Option.FaultTolerance reroutes to the
+    checksum-carrying her2k (ft/abft.py)."""
+    from .dist_blas3 import her2k_dist
+
+    if _ft_on(opts):
+        from ..ft.abft import her2k_mesh_ft
+
+        return her2k_mesh_ft(alpha, a, b, mesh, nb, beta, c, conj, opts)
+    ad = from_dense(a, mesh, nb)
+    bd = from_dense(b, mesh, nb)
+    cd = from_dense(c, mesh, nb) if c is not None else None
+    out = her2k_dist(alpha, ad, bd, beta, cd, conj=conj, full=True, lookahead=_la(opts),
+                     bcast_impl=_bi(opts))
+    n = ad.m
+    return to_dense(out)[:n, :n]
+
+
+def _eye_like(a, mesh: VirtualMesh) -> torch.Tensor:
+    a = torch.as_tensor(a)  # no copy: only its size and dtype are read
+    return torch.eye(a.shape[0], dtype=a.dtype, device=mesh.device)
+
+
+def getri_mesh(a, mesh: VirtualMesh, nb: int = _DEFAULT_NB) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed inverse (src/getri.cc): the partial-pivot factor, then
+    A X = I solved on the mesh (the pivoted sweeps on the identity: the
+    same O(n^3) as the reference's trtri + trmm chain).  Returns (X dense,
+    info)."""
+    eye = _eye_like(a, mesh)
+    lu, perm, info = getrf_mesh(a, mesh, nb)
+    pb = permute_rows_dist(from_dense(eye, mesh, nb), perm)
+    y = trsm_dist(lu, pb, Uplo.Lower, Op.NoTrans, Diag.Unit)
+    x = trsm_dist(lu, y, Uplo.Upper, Op.NoTrans)
+    return to_dense(x), info
+
+
+def potri_mesh(a, mesh: VirtualMesh, nb: int = _DEFAULT_NB) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed SPD inverse (src/potri.cc): the Cholesky factor, then
+    A^-1 = L^-H L^-1 by the two mesh sweeps on the identity.  Returns
+    (X dense, info)."""
+    eye = _eye_like(a, mesh)
+    l, info = potrf_mesh(a, mesh, nb)
+    y = trsm_dist(l, from_dense(eye, mesh, nb), Uplo.Lower, Op.NoTrans)
+    x = trsm_dist(l, y, Uplo.Lower, Op.ConjTrans)
+    return to_dense(x), info
+
+
+def gbmm_mesh(
+    alpha, a, kl: int, ku: int, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0, c=None,
+    opts: Optional[Options] = None,
+) -> torch.Tensor:
+    """Distributed general-band times dense (src/gbmm.cc): the band
+    projected on (kl, ku), then ``gemm_mesh``."""
+    from ..core.matrix import band_project
+
+    return gemm_mesh(alpha, band_project(torch.as_tensor(a, device=mesh.device), kl, ku), b,
+                     mesh, nb, beta, c, opts)
+
+
+def hbmm_mesh(
+    side: Side, alpha, a, kd: int, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0,
+    c=None, uplo: Uplo = Uplo.Lower, opts: Optional[Options] = None,
+) -> torch.Tensor:
+    """Distributed Hermitian-band times dense (src/hbmm.cc): the stored
+    band triangle projected on kd, then ``hemm_summa``."""
+    from ..core.matrix import band_project
+    from .dist_blas3 import hemm_summa
+
+    kl, ku = (kd, 0) if uplo == Uplo.Lower else (0, kd)
+    ad = from_dense(band_project(torch.as_tensor(a, device=mesh.device), kl, ku), mesh, nb)
+    bd = from_dense(b, mesh, nb)
+    cd = from_dense(c, mesh, nb) if c is not None else None
+    return to_dense(hemm_summa(side, alpha, ad, bd, beta, cd, uplo=uplo, lookahead=_la(opts),
+                               bcast_impl=_bi(opts)))

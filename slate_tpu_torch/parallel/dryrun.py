@@ -1,16 +1,23 @@
-"""The port's mesh dryrun: ``slate_tpu``'s ``posv_chain`` phase on a virtual
-2 x 4 mesh.
+"""The port's mesh dryrun: four of ``slate_tpu``'s dryrun phases on a
+virtual 2 x 4 mesh.
 
     python -m slate_tpu_torch.parallel.dryrun [--device cpu|cuda]
 
-Counterpart of the ``posv_chain`` phase of ``__graft_entry__.py``'s
-``dryrun_multichip``: the same seeded f32 SPD system (n = 64, 16 right-hand
-sides, nb = 8) is distributed, factored (``potrf_dist``), solved with two
-``trsm_dist`` calls and multiplied back with ``gemm_summa``; the normwise
-backward error must stay under 100 n eps32.  Prints one JSON line with the
-phase's result (``{"n_devices": 8, "phases": {"posv_chain": {...}}, "ok":
-...}``) and exits non-zero if the phase failed.  The other dryrun phases
-come with their slices.
+Counterpart of ``__graft_entry__.py``'s ``dryrun_multichip``, in its order
+and with its seeded operands (n = 64, nb = 8, 16 right-hand sides):
+
+- ``posv_chain``: the f32 SPD system distributed, factored
+  (``potrf_dist``), solved with two ``trsm_dist`` calls and multiplied back
+  with ``gemm_summa``; the normwise backward error under 100 n eps32;
+- ``gesv_pp``: ``gesv_mesh`` (partial pivoting), the same gate;
+- ``hemm_summa``: ``hemm_summa(Side.Left, 1.0, H, B)`` with H = (G + G^T)/2
+  in f32, its relative error against H B under 1e-4;
+- ``panel_pallas``: the LU half, ``getrf_nopiv_dist`` under PanelImpl
+  pallas, its reconstruction residual under 100 n eps32.
+
+Prints one JSON line (``{"n_devices": 8, "phases": {...}, "ok": ...}``) and
+exits non-zero if a phase failed.  The other phases (``stedc_dist``,
+``heev_chain``, ``flight_timeline``, ``mem``) come with their slices.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ import time
 import numpy as np
 import torch
 
-from ..types import Diag, Op, Uplo
+from ..types import Diag, Op, Side, Uplo
 from .dist import from_dense, to_dense
+from .dist_blas3 import hemm_summa
 from .dist_chol import potrf_dist
 from .dist_lu import getrf_nopiv_dist
 from .dist_trsm import trsm_dist
@@ -46,7 +54,8 @@ def dryrun_operands(n: int = N, nrhs: int = NRHS):
     """Every operand of the ported phases, drawn from one numpy generator
     (seed 0) in ``__graft_entry__.py``'s order: G, B (posv_chain), the
     gesv_pp matrix, the two stedc_dist vectors (drawn and dropped here),
-    then the strict upper part of the panel_pallas LU matrix."""
+    then the strict upper part of the panel_pallas LU matrix; and the
+    hemm_summa phase's H = (G + G^T) / 2."""
     rng = np.random.default_rng(0)
     g = rng.standard_normal((n, n)).astype(np.float32)
     a = g @ g.T + n * np.eye(n, dtype=np.float32)
@@ -55,7 +64,8 @@ def dryrun_operands(n: int = N, nrhs: int = NRHS):
     rng.standard_normal(96)  # stedc_dist's d and e
     rng.standard_normal(95)
     lum = (np.tril(g) + n * np.eye(n) + np.triu(rng.standard_normal((n, n)), 1)).astype(np.float32)
-    return {"a": a, "b": b, "am": am, "lum": lum}
+    hm = ((g + g.T) / 2).astype(np.float32)
+    return {"a": a, "b": b, "am": am, "lum": lum, "hm": hm}
 
 
 def posv_chain(a: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB, **opts):
@@ -85,6 +95,14 @@ def gesv_pp(am: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB):
     eta = float((am @ x - b).abs().max()
                 / (am.abs().max() * x.abs().max() * n + b.abs().max()))
     return x, info, eta
+
+
+def hemm_residual(hm: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB) -> float:
+    """hemm_summa(Side.Left, 1.0, H, B) against H @ B: max|HB - C| /
+    max|HB|."""
+    hc = to_dense(hemm_summa(Side.Left, 1.0, from_dense(hm, mesh, nb), from_dense(b, mesh, nb)))
+    ref = hm @ b
+    return float((hc - ref).abs().max() / (ref.abs().max() + 1e-30))
 
 
 def lu_panel_residual(lum: torch.Tensor, mesh, nb: int = NB):
@@ -118,13 +136,20 @@ def dryrun(device: str = "cuda") -> dict:
             raise RuntimeError(f"gesv_mesh (partial pivot) info={int(info)} eta={eta}")
         return {"eta": eta}
 
+    def hemm():
+        r_h = hemm_residual(ops["hm"], ops["b"], mesh)
+        if not r_h < 1e-4:
+            raise RuntimeError(f"hemm_summa residual {r_h}")
+        return {"resid": r_h}
+
     def panel():
         info, r_lu = lu_panel_residual(ops["lum"], mesh)
         if int(info) != 0 or not r_lu < gate:
             raise RuntimeError(f"getrf_nopiv_dist[pallas] info={int(info)} resid={r_lu}")
         return {"resid_lu": r_lu}
 
-    for name, fn in (("posv_chain", posv), ("gesv_pp", pp), ("panel_pallas", panel)):
+    for name, fn in (("posv_chain", posv), ("gesv_pp", pp), ("hemm_summa", hemm),
+                     ("panel_pallas", panel)):
         t0 = time.time()
         try:
             result["phases"][name] = dict(fn(), seconds=round(time.time() - t0, 3))

@@ -4,7 +4,8 @@ Counterpart of ``slate_tpu/types.py``: the same enum classes with the same
 member names and values, so that a test can map one package's enum onto the
 other's by name (``utils.testing.options_from_names``).  Only the enums the
 ported paths read are here (the single-chip Cholesky path and the mesh
-solve: grid order, MethodGemm/MethodTrsm and their selectors; the mesh LU
+solve: grid order, MethodGemm/MethodTrsm and their selectors; the mesh
+BLAS-3: MethodHemm and its selector; the mesh LU
 solves: MethodLU; least squares: MethodGels; the norms and condition
 estimators: Norm, NormScope); the other method enums come with the slices
 that read them.
@@ -87,6 +88,12 @@ class MethodTrsm(enum.Enum):
     TrsmB = "B"
 
 
+class MethodHemm(enum.Enum):
+    Auto = "auto"
+    HemmA = "A"  # stationary-A (hemmA)
+    HemmC = "C"  # the k-loop broadcast pipeline
+
+
 class MethodGels(enum.Enum):
     QR = "QR"
     CholQR = "CholQR"
@@ -112,6 +119,15 @@ def select_trsm_method(side: "Side", m: int, n: int) -> MethodTrsm:
     if (side == Side.Left and n <= m // 4) or (side == Side.Right and m <= n // 4):
         return MethodTrsm.TrsmA
     return MethodTrsm.TrsmB
+
+
+def select_hemm_method(m: int, n: int) -> MethodHemm:
+    """``slate_tpu``'s rule in tiles: a B/C panel of n tile columns against
+    an A of m tile rows takes stationary-A when n <= m / 4 (the reference
+    switches on n < 2 nb; callers pinning that pass Option.MethodHemm)."""
+    if n <= m // 4:
+        return MethodHemm.HemmA
+    return MethodHemm.HemmC
 
 
 class Precision(enum.Enum):

@@ -447,7 +447,8 @@ def test_port_imports_no_jax():
                 "ft/checksum.py", "ft/inject.py", "ft/policy.py", "ft/smoke.py", "obs/metrics.py",
                 "linalg/lu.py", "linalg/norms.py", "linalg/refine.py", "linalg/tri.py",
                 "ops/tile_ops.py", "ops/matmul.py", "ops/ozaki.py", "parallel/summa.py",
-                "parallel/dist_aux.py", "parallel/dist_refine.py", "parallel/mixed_smoke.py"):
+                "parallel/dist_aux.py", "parallel/dist_refine.py", "parallel/mixed_smoke.py",
+                "parallel/dist_blas3.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

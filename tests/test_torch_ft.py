@@ -653,17 +653,17 @@ def test_trsm_detect_correct_recompute(ops64):
 
 
 def test_ft_smoke_on_the_host():
-    """``python -m slate_tpu_torch.ft.smoke --device cpu``: the six
-    scenarios of slate_tpu's smoke (her2k not ported) all pass, and the
-    counters clear the smoke's bounds."""
+    """``python -m slate_tpu_torch.ft.smoke --device cpu``: the seven
+    scenarios of slate_tpu's smoke all pass, and the counters clear the
+    smoke's bounds (slate_tpu's floors)."""
     from slate_tpu_torch.ft import smoke
 
     res = smoke.run_smoke("cpu")
     assert res["ok"], res["scenarios"]
     assert set(res["scenarios"]) == {"gemm", "potrf", "getrf_nopiv", "recompute", "double_fault",
-                                     "trsm", "counters"}
+                                     "trsm", "her2k", "counters"}
     c = res["counters"]
-    assert c["detected"] >= 6 and c["corrected"] >= 4 and c["recomputed"] >= 1
+    assert c["detected"] >= 7 and c["corrected"] >= 5 and c["recomputed"] >= 1
     assert c["uncorrectable"] >= 1
 
 
