@@ -196,16 +196,41 @@ printing one JSON line before the next starts (any failure exits non-zero):
 38. ft_her2k: her2k_mesh under FaultTolerance, f64 n = 8192 (clean
    overhead, a seeded trailing fault corrected to 1e-12 max|C|) and f32
    n = 16384 (its action and floor ratio);
-39. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa, the LU
-   panel_pallas half; n = 64, nb = 8, 2 x 4);
-40. total: the script's seconds; then kernels: the line of every ported
+39. eig_mesh: heev_mesh (2 x 4, nb = 64, vectors, the distributed
+   solver) f32 at n = 8192 and f64 at n = 2048 (cut from 4096: the chase
+   is a host-bound eager loop) on (G + G^T) / 2, after a
+   warm-up at n = 256: seconds, the split (he2hb_dist, gather_diagband +
+   hb2st, stedc_dist, chase_apply_dist, unmtr_he2hb_dist), peak memory,
+   _he2hb_panel_count qr_panel_offset launches; gates: max|A Z - Z W| /
+   (max|A| n) and max|Z^T Z - I| < 100 n eps, w within n eps ||A||_2 of
+   torch.linalg.eigvalsh in f64;
+40. svd_mesh: svd_mesh (2 x 4, nb = 64) f32 8192^2 and f64 2048^2 (cut
+   as eig_mesh's) on a
+   Gaussian A: the same readings (the split: ge2tb_dist, gather_diagband +
+   tb2bd, bdsqr, the two chase_apply_dist, unmbr_ge2tb_u_dist /
+   _v_dist), nblocks + LQ-panel qr_panel_offset launches; gates:
+   max|A - U S Vh| / (max|A| n), max|U^T U - I|, max|Vh Vh^T - I|
+   < 100 n eps, s within n eps s_max of torch.linalg.svdvals in f64
+   (gesvd for an f64 A);
+41. kernel_qr_he2hb: qr_panel_offset against its twin on the first and
+   last he2hb panel the f32 / f64 eig_mesh run gave it ((n, 64), row0 = 64
+   and n - 64; utils.testing.qr_panel_check, the mutants, rows above row0
+   untouched), timed with its twin, torch.geqrf and the bound;
+42. eig_single: heev_array and svd_array f32 at n = 2048, nb = 32: the
+   same readings and launches;
+43. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+   stedc_dist, heev_chain, the LU panel_pallas half; n = 64, nb = 8,
+   2 x 4);
+44. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
    rows those of phase 32's public 8192^3 calls; the chol_panel_tiles,
    chol_trailing_update and lu_rowsolve_tiles rows also carry
    ``launches_by_path``, their mesh posv / nopiv launches beside those of
-   phase 37's potri_mesh / getri_mesh), then the card line and, last,
+   phase 37's potri_mesh / getri_mesh, and the qr_panel_offset rows
+   those of phases 39, 40 and 42 beside the mesh gels' and, under
+   ``at_he2hb_panel``, phase 41's readings), then the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -3606,13 +3631,312 @@ def ft_smoke_phase():
     check(res["ok"] and len(res["scenarios"]) == 8, f"ft smoke failed: {res['scenarios']}")
 
 
+EIG_NB = 64  # heev_mesh / svd_mesh's default band width
+# f64 cut from 4096 to 2048: the chase is an eager host
+# loop, 12.5 s (hb2st) and 20.9 s (tb2bd) of the f64 4096 runs on the H100
+EIG_MESH_N = {"float32": 8192, "float64": 2048}
+EIG_SINGLE_N, EIG_SINGLE_NB = 2048, 32
+EIG_WARMUP_N = 256
+EIG_VALUE_C = 1.0  # eigen/singular values within EIG_VALUE_C n eps ||A||_2 of the f64 library's
+
+
+class Timed:
+    """Stands in for a function in its module for one driver run: times
+    each call to the card's completion (one synchronize before and after)
+    and adds the seconds to ``split[label]``."""
+
+    def __init__(self, module, name, split, label, torch):
+        self.module, self.name, self.split, self.label, self.torch = module, name, split, label, torch
+        self.fn = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def __call__(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.split[self.label] = self.split.get(self.label, 0.0) + time.perf_counter() - t0
+        return out
+
+
+class PanelTap:
+    """Stands in for ``qr_panel_offset`` in ``linalg.qr`` for one driver
+    run: hands every call on, and keeps the first and the last call's
+    (panel, row0) as the path gave them."""
+
+    def __init__(self, qr):
+        self.qr, self.wrapper, self.first, self.last = qr, qr.qr_panel_offset, None, None
+
+    def __enter__(self):
+        self.qr.qr_panel_offset = self
+        return self
+
+    def __exit__(self, *exc):
+        self.qr.qr_panel_offset = self.wrapper
+
+    def __call__(self, a, row0):
+        kept = (a.clone(), row0)
+        if self.first is None:
+            self.first = kept
+        self.last = kept
+        return self.wrapper(a, row0)
+
+
+def eig_readings(a, w, z, torch):
+    """heev's gates: max|A Z - Z diag(w)| / (max|A| n) and max|Z^H Z - I|,
+    each as a ratio to 100 n eps; w against torch.linalg.eigvalsh in f64
+    as a ratio to EIG_VALUE_C n eps ||A||_2."""
+    n = a.shape[0]
+    eps = torch.finfo(a.dtype).eps
+    gate = 100 * n * eps
+    resid = float((a @ z - z * w).abs().max() / (a.abs().max() * n))
+    eye = torch.eye(n, dtype=z.dtype, device=z.device)
+    orth = float((z.conj().T @ z - eye).abs().max())
+    ref = torch.linalg.eigvalsh(a.double())
+    norm2 = float(ref.abs().max())
+    werr = float((w.double() - ref).abs().max())
+    return {"resid": resid, "orth": orth, "resid_ratio": resid / gate, "orth_ratio": orth / gate,
+            "w_err": werr, "w_ratio": werr / (EIG_VALUE_C * n * eps * norm2), "norm2": norm2}
+
+
+def svd_readings(a, u, s, vh, torch):
+    """svd's gates: max|A - U diag(s) Vh| / (max|A| n), max|U^H U - I|,
+    max|Vh Vh^H - I|, each as a ratio to 100 n eps; s against
+    torch.linalg.svdvals in f64 as a ratio to EIG_VALUE_C n eps s_max.
+    For an f64 A the reference is cuSOLVER's gesvd (QR iteration): the
+    default Jacobi driver read 2.1e-10 off at 4096 on the H100, 1.8x the
+    f64 limit, where the port's f64 SVD holds to slate_tpu's on the CPU;
+    for f32 the default's error is far below the f32 limit."""
+    m, n = a.shape
+    eps = torch.finfo(a.dtype).eps
+    gate = 100 * max(m, n) * eps
+    resid = float(((u * s) @ vh - a).abs().max() / (a.abs().max() * max(m, n)))
+    k = s.shape[0]
+    eye = torch.eye(k, dtype=u.dtype, device=u.device)
+    orth_u = float((u.conj().T @ u - eye).abs().max())
+    orth_v = float((vh @ vh.conj().T - eye).abs().max())
+    t0 = time.perf_counter()
+    driver = "gesvd" if a.dtype == torch.float64 else None
+    ref = torch.linalg.svdvals(a.double(), driver=driver)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    serr = float((s.double() - ref).abs().max())
+    return {"resid": resid, "orth_u": orth_u, "orth_v": orth_v, "resid_ratio": resid / gate,
+            "orth_u_ratio": orth_u / gate, "orth_v_ratio": orth_v / gate, "s_err": serr,
+            "s_ratio": serr / (EIG_VALUE_C * max(m, n) * eps * float(ref[0])),
+            "svdvals_f64_seconds": ref_s, "svdvals_driver": driver or "default"}
+
+
+def readings_ok(r):
+    return all(v <= 1 for k, v in r.items() if k.endswith("_ratio"))
+
+
+def sym_operand(n, dtype, seed, torch):
+    g = randn((n, n), dtype, seed, torch)
+    return (g + g.T) / 2
+
+
+def svd_lq_panels(n, nb):
+    """The LQ panels ge2tb / ge2tb_dist launch: one per block k with
+    (k + 1) nb < n - 1 (the later steps are the identity)."""
+    return sum(1 for k in range(-(-n // nb)) if (k + 1) * nb < n - 1)
+
+
+def eig_mesh_phase(dtype, kernels, mp, torch):
+    """heev_mesh on the virtual 2 x 4 mesh (nb = 64, vectors, the
+    distributed solver) after a warm-up at n = 256: seconds, the split
+    (he2hb_dist, gather_diagband + hb2st, stedc_dist, chase_apply_dist,
+    unmtr_he2hb_dist; each call timed to the card's completion), peak
+    memory, the qr_panel_offset launches (one per he2hb panel, derived
+    from _he2hb_panel_count) and eig_readings.  Returns (launches, the
+    first and last panel the path gave the kernel)."""
+    from slate_tpu_torch.linalg import eig, qr
+    from slate_tpu_torch.parallel import dist_stedc, dist_twostage
+
+    name = dname(dtype)
+    n = EIG_MESH_N[name]
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    aw = sym_operand(EIG_WARMUP_N, dtype, SEED + 140, torch)
+    ww, zw = mp.heev_mesh(aw, mesh, EIG_NB)
+    check(bool(torch.isfinite(zw).all()), f"eig_mesh {name}: warm-up failed")
+    del aw, ww, zw
+    a = sym_operand(n, dtype, SEED + 141, torch)
+    split = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    with ExitStack() as st:
+        tap = st.enter_context(PanelTap(qr))
+        for mod, fn, label in ((dist_twostage, "he2hb_dist", "he2hb_dist"),
+                               (dist_twostage, "gather_diagband", "gather_diagband+hb2st"),
+                               (eig, "hb2st", "gather_diagband+hb2st"),
+                               (dist_stedc, "stedc_dist", "stedc_dist"),
+                               (dist_twostage, "chase_apply_dist", "chase_apply_dist"),
+                               (dist_twostage, "unmtr_he2hb_dist", "unmtr_he2hb_dist")):
+            st.enter_context(Timed(mod, fn, split, label, torch))
+        t0 = time.perf_counter()
+        w, z = mp.heev_mesh(a, mesh, EIG_NB)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    want = eig._he2hb_panel_count(n, EIG_NB)
+    r = eig_readings(a, w, z, torch)
+    emit({"phase": f"eig_mesh_{name}", "n": n, "nb": EIG_NB, "mesh": [P, Q], "seconds": seconds,
+          "split": split, "peak_bytes": peak, "qr_panel_offset_launches": counts["qr_panel_offset"],
+          "derived": want, **r})
+    check(counts["qr_panel_offset"] == want,
+          f"eig_mesh {name}: {counts['qr_panel_offset']} qr_panel_offset launches, derived {want}")
+    check(readings_ok(r), f"eig_mesh {name}: {r}")
+    del a, w, z
+    torch.cuda.empty_cache()
+    return counts["qr_panel_offset"], tap.first, tap.last, seconds
+
+
+def svd_mesh_phase(dtype, kernels, mp, torch):
+    """svd_mesh on the virtual 2 x 4 mesh (nb = 64) on a square Gaussian A
+    after a warm-up: seconds, the split (ge2tb_dist, gather_diagband +
+    tb2bd, bdsqr, the two chase_apply_dist, unmbr_ge2tb_u_dist,
+    unmbr_ge2tb_v_dist), peak memory, the qr_panel_offset launches
+    (nblocks QR panels + the LQ panels of svd_lq_panels) and svd_readings."""
+    from slate_tpu_torch.linalg import svd
+    from slate_tpu_torch.parallel import dist_twostage
+
+    name = dname(dtype)
+    n = EIG_MESH_N[name]
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    aw = randn((EIG_WARMUP_N, EIG_WARMUP_N), dtype, SEED + 150, torch)
+    uw, sw, vw = mp.svd_mesh(aw, mesh, EIG_NB)
+    check(bool(torch.isfinite(uw).all()), f"svd_mesh {name}: warm-up failed")
+    del aw, uw, sw, vw
+    a = randn((n, n), dtype, SEED + 151, torch)
+    split = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    with ExitStack() as st:
+        for mod, fn, label in ((dist_twostage, "ge2tb_dist", "ge2tb_dist"),
+                               (dist_twostage, "gather_diagband", "gather_diagband+tb2bd"),
+                               (svd, "tb2bd", "gather_diagband+tb2bd"),
+                               (svd, "bdsqr", "bdsqr"),
+                               (dist_twostage, "chase_apply_dist", "chase_apply_dist x2"),
+                               (dist_twostage, "unmbr_ge2tb_u_dist", "unmbr_ge2tb_u_dist"),
+                               (dist_twostage, "unmbr_ge2tb_v_dist", "unmbr_ge2tb_v_dist")):
+            st.enter_context(Timed(mod, fn, split, label, torch))
+        t0 = time.perf_counter()
+        u, s, vh = mp.svd_mesh(a, mesh, EIG_NB)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    want = -(-n // EIG_NB) + svd_lq_panels(n, EIG_NB)
+    r = svd_readings(a, u, s, vh, torch)
+    emit({"phase": f"svd_mesh_{name}", "n": n, "nb": EIG_NB, "mesh": [P, Q], "seconds": seconds,
+          "split": split, "peak_bytes": peak, "qr_panel_offset_launches": counts["qr_panel_offset"],
+          "derived": want, **r})
+    check(counts["qr_panel_offset"] == want,
+          f"svd_mesh {name}: {counts['qr_panel_offset']} qr_panel_offset launches, derived {want}")
+    check(readings_ok(r), f"svd_mesh {name}: {r}")
+    del a, u, s, vh
+    torch.cuda.empty_cache()
+    return counts["qr_panel_offset"], seconds
+
+
+def eig_single_phase(kernels, torch):
+    """heev_array and svd_array f32 at n = 2048, nb = 32, each after a
+    warm-up at n = 256: seconds, peak memory, the qr_panel_offset launches
+    (he2hb's panels; ge2tb's QR and LQ panels) and the readings."""
+    from slate_tpu_torch.linalg import eig, svd
+
+    dtype = torch.float32
+    n, nb = EIG_SINGLE_N, EIG_SINGLE_NB
+    out = {"phase": "eig_single", "n": n, "nb": nb}
+    launches = {}
+    for tag in ("heev_array", "svd_array"):
+        if tag == "heev_array":
+            warm, a = sym_operand(EIG_WARMUP_N, dtype, SEED + 160, torch), sym_operand(n, dtype, SEED + 161, torch)
+            run = lambda x: eig.heev_array(x, nb=nb)  # noqa: E731
+            want = eig._he2hb_panel_count(n, nb)
+        else:
+            warm, a = randn((EIG_WARMUP_N,) * 2, dtype, SEED + 162, torch), randn((n, n), dtype, SEED + 163, torch)
+            run = lambda x: svd.svd_array(x, nb=nb)  # noqa: E731
+            want = -(-n // nb) + svd_lq_panels(n, nb)
+        run(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = run(a)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts(kernels)["qr_panel_offset"]
+        r = eig_readings(a, *res, torch) if tag == "heev_array" else svd_readings(a, *res, torch)
+        out[tag] = {"seconds": seconds, "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "qr_panel_offset_launches": got, "derived": want, **r}
+        check(got == want, f"{tag}: {got} qr_panel_offset launches, derived {want}")
+        check(readings_ok(r), f"{tag}: {r}")
+        launches[tag] = got
+    emit(out)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_qr_he2hb_phase(dtype, taps, kernels, testing, torch):
+    """qr_panel_offset held against its twin at the he2hb panel shape
+    (n, 64) of the eig_mesh run, on the first and the last panel the path
+    gave it (row0 = 64 and n - 64): every part at its own scale, Q R = A
+    and the compact-WY identity in f64, rows above row0 untouched, each
+    zeroed part failing its reading; then timed on the first panel with
+    its twin, the library's torch.geqrf of the panel's rows below row0
+    (VR and tau, no T), the bound and the barrier floor."""
+    name = dname(dtype)
+    out = {"phase": f"kernel_qr_he2hb_{name}"}
+    errs = []
+    for tag, (a, r0) in taps.items():
+        got = kernels.qr_panel_offset(a, r0)
+        torch.cuda.synchronize()
+        want = kernels.qr_panel_offset_plain(a, r0)
+        c = testing.qr_panel_check(a, got, want, True, r0)
+        out[tag] = {"shape": list(a.shape), "row0": r0, **c}
+        errs.append(c["max_abs_err"])
+        check(testing.qr_panel_ok(c), f"qr_panel_offset {name} he2hb {tag}: {c}")
+        check(qr_mutants_fail(a, got, want, True, r0, testing),
+              f"qr_panel_offset {name} he2hb {tag}: a wrong factor passed")
+        check(bool((got[0][:r0] == 0).all()) and bool((got[1][:r0] == 0).all()),
+              f"qr_panel_offset {name} he2hb {tag}: rows above row0 were written")
+    a, r0 = taps["first"]
+    m, w = a.shape
+    ms = cuda_ms(lambda: kernels.qr_panel_offset(a, r0), 10, torch)
+    plain_ms = cuda_ms(lambda: kernels.qr_panel_offset_plain(a, r0), 2, torch)
+    library_ms = cuda_ms(lambda: torch.geqrf(a[r0:]), 10, torch)
+    nbytes, flops = qr_bound(m, w, 1, name, True)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOPS_S[name] * 1e3
+    out["timing"] = {"shape": [m, w], "row0": r0, "kernel_ms": ms, "plain_ms": plain_ms,
+                     "library_ms_geqrf_no_T": library_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "barrier_floor_ms": qr_barrier_floor(kernels, dtype, 1, m, w)}
+    emit(out)
+    return {"shape": [m, w], "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": out["timing"]["bound_ms"], "bound_by": out["timing"]["bound_by"],
+            "library_ms": library_ms}
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
     res = dryrun.dryrun("cuda")
     emit({"phase": "dryrun", **res})
-    check(res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa",
-                                                "panel_pallas"], f"dryrun failed: {res['phases']}")
+    check(res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa", "stedc_dist",
+                                                "heev_chain", "panel_pallas"],
+          f"dryrun failed: {res['phases']}")
 
 
 def main():
@@ -3795,10 +4119,30 @@ def main():
             check(inv[path][name], f"{row['name']}: no launch on {path}_mesh")
     ft_her2k_phase(mp, torch)
 
-    # 39. the dryrun
+    # 39-42. slice 6: eig and SVD.  heev_mesh / svd_mesh on the mesh and
+    # heev_array / svd_array on one card; each count is read right after its
+    # path, and qr_panel_offset's rows gain these paths' launches beside the
+    # mesh gels', and the kernel held at the he2hb panel the path gave it
+    eig_paths = {}
+    for dt in (torch.float32, torch.float64):
+        launches, first, last, _ = eig_mesh_phase(dt, kernels, mp, torch)
+        eig_paths[dt] = {"heev_mesh": launches}
+        taps = {"first": first, "last": last}
+        eig_paths[dt]["svd_mesh"] = svd_mesh_phase(dt, kernels, mp, torch)[0]
+        qr_rows[("qr_panel_offset", dt)]["at_he2hb_panel"] = kernel_qr_he2hb_phase(
+            dt, taps, kernels, testing, torch)
+        del taps, first, last
+    eig_paths[torch.float32].update(eig_single_phase(kernels, torch))
+    for dt, paths in eig_paths.items():
+        row = qr_rows[("qr_panel_offset", dt)]
+        row["launches_by_path"] = {"mesh_gels": row["launches"], **paths}
+        for path, got in paths.items():
+            check(got, f"{row['name']}: no launch on {path}")
+
+    # 43. the dryrun
     dryrun_phase()
 
-    # 40. the script's seconds, kernels line, card line, result
+    # 44. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -3,8 +3,9 @@
 A second package beside ``slate_tpu`` (the JAX reference, which this package
 never imports).  Ported so far: the single-chip BLAS-3 verbs, the
 Cholesky (with potri), LU (with getri, the norms and condition estimators
-and mixed-precision refinement) and QR drivers, the tile operations, the
-mesh solvers, BLAS-3, inverses and estimators on a virtual mesh, the ABFT
+and mixed-precision refinement), QR, Hermitian eigen and SVD drivers, the
+tile operations, the mesh solvers, BLAS-3, inverses, estimators, eigen and
+SVD drivers on a virtual mesh, the ABFT
 layer, and hand-written Hopper kernels for every Pallas kernel on those
 paths (``ops/kernels.py``, ``csrc/*.cu``).  Entry points compute on the
 tensors' device: pass CUDA tensors for the card, CPU tensors for the plain
@@ -13,7 +14,9 @@ twins; other operands go to the card unless ``device`` says otherwise.
 
 from .types import (
     Diag,
+    MethodEig,
     MethodLU,
+    MethodSVD,
     Norm,
     NormScope,
     Op,
@@ -43,6 +46,8 @@ from .linalg import (
     gesv_mixed_array,
     getrf_array,
     getrs_array,
+    heev_array,
+    hegv_array,
     norm,
     pocondest,
     posv,
@@ -52,6 +57,10 @@ from .linalg import (
     potrf_array,
     potrs,
     potrs_array,
+    stedc,
+    steqr,
+    sterf,
+    svd_array,
 )
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Simplified verb-named API of the port (multiply, the BLAS-3 verbs, the
-LU, Cholesky and QR verbs).
+LU, Cholesky, QR, eigen and SVD verbs).
 
 Counterpart of ``multiply``, ``hermitian_multiply`` /
 ``symmetric_multiply`` / ``triangular_multiply`` / ``rank_k_update`` /
@@ -7,8 +7,10 @@ Counterpart of ``multiply``, ``hermitian_multiply`` /
 ``lu_solve_using_factor`` / ``lu_inverse``, ``chol_factor`` /
 ``chol_solve`` / ``chol_solve_using_factor`` / ``chol_inverse`` and
 ``least_squares_solve`` / ``qr_factor`` /
-``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` in
-``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
+``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` and
+``eig_vals`` / ``eig_decompose`` / ``generalized_eig`` / ``svd_vals`` /
+``svd_decompose`` in ``slate_tpu/api.py``; the other verbs come with their
+slices.  Each verb
 computes on ``operand_device(first operand, device)``: tensors where they
 lie, anything else on the card unless ``device`` says otherwise.
 """
@@ -21,7 +23,8 @@ import torch
 
 from .blas3 import blas3
 from .core.matrix import BaseMatrix, operand_device
-from .linalg import chol, lu, qr
+from .linalg import chol, eig, lu, qr
+from .linalg import svd as svd_mod
 from .types import MethodLU, Op, Option, Options, Side, Uplo, get_option
 
 ArrayLike = Union[torch.Tensor, BaseMatrix]
@@ -178,3 +181,32 @@ def lq_factor(a: ArrayLike, device=None):
 
 def lq_multiply_by_q(f, c: ArrayLike, side: Side = Side.Left, op: Op = Op.NoTrans, device=None):
     return qr.unmlq_array(side, op, f, blas3._arr(c, operand_device(f.lv, device)))
+
+
+# -- eig / svd ---------------------------------------------------------------
+
+
+def eig_vals(a: ArrayLike, device=None):
+    """slate::eig_vals (Hermitian): the eigenvalues, ascending."""
+    return eig.heev_array(blas3._arr(a, operand_device(a, device)), want_vectors=False)
+
+
+def eig_decompose(a: ArrayLike, device=None):
+    """(w ascending, Z) of a Hermitian matrix."""
+    return eig.heev_array(blas3._arr(a, operand_device(a, device)), want_vectors=True)
+
+
+def generalized_eig(a: ArrayLike, b: ArrayLike, device=None):
+    """(w, X, info) of A x = lambda B x, B Hermitian positive definite."""
+    dev = operand_device(a, device)
+    return eig.hegv_array(blas3._arr(a, dev), blas3._arr(b, dev))
+
+
+def svd_vals(a: ArrayLike, device=None):
+    """The singular values, descending."""
+    return svd_mod.svd_array(blas3._arr(a, operand_device(a, device)), want_vectors=False)
+
+
+def svd_decompose(a: ArrayLike, device=None):
+    """(U, s, Vh), thin."""
+    return svd_mod.svd_array(blas3._arr(a, operand_device(a, device)), want_vectors=True)

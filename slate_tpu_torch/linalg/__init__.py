@@ -52,3 +52,25 @@ from .norms import (
     pocondest,
     trcondest,
 )
+from .tridiag import stedc, stedc_vals, steqr, sterf
+from .eig import (
+    He2hbFactors,
+    he2hb,
+    heev_array,
+    heev_staged,
+    hegst_array,
+    hegv_array,
+    hb2st,
+    unmtr_hb2st,
+    unmtr_he2hb,
+)
+from .svd import (
+    Ge2tbFactors,
+    bdsqr,
+    ge2tb,
+    svd_array,
+    svd_staged,
+    tb2bd,
+    unmbr_ge2tb_u,
+    unmbr_ge2tb_v,
+)

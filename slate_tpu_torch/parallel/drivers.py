@@ -9,7 +9,9 @@ Counterpart of ``slate_tpu/parallel/drivers.py`` (the reference's
 ``getrf_tntpiv_mesh`` / ``gesv_tntpiv_mesh`` (tournament pivoting, CALU),
 ``getrf_mesh`` / ``gesv_mesh`` (partial pivoting, the reference's default
 ``MethodLU::PartialPiv``), ``geqrf_mesh`` / ``gels_mesh`` (CAQR),
-``her2k_mesh`` (her2k / syr2k, both triangles), the inverses ``getri_mesh``
+``her2k_mesh`` (her2k / syr2k, both triangles), the eigensolver
+``heev_mesh`` and the SVD ``svd_mesh`` (src/heev.cc, svd.cc: the two-stage
+chains of ``dist_twostage.py`` and ``dist_stedc.py``), the inverses ``getri_mesh``
 and ``potri_mesh`` (src/getri.cc, potri.cc: the factor, then the two
 sweeps on the identity) and the band multiplies ``gbmm_mesh`` /
 ``hbmm_mesh`` (band storage on the dense tile stack, projected on (kl,
@@ -35,7 +37,7 @@ Under FaultTolerance the ladder's f32 factor is the ABFT ``potrf_ft``.
 
 Not ported yet, and refused with ``NotImplementedError``:
 ``Option.Checkpoint`` (the checkpointed factor loops of ``ft/ckpt.py``,
-``geqrf_ckpt`` among them: a later PR of slice 9).  The other drivers of
+``geqrf_ckpt`` and ``he2hb_ckpt`` among them: a later PR of slice 9).  The other drivers of
 ``slate_tpu.parallel.drivers`` come with their slices.
 """
 
@@ -410,3 +412,85 @@ def hbmm_mesh(
     cd = from_dense(c, mesh, nb) if c is not None else None
     return to_dense(hemm_summa(side, alpha, ad, bd, beta, cd, uplo=uplo, lookahead=_la(opts),
                                bcast_impl=_bi(opts)))
+
+
+def heev_mesh(
+    a, mesh: VirtualMesh, nb: int = 64, want_vectors: bool = True,
+    distributed_solver: bool = True, opts: Optional[Options] = None,
+):
+    """Distributed Hermitian eigensolver (src/heev.cc with a grid): stage 1
+    (``he2hb_dist``, the O(n^3) reduction) and its back-transform on the
+    mesh; the band as O(n nb) diagonal storage (``gather_diagband``,
+    Hermitian-averaged), the wavefront chase ``hb2st`` on it; the
+    tridiagonal divide and conquer with its merge tree sharded
+    (``stedc_dist``; ``distributed_solver=False`` takes the replicated
+    ``stedc``); the stage-2 back-transform streamed over Z's column shards
+    (``chase_apply_dist``).  Returns (w ascending, Z), or w alone.
+    ``opts`` carries Option.BcastImpl; Option.Checkpoint and
+    Option.NumMonitor ``on`` raise until their slices are ported."""
+    from ..linalg.eig import hb2st, symmetrize_diagband
+    from ..linalg.tridiag import stedc, sterf
+    from .dist_stedc import stedc_dist
+    from .dist_twostage import chase_apply_dist, gather_diagband, he2hb_dist, unmtr_he2hb_dist
+
+    a = torch.as_tensor(a, device=mesh.device)
+    n = a.shape[0]
+    every = _ckpt_every(opts)
+    if every is not None:
+        raise NotImplementedError(
+            f"heev_mesh: Option.Checkpoint={every!r} (he2hb_ckpt) is not ported yet; it comes "
+            "with a later PR of slice 9 (ft)")
+    f = he2hb_dist(from_dense(a, mesh, nb), bcast_impl=_bi(opts), num_monitor=_nm(opts))
+    bandd = symmetrize_diagband(gather_diagband(f.band, nb), nb)
+    d, e, f2, phases = hb2st(bandd, nb, diag_storage=True)
+    if not want_vectors:
+        return sterf(d, e)
+    if distributed_solver:
+        w, ztri = stedc_dist(d, e, mesh, bcast_impl=_bi(opts))
+    else:
+        w, ztri = stedc(d, e)
+    z = ztri.to(a.dtype)
+    if a.is_complex():
+        z = phases[:, None] * z
+    z = chase_apply_dist(f2.vs, f2.taus, z, n, nb, mesh, bcast_impl=_bi(opts))
+    zd = unmtr_he2hb_dist(f, from_dense(z, mesh, nb))
+    return w, to_dense(zd)
+
+
+def svd_mesh(a, mesh: VirtualMesh, nb: int = 64, want_vectors: bool = True):
+    """Distributed SVD (src/svd.cc with a grid): ``ge2tb_dist`` and both
+    stage-1 back-transforms on the mesh, the band as O(n nb) diagonals, the
+    chase ``tb2bd``, the Golub-Kahan solve ``bdsqr``, and both stage-2
+    families streamed over the vectors' column shards
+    (``chase_apply_dist``).  Returns (U, s, Vh) or s; m < n works on A^H."""
+    from ..linalg.svd import bdsqr, tb2bd
+    from .dist_twostage import (
+        chase_apply_dist,
+        gather_diagband,
+        ge2tb_dist,
+        unmbr_ge2tb_u_dist,
+        unmbr_ge2tb_v_dist,
+    )
+
+    a = torch.as_tensor(a, device=mesh.device)
+    m, n = a.shape
+    dtype = a.dtype
+    if m < n:
+        ah = a.conj().T
+        if not want_vectors:
+            return svd_mesh(ah, mesh, nb, False)
+        u, s, vh = svd_mesh(ah, mesh, nb, True)
+        return vh.conj().T.resolve_conj(), s, u.conj().T.resolve_conj()
+    f = ge2tb_dist(from_dense(a, mesh, nb))
+    bandd = gather_diagband(f.band, nb)[:n]  # (n, 4nb), O(n nb) replicated
+    d, e, f2, pu, pv = tb2bd(bandd, nb, diag_storage=True)
+    if not want_vectors:
+        return bdsqr(d, e, want_vectors=False)
+    s, ub, vb = bdsqr(d, e, want_vectors=True)
+    u = chase_apply_dist(f2.lvs, f2.ltaus, pu[:, None] * ub.to(dtype), n, nb, mesh)
+    u_full = torch.zeros((m, n), dtype=dtype, device=a.device)
+    u_full[:n] = u
+    ud = unmbr_ge2tb_u_dist(f, from_dense(u_full, mesh, nb))
+    v = chase_apply_dist(f2.rvs, f2.rtaus, pv[:, None] * vb.to(dtype), n, nb, mesh)
+    vd = unmbr_ge2tb_v_dist(f, from_dense(v, mesh, nb))
+    return to_dense(ud), s, to_dense(vd).conj().T.resolve_conj()

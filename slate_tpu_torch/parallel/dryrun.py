@@ -1,4 +1,4 @@
-"""The port's mesh dryrun: four of ``slate_tpu``'s dryrun phases on a
+"""The port's mesh dryrun: six of ``slate_tpu``'s dryrun phases on a
 virtual 2 x 4 mesh.
 
     python -m slate_tpu_torch.parallel.dryrun [--device cpu|cuda]
@@ -12,12 +12,17 @@ and with its seeded operands (n = 64, nb = 8, 16 right-hand sides):
 - ``gesv_pp``: ``gesv_mesh`` (partial pivoting), the same gate;
 - ``hemm_summa``: ``hemm_summa(Side.Left, 1.0, H, B)`` with H = (G + G^T)/2
   in f32, its relative error against H B under 1e-4;
+- ``stedc_dist``: the sharded divide and conquer on a random f32
+  tridiagonal of n = 96, max|T Z - Z diag(w)| under 1e-3;
+- ``heev_chain``: ``heev_mesh`` (he2hb_dist, the chase, stedc_dist, both
+  back-transforms) on (G + G^T) / 2 in f32, max|A Z - Z diag(w)| /
+  (max|A| n) and max|Z^T Z - I| each under 100 n eps32;
 - ``panel_pallas``: the LU half, ``getrf_nopiv_dist`` under PanelImpl
   pallas, its reconstruction residual under 100 n eps32.
 
 Prints one JSON line (``{"n_devices": 8, "phases": {...}, "ok": ...}``) and
-exits non-zero if a phase failed.  The other phases (``stedc_dist``,
-``heev_chain``, ``flight_timeline``, ``mem``) come with their slices.
+exits non-zero if a phase failed.  The other phases (``flight_timeline``,
+``mem``) come with their slices.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from .dist_blas3 import hemm_summa
 from .dist_chol import potrf_dist
 from .dist_lu import getrf_nopiv_dist
 from .dist_trsm import trsm_dist
-from .drivers import gesv_mesh
+from .dist_stedc import stedc_dist
+from .drivers import gesv_mesh, heev_mesh
 from .mesh import make_mesh
 from .summa import gemm_summa
 
@@ -53,19 +59,21 @@ def posv_chain_operands(n: int = N, nrhs: int = NRHS):
 def dryrun_operands(n: int = N, nrhs: int = NRHS):
     """Every operand of the ported phases, drawn from one numpy generator
     (seed 0) in ``__graft_entry__.py``'s order: G, B (posv_chain), the
-    gesv_pp matrix, the two stedc_dist vectors (drawn and dropped here),
-    then the strict upper part of the panel_pallas LU matrix; and the
-    hemm_summa phase's H = (G + G^T) / 2."""
+    gesv_pp matrix, the two stedc_dist vectors, then the strict upper part
+    of the panel_pallas LU matrix; and the hemm_summa phase's
+    H = (G + G^T) / 2 and the heev_chain phase's (G + G^T) / 2, made as
+    ``__graft_entry__.py`` makes each."""
     rng = np.random.default_rng(0)
     g = rng.standard_normal((n, n)).astype(np.float32)
     a = g @ g.T + n * np.eye(n, dtype=np.float32)
     b = rng.standard_normal((n, nrhs)).astype(np.float32)
     am = rng.standard_normal((n, n)).astype(np.float32)
-    rng.standard_normal(96)  # stedc_dist's d and e
-    rng.standard_normal(95)
+    sd = rng.standard_normal(96).astype(np.float32)  # stedc_dist's d and e
+    se = rng.standard_normal(95).astype(np.float32)
     lum = (np.tril(g) + n * np.eye(n) + np.triu(rng.standard_normal((n, n)), 1)).astype(np.float32)
     hm = ((g + g.T) / 2).astype(np.float32)
-    return {"a": a, "b": b, "am": am, "lum": lum, "hm": hm}
+    he = (g + g.T).astype(np.float32) / 2
+    return {"a": a, "b": b, "am": am, "lum": lum, "hm": hm, "sd": sd, "se": se, "he": he}
 
 
 def posv_chain(a: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB, **opts):
@@ -105,6 +113,24 @@ def hemm_residual(hm: torch.Tensor, b: torch.Tensor, mesh, nb: int = NB) -> floa
     return float((hc - ref).abs().max() / (ref.abs().max() + 1e-30))
 
 
+def stedc_residual(d: torch.Tensor, e: torch.Tensor, mesh) -> float:
+    """``stedc_dist`` on the tridiagonal (d, e): max|T Z - Z diag(w)|."""
+    w, z = stedc_dist(d, e, mesh)
+    t = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+    return float((t @ z - z * w).abs().max())
+
+
+def heev_chain(he: torch.Tensor, mesh, nb: int = NB):
+    """``heev_mesh`` on the Hermitian ``he``: (w, Z, residual
+    max|A Z - Z diag(w)| / (max|A| n), orthogonality max|Z^H Z - I|)."""
+    n = he.shape[0]
+    w, z = heev_mesh(he, mesh, nb=nb)
+    r_eig = float((he @ z - z * w).abs().max() / (he.abs().max() * n))
+    eye = torch.eye(n, dtype=z.dtype, device=z.device)
+    orth = float((z.conj().T @ z - eye).abs().max())
+    return w, z, r_eig, orth
+
+
 def lu_panel_residual(lum: torch.Tensor, mesh, nb: int = NB):
     """getrf_nopiv_dist under PanelImpl pallas and its reconstruction
     residual max|L U - A| / max|A|.  Returns (info, residual)."""
@@ -142,6 +168,18 @@ def dryrun(device: str = "cuda") -> dict:
             raise RuntimeError(f"hemm_summa residual {r_h}")
         return {"resid": r_h}
 
+    def stedc():
+        rs = stedc_residual(ops["sd"], ops["se"], mesh)
+        if not rs < 1e-3:
+            raise RuntimeError(f"stedc_dist residual {rs}")
+        return {"resid": rs}
+
+    def eig_chain():
+        _, _, r_eig, orth = heev_chain(ops["he"], mesh)
+        if not (r_eig < gate and orth < gate):
+            raise RuntimeError(f"heev_mesh resid={r_eig} orth={orth}")
+        return {"resid": r_eig, "orth": orth}
+
     def panel():
         info, r_lu = lu_panel_residual(ops["lum"], mesh)
         if int(info) != 0 or not r_lu < gate:
@@ -149,7 +187,7 @@ def dryrun(device: str = "cuda") -> dict:
         return {"resid_lu": r_lu}
 
     for name, fn in (("posv_chain", posv), ("gesv_pp", pp), ("hemm_summa", hemm),
-                     ("panel_pallas", panel)):
+                     ("stedc_dist", stedc), ("heev_chain", eig_chain), ("panel_pallas", panel)):
         t0 = time.time()
         try:
             result["phases"][name] = dict(fn(), seconds=round(time.time() - t0, 3))

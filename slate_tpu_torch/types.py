@@ -106,6 +106,16 @@ class MethodLU(enum.Enum):
     RBT = "RBT"  # random butterfly transform + no-pivot LU
 
 
+class MethodEig(enum.Enum):
+    QR = "QR"  # steqr: tridiagonal QR iteration
+    DC = "DC"  # stedc: divide and conquer
+
+
+class MethodSVD(enum.Enum):
+    QR = "QR"  # bdsqr
+    DC = "DC"
+
+
 def select_gemm_method(m: int, n: int, k: int) -> MethodGemm:
     """Tile-grid heuristic of ``slate_tpu``: a tiny output panel (n tile
     columns against m rows or k inner tiles) takes stationary-A."""

@@ -6,7 +6,10 @@ only, seeded identically), so both packages compute on the same operands.
 ``options_from_names`` carries an ``Options`` mapping given by enum names;
 ``dist_from_numpy`` rebuilds a mesh matrix from another package's tile
 stack (so a test can feed one package's factor to the other's solves), and
-``distqr_from_numpy`` rebuilds CAQR factors the same way,
+``distqr_from_numpy`` rebuilds CAQR factors the same way (and
+``he2hb_factors_from_numpy``, ``hb2st_factors_from_numpy``,
+``ge2tb_factors_from_numpy``, ``tb2bd_factors_from_numpy`` and
+``disttwostage_from_numpy`` the eig / SVD factors, stage by stage),
 ``lufactors_from_numpy`` single-chip LU factors, and ``ozaki_split_from_numpy``
 an Ozaki digit-plane split (for ``gemm_summa_ozaki(a_split=...)``).
 ``ft_summa_check`` holds the checksum-carrying SUMMA kernel to its twin,
@@ -205,6 +208,57 @@ def distqr_from_numpy(fact_tiles: np.ndarray, tloc: np.ndarray, treev: np.ndarra
     return DistQR(fact, *t)
 
 
+
+
+def _t(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def he2hb_factors_from_numpy(band: np.ndarray, v: np.ndarray, t: np.ndarray, nb: int,
+                             device="cuda"):
+    """The port's ``He2hbFactors`` from another package's he2hb factors as
+    numpy (the band (n, n), v (K, np2, nb), t (K, nb, nb); the same
+    layouts), so that ``hb2st`` and ``unmtr_he2hb`` can be held alone."""
+    from ..linalg.eig import He2hbFactors
+
+    return He2hbFactors(_t(band, device), _t(v, device), _t(t, device), int(nb))
+
+
+def hb2st_factors_from_numpy(vs: np.ndarray, taus: np.ndarray, w: int, n: int, device="cuda"):
+    """The port's ``Hb2stFactors`` (vs (n - 1, max_hops, w), taus
+    (n - 1, max_hops)) from numpy."""
+    from ..linalg.eig import Hb2stFactors
+
+    return Hb2stFactors(_t(vs, device), _t(taus, device), int(w), int(n))
+
+
+def ge2tb_factors_from_numpy(band: np.ndarray, vq: np.ndarray, tq: np.ndarray, vl: np.ndarray,
+                             tl: np.ndarray, nb: int, device="cuda"):
+    """The port's ``Ge2tbFactors`` from numpy (the same layouts: reflectors
+    in global coordinates, a dead LQ panel zero)."""
+    from ..linalg.svd import Ge2tbFactors
+
+    return Ge2tbFactors(*(_t(x, device) for x in (band, vq, tq, vl, tl)), int(nb))
+
+
+def tb2bd_factors_from_numpy(lvs: np.ndarray, ltaus: np.ndarray, rvs: np.ndarray,
+                             rtaus: np.ndarray, w: int, n: int, device="cuda"):
+    """The port's ``Tb2bdFactors`` from numpy."""
+    from ..linalg.svd import Tb2bdFactors
+
+    return Tb2bdFactors(*(_t(x, device) for x in (lvs, ltaus, rvs, rtaus)), int(w), int(n))
+
+
+def disttwostage_from_numpy(band_tiles: np.ndarray, vq: np.ndarray, tq: np.ndarray,
+                            vl: np.ndarray, tl: np.ndarray, m: int, n: int, nb: int, mesh):
+    """The port's ``DistTwoStage`` over ``mesh`` from another package's
+    factors as numpy -- the band's cyclic tile stack, vq (K, p mfl, nb) by
+    mesh row, tq, vl (K, q nfl, nb) by mesh column (empty for he2hb) and tl
+    -- so that the stage-1 back-transforms can be held alone."""
+    from ..parallel.dist_twostage import DistTwoStage
+
+    band = dist_from_numpy(band_tiles, m, n, nb, mesh, diag_pad=False)
+    return DistTwoStage(band, *(_t(x, mesh.device) for x in (vq, tq, vl, tl)))
 
 QR_PART_C = 2  # each part's limit: QR_PART_C m eps times that part's own scale
 

@@ -448,7 +448,8 @@ def test_port_imports_no_jax():
                 "linalg/lu.py", "linalg/norms.py", "linalg/refine.py", "linalg/tri.py",
                 "ops/tile_ops.py", "ops/matmul.py", "ops/ozaki.py", "parallel/summa.py",
                 "parallel/dist_aux.py", "parallel/dist_refine.py", "parallel/mixed_smoke.py",
-                "parallel/dist_blas3.py"):
+                "parallel/dist_blas3.py", "linalg/tridiag.py", "linalg/eig.py", "linalg/svd.py",
+                "parallel/dist_twostage.py", "parallel/dist_stedc.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

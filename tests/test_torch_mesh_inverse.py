@@ -290,7 +290,8 @@ def test_gbmm_hbmm_mesh_match_jax(dtype):
 def test_dryrun_runs_four_phases_on_the_cpu():
     res = tdry.dryrun("cpu")
     assert res["ok"], res
-    assert list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa", "panel_pallas"]
+    assert list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa", "stedc_dist",
+                                   "heev_chain", "panel_pallas"]
     assert res["phases"]["hemm_summa"]["resid"] < 1e-4
 
 
