@@ -218,17 +218,36 @@ printing one JSON line before the next starts (any failure exits non-zero):
    untouched), timed with its twin, torch.geqrf and the bound;
 42. eig_single: heev_array and svd_array f32 at n = 2048, nb = 32: the
    same readings and launches;
-43. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+43. band_single: pbsv_array (kd = 128, the windowed factor at nb = 64)
+   f32 at n = 32768 and f64 at n = 16384, gbsv_array (kl = ku = 64, the
+   windowed pivoted factor at nb = 32) f32 at n = 16384 and f64 at 8192,
+   each after a warm-up at n = 1024: info, eta (and omega for gbsv),
+   seconds, peak memory, no hand-kernel launch; the pb factor against the
+   library's dense f64 Cholesky of the same band and the gb factor by P A
+   = L U rebuilt from its window-local permutations (ratios to n eps
+   max|A|); the band time beside the dense solve's (posv f32 32768 from
+   phase 4; gesv_array once on the f64 gb operand);
+44. band_wide: pbsv_array f32 at n = 20480, kd = 8192 (4 kd > n: the dense
+   route, the scan form of potrf_array): info, eta, seconds, and exactly
+   n / 256 = 80 chol_diag_inv launches, which join row 5's f32 launches;
+45. band_mesh (2 x 4, nb = 256): pbsv_mesh f32 n = 32768 / f64 16384 at
+   kd = 512, gbsv_mesh f32 8192 / f64 4096 at kl = ku = 256, tbsm_mesh
+   f32 8192 (kd = 256) with and without a row permutation, each after a
+   warm-up at n = 1024: info, eta (omega for gbsv), seconds and the split
+   (factor, permute, trsm_dist, from_dense, to_dense), peak memory, no
+   hand-kernel launch, and pbtrf_band_dist at lookahead 0 and 1 bitwise;
+46. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
    stedc_dist, heev_chain, the LU panel_pallas half; n = 64, nb = 8,
    2 x 4);
-44. total: the script's seconds; then kernels: the line of every ported
+47. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
    rows those of phase 32's public 8192^3 calls; the chol_panel_tiles,
    chol_trailing_update and lu_rowsolve_tiles rows also carry
    ``launches_by_path``, their mesh posv / nopiv launches beside those of
-   phase 37's potri_mesh / getri_mesh, and the qr_panel_offset rows
+   phase 37's potri_mesh / getri_mesh, chol_diag_inv's f32 row its posv
+   and phase 44 launches, and the qr_panel_offset rows
    those of phases 39, 40 and 42 beside the mesh gels' and, under
    ``at_he2hb_panel``, phase 41's readings), then the card line and, last,
    {"ok": true, "device": {...}}.
@@ -520,7 +539,7 @@ def posv_phase(dtype, kernels, posv_array, torch):
     check(launches == n // NB, f"posv {name}: {launches} kernel launches, expected {n // NB}")
     del a, b, x
     torch.cuda.empty_cache()
-    return launches
+    return launches, seconds
 
 
 def small_phase(torch):
@@ -3929,6 +3948,272 @@ def kernel_qr_he2hb_phase(dtype, taps, kernels, testing, torch):
             "library_ms": library_ms}
 
 
+# slice 7a: the band solvers.  Single chip: pbsv_array's windowed factor
+# (nb = 64 at kd = 128) and gbsv_array's (nb = 32 at kl = ku = 64); the wide
+# route of pbsv_array (4 kd > n: potrf_array, the scan form in f32 above
+# n = 16384, n / 256 chol_diag_inv launches); on the mesh (2 x 4, nb = 256)
+# pbsv_mesh, gbsv_mesh and tbsm_mesh.  The narrow and mesh band paths call
+# no hand kernel (slate_tpu computes them outside Pallas): their counts
+# must stay 0.
+BAND_PB = (("float32", 32768, 128), ("float64", 16384, 128))
+BAND_GB = (("float32", 16384, 64), ("float64", 8192, 64))
+BAND_WIDE = (20480, 8192)  # f32 (n, kd): band_worthwhile false
+BAND_MESH_PB = (("float32", 32768, 512), ("float64", 16384, 512))
+BAND_MESH_GB = (("float32", 8192, 256), ("float64", 4096, 256))
+BAND_TBSM = (8192, 256)  # f32 (n, kd)
+BAND_WARMUP_N = 1024
+
+
+def band_operand(n, kl, ku, dtype, seed, torch, spd=False):
+    """uniform[-1, 1) on the band [-kl, ku], zero elsewhere, made on the
+    device; ``spd``: the symmetric band (kl = ku = kd) plus (2 kd + 1) I,
+    diagonally dominant, hence SPD."""
+    a = torch.rand((n, n), generator=torch.Generator(device="cuda").manual_seed(seed),
+                   dtype=dtype, device="cuda")
+    a.mul_(2).sub_(1).triu_(-kl).tril_(ku)
+    if spd:
+        a.tril_()
+        a.add_(a.tril(-1).T)
+        a.diagonal().add_(2 * kl + 1)
+    return a
+
+
+def hand_launches(kernels):
+    """Every counted kernel's launches since the last reset_counts, the
+    ones that launched only."""
+    return {k: v for k, v in read_counts(kernels).items() if v}
+
+
+def pb_factor_ratio(a, l, torch, rows=4096):
+    """The band factor against the library's dense factor of the same
+    band in f64: max|L - L_lib| / (n eps max|A|), eps of the factor (the
+    difference taken over blocks of rows)."""
+    l64 = torch.linalg.cholesky(a.double())
+    d = max(float((l[r0:r0 + rows].double() - l64[r0:r0 + rows]).abs().max())
+            for r0 in range(0, a.shape[0], rows))
+    del l64
+    return d / (a.shape[0] * torch.finfo(a.dtype).eps * float(a.abs().max()))
+
+
+def gb_rebuild_ratio(a, f, torch):
+    """P A = L U rebuilt from the windowed factor, in f64: U's rows, then,
+    window by window from the last, L_k's unit-lower block applied and
+    P_k's window-local permutation undone (LAPACK gbtrf's A = P_0 L_0 ...
+    P_s L_s U); max|A - rebuilt| / (n eps max|A|), eps of the factor."""
+    n = a.shape[0]
+    nb = f.nb
+    nsteps, wr = f.perms.shape
+    lu = f.lu.double()
+    m = torch.zeros((nsteps * nb + wr, n), dtype=torch.float64, device=a.device)
+    m[:n] = lu.triu()
+    eye = torch.eye(nb, dtype=torch.float64, device=a.device)
+    perms = f.perms.long()
+    for k in range(nsteps - 1, -1, -1):
+        kk = k * nb
+        lw = torch.zeros((wr, nb), dtype=torch.float64, device=a.device)
+        blk = lu[kk:kk + wr, kk:kk + nb]
+        lw[:blk.shape[0], :blk.shape[1]] = blk
+        win = m[kk:kk + wr]
+        top = win[:nb].clone()
+        new = torch.empty_like(win)
+        new[:nb] = (lw[:nb].tril(-1) + eye) @ top
+        new[nb:] = win[nb:] + lw[nb:] @ top
+        win[perms[k]] = new
+    r = float((m[:n] - a.double()).abs().max() / (n * torch.finfo(a.dtype).eps
+                                                   * a.abs().max().double()))
+    del m, lu
+    return r
+
+
+def band_single_phase(kernels, posv_seconds, torch):
+    """pbsv_array f32 n = 32768 / f64 16384 at kd = 128 and gbsv_array f32
+    n = 16384 / f64 8192 at kl = ku = 64 (the windowed routes), each after a
+    warm-up at n = 1024: info, eta (and omega for gbsv), seconds, peak
+    memory, no hand-kernel launch; the factor's reading against the
+    library's dense f64 factor (pb) or the rebuilt P A = L U (gb); the band
+    time against the dense solve of the same size (posv f32 32768 as phase
+    4 timed it; gesv_array on the f64 gb operand)."""
+    from slate_tpu_torch.linalg import band, chol, lu
+
+    out = {"phase": "band_single"}
+    for name, n, kd in BAND_PB:
+        dtype = getattr(torch, name)
+        check(band.band_worthwhile(n, kd), f"pbsv {name}: not the windowed route")
+        aw = band_operand(BAND_WARMUP_N, kd, kd, dtype, SEED + 200, torch, spd=True)
+        chol.pbsv_array(aw, aw[:, :NRHS].clone(), kd)
+        del aw
+        a = band_operand(n, kd, kd, dtype, SEED + 201, torch, spd=True)
+        b = randn((n, NRHS), dtype, SEED + 202, torch)
+        reset_counts(kernels)
+        (x, f, info), seconds, peak = timed_solve(lambda: chol.pbsv_array(a, b, kd), torch)
+        launched = hand_launches(kernels)
+        e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+        res = {"n": n, "kd": kd, "nb": band._pick_nb(kd), "info": int(info), "eta": e,
+               "eta_gate": gate, "seconds": seconds, "peak_mem_bytes": peak,
+               "hand_kernel_launches": launched, "factor_ratio": pb_factor_ratio(a, f, torch)}
+        if name == "float32":
+            res["dense_posv_seconds"] = posv_seconds
+            res["band_over_dense"] = seconds / posv_seconds
+        out[f"pbsv_{name}"] = res
+        check(int(info) == 0, f"pbsv {name}: info {int(info)}")
+        check(e < gate, f"pbsv {name}: eta {e} >= {gate}")
+        check(tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all()), f"pbsv {name}: bad X")
+        check(not launched, f"pbsv {name}: hand kernels launched {launched}")
+        del a, b, x, f
+        torch.cuda.empty_cache()
+    for name, n, kl in BAND_GB:
+        dtype = getattr(torch, name)
+        check(band.band_worthwhile(n, 2 * kl), f"gbsv {name}: not the windowed route")
+        aw = band_operand(BAND_WARMUP_N, kl, kl, dtype, SEED + 203, torch)
+        lu.gbsv_array(aw, aw[:, :NRHS].clone(), kl, kl)
+        del aw
+        a = band_operand(n, kl, kl, dtype, SEED + 204, torch)
+        b = randn((n, NRHS), dtype, SEED + 205, torch)
+        reset_counts(kernels)
+        (x, f), seconds, peak = timed_solve(lambda: lu.gbsv_array(a, b, kl, kl), torch)
+        launched = hand_launches(kernels)
+        check(type(f).__name__ == "BandLU", f"gbsv {name}: factor {type(f).__name__}")
+        res = {"n": n, "kl": kl, "ku": kl, "nb": f.nb, "seconds": seconds, "peak_mem_bytes": peak,
+               "pivoted_windows": int((f.perms != torch.arange(f.perms.shape[1], device="cuda"))
+                                      .any(dim=1).sum()),
+               "hand_kernel_launches": launched,
+               **lu_solve_gates(a, x, b, f.info, f"gbsv {name}", torch),
+               "rebuild_ratio": gb_rebuild_ratio(a, f, torch)}
+        if name == "float64":
+            (xd, _), dense_seconds, _ = timed_solve(lambda: lu.gesv_array(a, b), torch)
+            res["dense_gesv_seconds"] = dense_seconds
+            res["band_over_dense"] = seconds / dense_seconds
+            del xd
+        out[f"gbsv_{name}"] = res
+        check(not launched, f"gbsv {name}: hand kernels launched {launched}")
+        del a, b, x, f
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def band_wide_phase(kernels, torch):
+    """pbsv_array f32 at n = 20480, kd = 8192: 4 kd > n, so potrf_array on
+    the band-projected operand, which above n = 16384 is the scan form:
+    n / 256 chol_diag_inv launches, read right after the path.  Returns
+    them."""
+    from slate_tpu_torch.linalg import band, chol
+
+    n, kd = BAND_WIDE
+    dtype = torch.float32
+    check(not band.band_worthwhile(n, kd), "band_wide: the windowed route")
+    aw = band_operand(2048, 1024, 1024, dtype, SEED + 210, torch, spd=True)
+    chol.pbsv_array(aw, aw[:, :NRHS].clone(), 1024)
+    del aw
+    a = band_operand(n, kd, kd, dtype, SEED + 211, torch, spd=True)
+    b = randn((n, NRHS), dtype, SEED + 212, torch)
+    reset_counts(kernels)
+    (x, f, info), seconds, peak = timed_solve(lambda: chol.pbsv_array(a, b, kd), torch)
+    got = read_counts(kernels)
+    want = -(-n // NB)  # chol._potrf_scan: one diagonal block a 256-wide step
+    e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+    emit({"phase": "band_wide", "n": n, "kd": kd, "info": int(info), "eta": e, "eta_gate": gate,
+          "seconds": seconds, "peak_mem_bytes": peak, "chol_diag_inv_launches": got["chol_diag_inv"],
+          "derived": want, "launches": {k: v for k, v in got.items() if v}})
+    check(int(info) == 0, f"band_wide: info {int(info)}")
+    check(e < gate, f"band_wide: eta {e} >= {gate}")
+    check(got["chol_diag_inv"] == want, f"band_wide: {got['chol_diag_inv']} chol_diag_inv launches, "
+          f"derived {want}")
+    del a, b, x, f
+    torch.cuda.empty_cache()
+    return got["chol_diag_inv"]
+
+
+def band_mesh_phase(kernels, mp, torch):
+    """pbsv_mesh f32 n = 32768 / f64 16384 at kd = 512, gbsv_mesh f32 8192 /
+    f64 4096 at kl = ku = 256 and tbsm_mesh f32 8192 (kd = 256, with and
+    without a row permutation) on the virtual 2 x 4 mesh at nb = 256, each
+    after a warm-up at n = 1024: info, eta (omega for gbsv), seconds, the
+    split (factor, permute, the two trsm_dist, from/to_dense), peak memory,
+    no hand-kernel launch; pbtrf_band_dist at lookahead 0 and 1 bitwise."""
+    from slate_tpu_torch.parallel import dist_chol, dist_lu, drivers
+
+    mesh = mp.make_mesh(P, Q)
+    out = {"phase": "band_mesh", "grid": [P, Q], "nb": NB}
+
+    def run(fn, split):
+        reset_counts(kernels)
+        with ExitStack() as stack:
+            for mod, fname, label in ((dist_chol, "pbtrf_band_dist", "factor"),
+                                      (dist_lu, "gbtrf_band_dist", "factor"),
+                                      (drivers, "permute_rows_dist", "permute"),
+                                      (drivers, "trsm_dist", "trsm_dist"),
+                                      (drivers, "from_dense", "from_dense"),
+                                      (drivers, "to_dense", "to_dense")):
+                stack.enter_context(Timed(mod, fname, split, label, torch))
+            res = timed_solve(fn, torch)
+        return res, hand_launches(kernels)
+
+    for name, n, kd in BAND_MESH_PB:
+        dtype = getattr(torch, name)
+        aw = band_operand(BAND_WARMUP_N, kd, kd, dtype, SEED + 220, torch, spd=True)
+        mp.pbsv_mesh(aw, aw[:, :NRHS].clone(), kd, mesh, NB)
+        del aw
+        a = band_operand(n, kd, kd, dtype, SEED + 221, torch, spd=True)
+        b = randn((n, NRHS), dtype, SEED + 222, torch)
+        split = {}
+        ((x, info), seconds, peak), launched = run(lambda: mp.pbsv_mesh(a, b, kd, mesh, NB), split)
+        e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+        res = {"n": n, "kd": kd, "info": int(info), "eta": e, "eta_gate": gate, "seconds": seconds,
+               "split": split, "peak_mem_bytes": peak, "hand_kernel_launches": launched}
+        check(int(info) == 0, f"pbsv_mesh {name}: info {int(info)}")
+        check(e < gate, f"pbsv_mesh {name}: eta {e} >= {gate}")
+        check(not launched, f"pbsv_mesh {name}: hand kernels launched {launched}")
+        del x, b
+        if name == "float32":  # lookahead 0 and 1 bitwise on the card
+            ad = mp.from_dense(a, mesh, NB, diag_pad_one=True)
+            l0, _ = mp.pbtrf_band_dist(ad, kd, lookahead=0)
+            l1, _ = mp.pbtrf_band_dist(ad, kd, lookahead=1)
+            res["lookahead_0_1_bitwise"] = bool(torch.equal(l0.tiles, l1.tiles))
+            check(res["lookahead_0_1_bitwise"], "pbtrf_band_dist: lookahead 0 and 1 differ")
+            del ad, l0, l1
+        out[f"pbsv_mesh_{name}"] = res
+        del a
+        torch.cuda.empty_cache()
+    for name, n, kl in BAND_MESH_GB:
+        dtype = getattr(torch, name)
+        aw = band_operand(BAND_WARMUP_N, kl, kl, dtype, SEED + 223, torch)
+        mp.gbsv_mesh(aw, aw[:, :NRHS].clone(), kl, kl, mesh, NB)
+        del aw
+        a = band_operand(n, kl, kl, dtype, SEED + 224, torch)
+        b = randn((n, NRHS), dtype, SEED + 225, torch)
+        split = {}
+        ((x, info), seconds, peak), launched = run(lambda: mp.gbsv_mesh(a, b, kl, kl, mesh, NB), split)
+        res = {"n": n, "kl": kl, "ku": kl, "seconds": seconds, "split": split,
+               "factor_s_per_column": split["factor"] / n, "peak_mem_bytes": peak,
+               "hand_kernel_launches": launched,
+               **lu_solve_gates(a, x, b, info, f"gbsv_mesh {name}", torch)}
+        check(not launched, f"gbsv_mesh {name}: hand kernels launched {launched}")
+        out[f"gbsv_mesh_{name}"] = res
+        del a, b, x
+        torch.cuda.empty_cache()
+    n, kd = BAND_TBSM
+    dtype = torch.float32
+    a = band_operand(n, kd, 0, dtype, SEED + 226, torch)
+    a.diagonal().add_(kd + 1)  # diagonally dominant: a well-conditioned triangle
+    b = randn((n, NRHS), dtype, SEED + 227, torch)
+    perm = torch.randperm(n, generator=torch.Generator(device="cuda").manual_seed(SEED + 228),
+                          device="cuda")
+    mp.tbsm_mesh(a[:BAND_WARMUP_N, :BAND_WARMUP_N], kd, b[:BAND_WARMUP_N], mesh, NB)
+    for tag, pv in (("tbsm_mesh", None), ("tbsm_mesh_perm", perm)):
+        split = {}
+        (x, seconds, peak), launched = run(lambda: mp.tbsm_mesh(a, kd, b, mesh, NB, perm=pv), split)
+        rhs = b if pv is None else b[pv]
+        e, gate = eta(a, x, rhs, torch), 100 * n * torch.finfo(dtype).eps
+        out[tag] = {"n": n, "kd": kd, "eta": e, "eta_gate": gate, "seconds": seconds,
+                    "split": split, "peak_mem_bytes": peak, "hand_kernel_launches": launched}
+        check(e < gate, f"{tag}: eta {e} >= {gate}")
+        check(not launched, f"{tag}: hand kernels launched {launched}")
+        del x
+    del a, b, perm
+    torch.cuda.empty_cache()
+    emit(out)
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -3996,8 +4281,9 @@ def main():
     # 3. kernel vs twin
     rows = [kernel_phase(dt, kernels, torch) for dt in (torch.float32, torch.float64)]
     # 4-5. the single-chip path
+    posv_seconds = {}
     for row, dt in zip(rows, (torch.float32, torch.float64)):
-        row["launches"] = posv_phase(dt, kernels, posv_array, torch)
+        row["launches"], posv_seconds[dt] = posv_phase(dt, kernels, posv_array, torch)
     # 6-7. small reference solve, non-SPD info codes
     small_phase(torch)
     non_spd_phase(kernels, potrf_array, torch)
@@ -4139,10 +4425,19 @@ def main():
         for path, got in paths.items():
             check(got, f"{row['name']}: no launch on {path}")
 
-    # 43. the dryrun
+    # 43-45. slice 7a: the band solvers.  The narrow and mesh band paths
+    # launch no hand kernel; the wide route's chol_diag_inv launches join
+    # row 5's f32 row
+    band_single_phase(kernels, posv_seconds[torch.float32], torch)
+    wide = band_wide_phase(kernels, torch)
+    rows[0]["launches_by_path"] = {"posv": rows[0]["launches"], "pbsv_wide": wide}
+    rows[0]["launches"] += wide
+    band_mesh_phase(kernels, mp, torch)
+
+    # 46. the dryrun
     dryrun_phase()
 
-    # 44. the script's seconds, kernels line, card line, result
+    # 47. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

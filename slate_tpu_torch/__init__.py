@@ -4,7 +4,8 @@ A second package beside ``slate_tpu`` (the JAX reference, which this package
 never imports).  Ported so far: the single-chip BLAS-3 verbs, the
 Cholesky (with potri), LU (with getri, the norms and condition estimators
 and mixed-precision refinement), QR, Hermitian eigen and SVD drivers, the
-tile operations, the mesh solvers, BLAS-3, inverses, estimators, eigen and
+band solvers (pbsv / gbsv, tbsm), the tile operations, the mesh solvers
+(with the windowed band factors), BLAS-3, inverses, estimators, eigen and
 SVD drivers on a virtual mesh, the ABFT
 layer, and hand-written Hopper kernels for every Pallas kernel on those
 paths (``ops/kernels.py``, ``csrc/*.cu``).  Entry points compute on the
@@ -38,7 +39,7 @@ from .core import (
     TriangularBandMatrix,
     TriangularMatrix,
 )
-from .blas3 import gbmm, gemm, hbmm, hemm, her2k, herk, symm, syr2k, syrk, trmm, trsm
+from .blas3 import gbmm, gemm, hbmm, hemm, her2k, herk, symm, syr2k, syrk, tbsm, trmm, trsm
 from . import api, linalg, ops
 from .linalg import (
     gecondest,

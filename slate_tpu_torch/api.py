@@ -2,8 +2,8 @@
 LU, Cholesky, QR, eigen and SVD verbs).
 
 Counterpart of ``multiply``, ``hermitian_multiply`` /
-``symmetric_multiply`` / ``triangular_multiply`` / ``rank_k_update`` /
-``rank_2k_update``, ``lu_factor`` / ``lu_solve`` /
+``symmetric_multiply`` / ``triangular_multiply`` / ``triangular_solve`` /
+``rank_k_update`` / ``rank_2k_update``, ``lu_factor`` / ``lu_solve`` /
 ``lu_solve_using_factor`` / ``lu_inverse``, ``chol_factor`` /
 ``chol_solve`` / ``chol_solve_using_factor`` / ``chol_inverse`` and
 ``least_squares_solve`` / ``qr_factor`` /
@@ -78,6 +78,13 @@ def triangular_multiply(side: Side, alpha, a: ArrayLike, b: ArrayLike,
                         opts: Optional[Options] = None, device=None):
     """B = alpha op(A) B or alpha B op(A), A triangular (trmm)."""
     return blas3.trmm(side, alpha, a, b, opts=opts, device=device)
+
+
+def triangular_solve(side: Side, alpha, a: ArrayLike, b: ArrayLike,
+                     opts: Optional[Options] = None, device=None):
+    """Solve op(A) X = alpha B or X op(A) = alpha B, A triangular
+    (slate::triangular_solve -> trsm); ``opts`` rides through."""
+    return blas3.trsm(side, alpha, a, b, opts=opts, device=device)
 
 
 def rank_k_update(alpha, a: ArrayLike, beta, c: ArrayLike, uplo: Optional[Uplo] = None,

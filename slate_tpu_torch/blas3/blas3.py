@@ -11,8 +11,9 @@ operands stored dense, projected on their (kl, ku)).  The recursions keep
 ``torch.linalg.solve_triangular`` (cuBLAS/LAPACK trsm), the counterpart of
 XLA's ``triangular_solve`` (:func:`solve_tri`: in f32 for bf16/f16, which
 PyTorch's solve does not take).  Every product is ``ops.matmul.matmul`` at
-Option.Precision (Highest unless asked: never TF32).  ``tbsm`` comes with
-the band slice.
+Option.Precision (Highest unless asked: never TF32).  ``tbsm`` solves a
+triangular band (stored dense) after applying LU pivots as LAPACK's laswp
+does: the interchanges one after another.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 from dataclasses import replace
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from ..core.matrix import (
@@ -363,3 +365,31 @@ def hbmm(side: Side, alpha, a: ArrayLike, b: ArrayLike, beta, c: ArrayLike,
         afull = symmetrize(_arr(a, dev), Uplo.Lower, conj=True)
     return _wrap_like(c, _side_mul(side, alpha, afull, _arr(b, dev), beta, _arr(c, dev),
                                    precision=_mul_prec(opts)))
+
+
+def tbsm(side: Side, alpha, a: ArrayLike, b: ArrayLike, pivots=None, device=None):
+    """slate::tbsm: triangular-band solve, optionally applying LU pivots
+    first (src/tbsm.cc, the tbsmPivots path), on ``operand_device(a,
+    device)``; a plain tensor ``a`` is read as its lower triangle."""
+    dev = operand_device(a, device)
+    am = a if isinstance(a, BaseMatrix) else TriangularMatrix.from_array(_arr(a, dev), Uplo.Lower)
+    bd = _arr(b, dev)
+    if pivots is not None:
+        bd = _apply_pivots(bd, pivots, forward=True)
+    out = trsm_array(side, am.uplo, am.op, am.diag, alpha, torch.as_tensor(am.data, device=dev), bd)
+    return _wrap_like(b, out)
+
+
+def _apply_pivots(b: torch.Tensor, pivots, forward: bool) -> torch.Tensor:
+    """Row interchanges in sequence, LAPACK laswp style: step i swaps rows i
+    and pivots[i] of the result of step i - 1 (in reverse order when not
+    ``forward``).  The pivots are read on the host once; a swap of a row
+    with itself is skipped (it moves nothing)."""
+    piv = np.asarray(torch.as_tensor(pivots).cpu()).astype(np.int64)
+    out = b.clone()
+    steps = range(len(piv)) if forward else range(len(piv) - 1, -1, -1)
+    for i in steps:
+        p = int(piv[i])
+        if p != i:
+            out[[i, p]] = out[[p, i]]
+    return out

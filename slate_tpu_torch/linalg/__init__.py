@@ -1,4 +1,8 @@
 from .chol import (
+    pbsv,
+    pbsv_array,
+    pbtrf_array,
+    pbtrs_array,
     posv,
     posv_array,
     potrf,
@@ -10,6 +14,9 @@ from .chol import (
 )
 from .lu import (
     LUFactors,
+    gbsv_array,
+    gbtrf_array,
+    gbtrs_array,
     gesv,
     gesv_array,
     getrf,

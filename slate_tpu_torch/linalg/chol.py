@@ -1,7 +1,8 @@
-"""Cholesky family of the port: potrf / potrs / posv / potri.
+"""Cholesky family of the port: potrf / potrs / posv / potri and the band
+drivers pbtrf / pbtrs / pbsv.
 
-Counterpart of the potrf/potrs/posv/potri part of ``slate_tpu/linalg/chol.py``,
-with the same forms, thresholds and info code:
+Counterpart of the potrf/potrs/posv/potri and pb* parts of
+``slate_tpu/linalg/chol.py``, with the same forms, thresholds and info code:
 
 - f32 (and any non-f64 dtype) with n > ``_POTRF_SCAN_MIN_N`` runs
   :func:`_potrf_scan` — nb = 256 panel steps whose diagonal block is
@@ -11,7 +12,10 @@ with the same forms, thresholds and info code:
   diagonal blocks recurse through :func:`_potrf_and_inv` down to 256-wide
   leaves that call the same kernel;
 - everything else runs the recursive :func:`_potrf_lower` with a
-  ``torch.linalg`` cholesky leaf.
+  ``torch.linalg`` cholesky leaf;
+- a lower band with 4 kd <= n runs the windowed ``linalg.band.pbtrf_band``;
+  a wider band runs :func:`potrf_array` on the band-projected operand (so
+  an f32 band above n = 16384 reaches the kernel through ``_potrf_scan``).
 
 PyTorch runs eagerly, so where ``slate_tpu`` threads immutable arrays
 through ``fori_loop``s, ``dynamic_update_slice``s and ``jnp.block``s, this
@@ -30,8 +34,11 @@ import torch
 from ..blas3.blas3 import _NB, _split, trsm_array
 from ..core.matrix import (
     BaseMatrix,
+    HermitianBandMatrix,
     HermitianMatrix,
+    TriangularBandMatrix,
     TriangularMatrix,
+    band_project,
     operand_device,
     symmetrize,
 )
@@ -52,10 +59,12 @@ def _ht(x: torch.Tensor) -> torch.Tensor:
 
 def _cholesky(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky with ``lax.linalg.cholesky``'s conventions: the input
-    is symmetrized first, and a non-SPD input gives an all-NaN factor
-    (``torch.linalg.cholesky`` would raise instead)."""
+    is symmetrized first, and a non-SPD input gives a factor whose lower
+    triangle is all NaN and whose upper triangle is zero (lax takes the
+    lower triangle of its NaN result; ``torch.linalg.cholesky`` would raise
+    instead)."""
     l, info = torch.linalg.cholesky_ex((a + _ht(a)) / 2)
-    return torch.where(info == 0, l, torch.full_like(l, float("nan")))
+    return torch.where(info == 0, l, torch.full_like(l, float("nan"))).tril_()
 
 
 def _tri_inv(l: torch.Tensor) -> torch.Tensor:
@@ -342,3 +351,59 @@ def potri(factor: TriangularMatrix, device=None) -> HermitianMatrix:
     device)``."""
     data = torch.as_tensor(factor.data, device=operand_device(factor, device))
     return HermitianMatrix(data=potri_array(data, factor.uplo), uplo=factor.uplo)
+
+
+# ---------------------------------------------------------------------------
+# band Cholesky (src/pbtrf.cc, pbtrs.cc, pbsv.cc)
+# ---------------------------------------------------------------------------
+
+
+def _band_worthwhile(n: int, band: int) -> bool:
+    from .band import band_worthwhile
+
+    return band_worthwhile(n, band)
+
+
+def pbtrf_array(a: torch.Tensor, kd: int, uplo: Uplo = Uplo.Lower
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Band Cholesky (src/pbtrf.cc).  A narrow lower band takes the windowed
+    O(n kd^2) path (``linalg.band.pbtrf_band``); a wide band (4 kd > n) or
+    an upper one the dense factorization of the band-projected operand,
+    projected back (exact either way).  Returns (factor, info)."""
+    kl, ku = (kd, 0) if uplo == Uplo.Lower else (0, kd)
+    if uplo == Uplo.Lower and _band_worthwhile(a.shape[0], kd):
+        from .band import pbtrf_band
+
+        f = pbtrf_band(a, kd)
+        return f.l, f.info
+    f, info = potrf_array(band_project(a, kl, ku), uplo)
+    return band_project(f, kl, ku), info
+
+
+def pbtrs_array(f: torch.Tensor, b: torch.Tensor, kd: int, uplo: Uplo = Uplo.Lower
+                ) -> torch.Tensor:
+    """Solve from :func:`pbtrf_array`'s factor, by the same routing."""
+    if uplo == Uplo.Lower and _band_worthwhile(f.shape[0], kd):
+        from .band import BandChol, _pick_nb, pbtrs_band
+
+        fb = BandChol(f, kd, _pick_nb(kd), torch.zeros((), dtype=torch.int32, device=f.device))
+        return pbtrs_band(fb, b)
+    return potrs_array(f, b, uplo)
+
+
+def pbsv_array(a: torch.Tensor, b: torch.Tensor, kd: int, uplo: Uplo = Uplo.Lower):
+    """Band factor + solve (src/pbsv.cc).  Returns (x, factor, info)."""
+    f, info = pbtrf_array(a, kd, uplo)
+    return pbtrs_array(f, b, kd, uplo), f, info
+
+
+def pbsv(a: HermitianBandMatrix, b: ArrayLike, opts: Optional[Options] = None, device=None):
+    """slate::pbsv over a Hermitian band view, on ``operand_device(a,
+    device)``; returns (x wrapped like ``b``, the TriangularBandMatrix
+    factor, info)."""
+    dev = operand_device(a, device)
+    bd = torch.as_tensor(b.array if isinstance(b, BaseMatrix) else b, device=dev)
+    x, f, info = pbsv_array(torch.as_tensor(a.data, device=dev), bd, a.kd, a.uplo)
+    if isinstance(b, BaseMatrix):
+        x = replace(b, data=x)
+    return x, TriangularBandMatrix.from_array(f, a.uplo, a.kd), info

@@ -1,8 +1,7 @@
 """LU family of the port: getrf (partial pivot, scanned, no-pivot,
-tournament), getrs, gesv, getri.
+tournament), getrs, gesv, getri and the band drivers gbtrf / gbtrs / gbsv.
 
-Counterpart of ``slate_tpu/linalg/lu.py`` without its band drivers
-(``gb*``, slice 7).  Each form keeps ``slate_tpu``'s op sequence and pivot
+Counterpart of ``slate_tpu/linalg/lu.py``.  Each form keeps ``slate_tpu``'s op sequence and pivot
 rule (the first largest |a| at or below the diagonal; a zero pivot divides
 by 1), so pivots and info codes are ``slate_tpu``'s; where ``slate_tpu``
 maps a function over blocks with ``vmap``, the port carries a leading batch
@@ -22,8 +21,15 @@ the place of a TPU backend (the reading ``Option.PanelImpl=auto`` makes):
 - everything else, and every CPU tensor: the recursive :func:`_getrf_rec`
   with 64-wide :func:`_panel_lu` leaves.
 
+``gbsv_array`` routes a narrow band (4 (max(kl, 1) + max(ku, 1)) <= n) to
+the windowed ``linalg.band.gbsv_band``, whose factor carries per-window
+permutations, and a wide one to the dense partial-pivot factor of the
+band-projected operand (``gbtrf_array``).
+
 The mesh LU (``parallel/dist_lu.py``) reads ``_getrf_nopiv_rec`` (the
-``xla`` branch of its panel), ``_panel_lu`` and ``_tournament_reduce``.
+``xla`` branch of its panel), ``_panel_lu`` and ``_tournament_reduce``;
+the windowed band LU reads ``_panel_lu_masked``, ``_swaps_to_perm`` and
+``_apply_bounded_perm``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ..blas3.blas3 import _NB, _arr, _split, solve_tri, split_pow2, trsm_array
-from ..core.matrix import BaseMatrix, Matrix, operand_device, tri_project
+from ..core.matrix import BaseMatrix, Matrix, band_project, operand_device, tri_project
 from ..ops.matmul import matmul, matmul_sub_
 from ..types import Diag, MethodLU, Op, Option, Options, Side, Uplo, get_option
 
@@ -619,3 +625,50 @@ def gesv(a: ArrayLike, b: ArrayLike, opts: Optional[Options] = None, device=None
     if isinstance(b, BaseMatrix):
         x = replace(b, data=x)
     return x, f
+
+
+# ---------------------------------------------------------------------------
+# band LU (src/gbtrf.cc, gbtrs.cc, gbsv.cc)
+# ---------------------------------------------------------------------------
+
+
+def gbtrf_array(a: torch.Tensor, kl: int, ku: int) -> LUFactors:
+    """Band LU with partial pivoting on the dense path.  Pivoting widens U's
+    band to kl + ku (LAPACK gbtrf semantics), so U is projected to that
+    band; L's multiplier columns have at most kl nonzeros each, but
+    pivoting scatters them to arbitrary rows (Golub & Van Loan band LU), so
+    the strictly-lower part is kept dense: projecting it would corrupt the
+    factorization."""
+    f = getrf_array(band_project(a, kl, ku))
+    eye = torch.eye(*f.lu.shape, dtype=f.lu.dtype, device=f.lu.device)
+    l_part = tri_project(f.lu, Uplo.Lower, Diag.Unit) - eye
+    u_part = band_project(tri_project(f.lu, Uplo.Upper), 0, kl + ku)
+    return LUFactors(l_part + u_part, f.perm, f.info)
+
+
+def gbtrs_array(f, b: torch.Tensor, kl: int, ku: int, op: Op = Op.NoTrans) -> torch.Tensor:
+    """Solve from a band factor: the windowed ``BandLU`` (gbsv_array's
+    narrow route; op NoTrans only) or the dense ``LUFactors``."""
+    from .band import BandLU, gbtrs_band
+
+    if isinstance(f, BandLU):
+        if op != Op.NoTrans:
+            raise ValueError("windowed band factors support op=NoTrans only")
+        return gbtrs_band(f, b)
+    return getrs_array(f, b, op)
+
+
+def gbsv_array(a: torch.Tensor, b: torch.Tensor, kl: int, ku: int):
+    """Band solve (src/gbsv.cc).  A narrow band takes the windowed
+    O(n kl (kl + ku)) path (``linalg.band``, LAPACK gbtrf pivot semantics:
+    its factor carries per-window permutations, not a global one); a wide
+    band the dense partial-pivot factorization.  Returns (x, factor)."""
+    from .band import band_worthwhile
+
+    if band_worthwhile(a.shape[0], max(kl, 1) + max(ku, 1)):
+        from .band import gbsv_band
+
+        x, f, _ = gbsv_band(a, b, kl, ku)
+        return x, f
+    f = gbtrf_array(a, kl, ku)
+    return gbtrs_array(f, b, kl, ku), f

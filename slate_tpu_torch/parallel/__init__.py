@@ -9,7 +9,9 @@ distributed SPD solve (posv_mesh: potrf_dist -> trsm_dist), the mesh gemm
 gesv_nopiv_mesh, gesv_tntpiv_mesh), the distributed least squares
 (geqrf_mesh, gels_mesh: geqrf_dist -> unmqr_dist -> trsm_dist), the
 rank-2k update (her2k_mesh), the inverses (getri_mesh, potri_mesh), the
-band multiplies (gbmm_mesh, hbmm_mesh), the two-stage eigensolver and SVD
+band multiplies (gbmm_mesh, hbmm_mesh), the band solves (pbsv_mesh,
+gbsv_mesh: the windowed pbtrf_band_dist / gbtrf_band_dist, and tbsm_mesh),
+the two-stage eigensolver and SVD
 (heev_mesh, svd_mesh: he2hb_dist / ge2tb_dist, the sharded stedc_dist,
 chase_apply_dist and the stage-1 back-transforms), with Option.FaultTolerance routing
 to ``ft.abft``, and the mixed-precision ladder behind the f64 posv_mesh /
@@ -20,10 +22,16 @@ with their slices."""
 from .mesh import COL_AXIS, ROW_AXIS, VirtualMesh, make_mesh, mesh_shape
 from .dist import DistMatrix, empty_like, from_dense, local_view, padded_tiles, to_dense
 from .summa import OzakiSplit, gemm_summa, gemm_summa_ozaki, ozaki_presplit, ozaki_presplit_cached
-from .dist_chol import potrf_dist
+from .dist_chol import pbtrf_band_dist, potrf_dist
 from .dist_blas3 import hemm_summa, her2k_dist, syr2k_dist, transpose_dist, trmm_dist
 from .dist_trsm import trsm_dist, trsm_dist_right
-from .dist_lu import getrf_nopiv_dist, getrf_pp_dist, getrf_tntpiv_dist, permute_rows_dist
+from .dist_lu import (
+    gbtrf_band_dist,
+    getrf_nopiv_dist,
+    getrf_pp_dist,
+    getrf_tntpiv_dist,
+    permute_rows_dist,
+)
 from .dist_qr import DistQR, geqrf_dist, unmqr_dist
 from .dist_aux import gecondest_dist, herk_dist, norm_dist, pocondest_dist
 from .dist_stedc import stedc_dist
@@ -48,6 +56,7 @@ from .dist_refine import (
 )
 from .drivers import (
     gbmm_mesh,
+    gbsv_mesh,
     gels_mesh,
     gemm_mesh,
     geqrf_mesh,
@@ -63,10 +72,12 @@ from .drivers import (
     getri_mesh,
     hbmm_mesh,
     her2k_mesh,
+    pbsv_mesh,
     posv_mesh,
     posv_mixed_gmres_mesh,
     posv_mixed_mesh,
     potri_mesh,
     potrf_mesh,
     svd_mesh,
+    tbsm_mesh,
 )

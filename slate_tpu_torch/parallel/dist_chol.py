@@ -18,6 +18,13 @@ rest after the panel (``_chol_bulk``).  On the card both halves go through
 the same tile-GEMM, whose per-element arithmetic does not depend on which
 tiles a launch covers, so results are bitwise the same at every depth.
 
+``pbtrf_band_dist`` is the band form (``slate_tpu``'s ``_pbtrf_band_jit``,
+src/pbtrf.cc): the same right-looking step, with every phase confined to a
+window of ``wlr`` local row slots and ``wlc`` local column slots that
+slides with k, so the tiles outside the band envelope (beyond slot
+rounding) are never read or written.  Its windowed solves and products are
+torch ops, as ``slate_tpu`` computes them outside Pallas.
+
 The port factors the tile stack in place (``overwrite_a=True``) or in a
 copy (the default: ``slate_tpu``'s functional semantics, one more copy of
 the matrix).  ``num_monitor="on"`` (the in-carry numerics gauges) and the
@@ -28,9 +35,11 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from ..linalg.chol import _cholesky
+from ..blas3.blas3 import solve_tri
+from ..linalg.chol import _cholesky, _ht
 from ..ops.kernels import (
     chol_panel_tiles,
     chol_trailing_update,
@@ -42,6 +51,8 @@ from ..ops.kernels import (
     update_engaged,
     update_impl_scope,
 )
+from ..ops.matmul import _tf32_scope
+from ..types import Precision
 from .comm import (
     ROW_AXIS,
     all_gather_a,
@@ -200,3 +211,174 @@ def _potrf_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int) -> None:
         zero_pl = (torch.zeros((1, 1, mtl - s0r, nb, nb), dtype=t.dtype, device=t.device),
                    torch.zeros((1, 1, ntl - s0c, nb, nb), dtype=t.dtype, device=t.device))
         pipelined_factor_loop(k0, k1, la, panel, narrow, bulk, view, zero_pl)
+
+
+# ---------------------------------------------------------------------------
+# band Cholesky (src/pbtrf.cc): the k-loop on a sliding tile window
+# ---------------------------------------------------------------------------
+
+
+def _tile_products(pan: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``pan[r, c, i] @ rhs[r, c, j]`` for every tile pair, (p, q, I, J, nb,
+    nb): one batched product of each mesh row's (I nb, nb) panel with each
+    mesh column's (nb, J nb) row, ``pan`` (p, 1, I, nb, nb) and ``rhs``
+    (1, q, J, nb, nb); TF32 off for f32 on the card (``slate_tpu``'s
+    einsums run at HIGHEST)."""
+    p, _, i_n, nb, _ = pan.shape
+    q, j_n = rhs.shape[1], rhs.shape[2]
+    a = pan.reshape(p, 1, i_n * nb, nb)
+    b = rhs.permute(0, 1, 3, 2, 4).reshape(1, q, nb, j_n * nb)
+    with _tf32_scope(a, Precision.Highest):
+        prod = torch.matmul(a, b)
+    return prod.view(p, q, i_n, nb, j_n, nb).permute(0, 1, 2, 4, 3, 5)
+
+
+class _BandWindows:
+    """The sliding windows of a band k-loop, as ``slate_tpu`` computes them
+    per device: local row slots ``s_r(k) + [0, wlr)`` on mesh row r, column
+    slots ``s_c(k) + [0, wlc)`` on mesh column c, each start clamped like
+    ``lax.dynamic_slice``'s (s_r = clip(ceil((k - r) / p), 0, mtl - wlr)).
+    All nt steps' slot and logical indices are made on the host and moved
+    to the device once."""
+
+    def __init__(self, nt, p, q, mtl, ntl, wlr, wlc, device, col_base=None):
+        ks = np.arange(nt)[:, None]
+        r, c = np.arange(p)[None, :], np.arange(q)[None, :]
+        kc0 = ks if col_base is None else col_base(ks)
+        self.sr = np.clip((ks - r + p - 1) // p, 0, mtl - wlr)  # (nt, p)
+        self.sc = np.clip((kc0 - c + q - 1) // q, 0, ntl - wlc)  # (nt, q)
+        rows = self.sr[:, :, None] + np.arange(wlr)
+        cols = self.sc[:, :, None] + np.arange(wlc)
+        as_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+        self.rows, self.cols = as_dev(rows), as_dev(cols)  # local slots (nt, p, wlr) / (nt, q, wlc)
+        self.i_win = as_dev(r[:, :, None] + rows * p)  # logical tile rows (nt, p, wlr)
+        self.j_win = as_dev(c[:, :, None] + cols * q)  # logical tile columns (nt, q, wlc)
+        self.sr_dev, self.sc_dev = as_dev(self.sr), as_dev(self.sc)
+        self.pi = torch.arange(p, device=device)
+        self.qi = torch.arange(q, device=device)
+
+
+def _window_index(w: "_BandWindows", k: int, kc: Optional[int] = None):
+    """Index tuple of step k's window on the local view (p, q, mtl, ntl, nb,
+    nb): every device's (wlr, wlc) tiles, or, with ``kc``, its (wlr,) tiles
+    of column slot kc."""
+    pi, qi = w.pi, w.qi
+    if kc is not None:
+        return (pi[:, None, None], qi[None, :, None], w.rows[k][:, None, :], kc)
+    return (pi[:, None, None, None], qi[None, :, None, None], w.rows[k][:, None, :, None],
+            w.cols[k][None, :, None, :])
+
+
+class _BandUpdate:
+    """Step k's deferred windowed update: its panel column ``pan`` (p, 1,
+    wlr, nb, nb), the transposed panel ``panT`` (1, q, wlc, nb, nb) and its
+    own window offsets (step k's); the product of every tile pair is formed
+    once and the narrow and bulk halves subtract their shares of it."""
+
+    def __init__(self, k: int, pan: torch.Tensor, pan_t: torch.Tensor, cplx: bool):
+        self.k, self.pan, self.pan_t, self.cplx = k, pan, pan_t, cplx
+        self._prod = None
+
+    def product(self) -> torch.Tensor:
+        if self._prod is None:
+            rhs = self.pan_t.conj() if self.cplx else self.pan_t
+            self._prod = _tile_products(self.pan, rhs.transpose(-1, -2))
+        return self._prod
+
+
+def pbtrf_band_dist(
+    a: DistMatrix, kd: int, lookahead: Optional[int] = None,
+    bcast_impl: Optional[str] = None, overwrite_a: bool = False,
+) -> Tuple[DistMatrix, torch.Tensor]:
+    """Band Cholesky on the mesh at band cost (src/pbtrf.cc): the k-loop
+    touches only the tile window inside the bandwidth (the wd = (nb - 1 +
+    kd) // nb + 1 tile rows a panel column reaches, in ``wlr`` = min(
+    ceil(wd / p) + 1, mtl) local row and ``wlc`` = min(ceil(wd / q) + 1,
+    ntl) local column slots), so total work is O(n (kd + nb)^2) and the
+    per-step broadcasts O(wd nb^2).  ``a`` holds the lower triangle with
+    bandwidth kd (Cholesky preserves the band).  Returns (L, info), info 0
+    or 1 + the global index of the first bad pivot.
+
+    ``lookahead`` (Option.Lookahead; None = 1) defers each step's windowed
+    update into the next step (``comm.pipelined_factor_loop``); each
+    deferred update carries its own window offsets, so the narrow and bulk
+    halves land at step k - 1's window, not k's.  Results are bitwise the
+    same at every depth and ``bcast_impl`` lowering.  Its solves and
+    products are torch ops (no hand kernel, as in ``slate_tpu``); bf16
+    factors its diagonal tiles in f32."""
+    p, q = mesh_shape(a.mesh)
+    if a.mt != a.nt:
+        raise ValueError("pbtrf_band_dist needs a square tile grid")
+    a.require_diag_pad("pbtrf_band_dist")
+    nb = a.nb
+    wd = min(((nb - 1) + kd) // nb + 1, a.nt)
+    t = a.tiles if overwrite_a else a.tiles.clone()
+    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)):
+        _pbtrf_band_tiles(t, p, q, a.nt, wd, la_depth(lookahead, a.nt))
+    info = _chol_info_dist(t, p, q, nb)
+    return DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True), info
+
+
+def _pbtrf_band_tiles(t: torch.Tensor, p: int, q: int, nt: int, wd: int, la: int) -> None:
+    """``slate_tpu``'s ``_pbtrf_band_jit`` kernel, in place on the cyclic
+    tile stack, every device of the grid at once."""
+    loc = local_view(t, p, q)  # (p, q, mtl, ntl, nb, nb)
+    mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
+    wlr, wlc = min(-(-wd // p) + 1, mtl), min(-(-wd // q) + 1, ntl)
+    dtype, dev = t.dtype, t.device
+    cplx = t.is_complex()
+    low = dtype in (torch.bfloat16, torch.float16)
+    w = _BandWindows(nt, p, q, mtl, ntl, wlr, wlc, dev)
+
+    def panel(k, loc):
+        """Diagonal factor, the windowed column solve on the owning mesh
+        column, the panel along the mesh columns and gathered over the
+        mesh rows, transposed into every column window."""
+        kc, c0 = k // q, k % q
+        dtile = bcast_diag_tile(loc, k, p, q)[0, 0]
+        lkk = _cholesky(dtile.float()).to(dtype) if low else _cholesky(dtile)
+        idx = (w.pi[:, None], c0, w.rows[k], kc)  # the owning column's window: (p, wlr)
+        colwin = loc[idx]
+        solved = solve_tri(_ht(lkk), colwin, upper=True, left=False)
+        i_win = w.i_win[k][..., None, None]
+        below = i_win > k
+        newcol = torch.where(below, solved, torch.where(i_win == k, lkk, colwin))
+        loc[idx] = newcol
+        pan = bcast_from_col(torch.where(below, newcol, 0)[:, None], c0, q)  # (p, 1, wlr, nb, nb)
+        allpan = all_gather_a(pan, ROW_AXIS, p)[0, 0]  # (p, wlr, nb, nb)
+        j_win = w.j_win[k]  # (q, wlc)
+        slot = j_win // p - w.sr_dev[k][j_win % p]
+        valid = (slot >= 0) & (slot < wlr) & (j_win > k)
+        pan_t = allpan[j_win % p, slot.clamp(0, wlr - 1)]
+        pan_t = torch.where(valid[..., None, None], pan_t, 0)[None]  # (1, q, wlc, nb, nb)
+        return loc, _BandUpdate(k, pan, pan_t, cplx)
+
+    def narrow(k, loc, upd):
+        """The deferred step-(k-1) update on local column slot k // q (what
+        panel(k) reads), at the update's own window rows."""
+        if upd is None:
+            return loc
+        kc, kp = k // q, upd.k
+        oc = kc - w.sc_dev[kp]  # the column's offset inside the pending window, per mesh column
+        in_win = (oc >= 0) & (oc < wlc)
+        jcol = w.qi + q * kc  # the logical column of each mesh column's slot kc
+        prod = upd.product()[:, w.qi, :, oc.clamp(0, wlc - 1)].movedim(0, 1)  # (p, q, wlr, nb, nb)
+        mask = in_win[None, :, None] & (w.i_win[kp][:, None, :] >= jcol[None, :, None])
+        idx = _window_index(w, kp, kc=kc)
+        loc[idx] = loc[idx] - torch.where(mask[..., None, None], prod, 0)
+        return loc
+
+    def bulk(k, loc, upd):
+        """The deferred windowed update at its own offsets; k = None
+        everywhere, else all but the column slot narrow(k) refreshed."""
+        if upd is None:
+            return loc
+        kp = upd.k
+        mask = w.i_win[kp][:, None, :, None] >= w.j_win[kp][None, :, None, :]
+        if k is not None:
+            mask = mask & (w.cols[kp] != k // q)[None, :, None, :]
+        idx = _window_index(w, kp)
+        loc[idx] = loc[idx] - torch.where(mask[..., None, None], upd.product(), 0)
+        return loc
+
+    pipelined_factor_loop(0, nt, la, panel, narrow, bulk, loc, None)

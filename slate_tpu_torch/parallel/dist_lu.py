@@ -35,9 +35,14 @@ does not depend on which tiles a launch covers; the ``torch.matmul`` form
 computes a step's full-grid product once and lets the narrow and bulk
 halves each subtract their share of it.
 
+``gbtrf_band_dist`` is the band form (src/gbtrf.cc): the partial-pivot
+panel and swaps on windows that slide with k (``_pp_panel_factor`` /
+``_pp_apply_swaps`` take the windows; the dense factors pass the whole
+height and width), then the windowed row solve and trailing update, in
+the strict schedule at every lookahead depth.
+
 ``num_monitor="on"`` (the in-carry growth gauges) and the flight
-recorder's step dispatch come with the observability slice;
-``gbtrf_band_dist`` with the band slice.
+recorder's step dispatch come with the observability slice.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..blas3.blas3 import solve_tri
 from ..linalg.lu import _getrf_nopiv_rec, _tournament_reduce
 from ..ops.kernels import (
     lu_panel_tiles,
@@ -75,7 +81,7 @@ from .comm import (
     resolve_bcast_impl,
 )
 from .dist import DistMatrix, local_view
-from .dist_chol import _check_num_monitor
+from .dist_chol import _BandWindows, _check_num_monitor, _tile_products, _window_index
 from .mesh import mesh_shape
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -322,23 +328,40 @@ def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int) -> Non
 # ---------------------------------------------------------------------------
 
 
+def _all_slots(n_mesh: int, n_loc: int, dev) -> torch.Tensor:
+    """(n_mesh, n_loc): every local slot of each mesh row or column, the
+    whole-height or whole-width window of the dense factors."""
+    return torch.arange(n_loc, device=dev).expand(n_mesh, n_loc)
+
+
+def _tile_slots(sr: np.ndarray, nt: int, p: int, wl: int) -> np.ndarray:
+    """(..., nt): each tile row's slot in its owning mesh row's window of wl
+    local slots starting at ``sr`` (..., p); wl where the window misses it."""
+    tiles = np.arange(nt)
+    rel = tiles // p - sr[..., tiles % p]
+    return np.where((rel >= 0) & (rel < wl), rel, wl)
+
+
 def _swap_rows(loc: torch.Tensor, pos: np.ndarray, slot_ok: np.ndarray, pos2row: np.ndarray,
-               p: int, nb: int) -> None:
-    """Move full rows so that every position in ``pos`` (the <= 2 nb
-    positions a panel's swaps touch) holds its final occupant
-    ``pos2row[pos]``: one gather of the source rows (``slate_tpu``'s psum
-    over the mesh rows, audited with its payload) and one scatter; slots
-    not ``slot_ok`` duplicate another and are dropped."""
+               p: int, nb: int, cols: torch.Tensor) -> None:
+    """Move rows so that every position in ``pos`` (the <= 2 nb positions
+    a panel's swaps touch) holds its final occupant ``pos2row[pos]``, over
+    the local column slots ``cols`` (q, W) of each mesh column's swap
+    window (every slot for the dense factors): one gather of the source
+    rows (``slate_tpu``'s psum over the mesh rows, audited with its
+    payload) and one scatter; slots not ``slot_ok`` duplicate another and
+    are dropped."""
     mglob = pos2row.shape[0]
-    ntl = loc.shape[3]
-    audit(f"psum[{ROW_AXIS}]", len(pos) * ntl * nb * loc.element_size())
+    audit(f"psum[{ROW_AXIS}]", len(pos) * cols.shape[1] * nb * loc.element_size())
     src = np.minimum(pos2row[np.minimum(pos, mglob - 1)], mglob - 1)[slot_ok]
     dst = np.minimum(pos, mglob - 1)[slot_ok]
     dev = loc.device
     st, sr = torch.from_numpy(src // nb).to(dev), torch.from_numpy(src % nb).to(dev)
     dt, dr = torch.from_numpy(dst // nb).to(dev), torch.from_numpy(dst % nb).to(dev)
-    vals = loc[st % p, :, st // p, :, sr, :]  # (S, q, ntl, nb): the source rows
-    loc[dt % p, :, dt // p, :, dr, :] = vals
+    qi = torch.arange(cols.shape[0], device=dev)[None, :, None]
+    # (S, q, W, nb): the source rows
+    vals = loc[(st % p)[:, None, None], qi, (st // p)[:, None, None], cols[None], sr[:, None, None]]
+    loc[(dt % p)[:, None, None], qi, (dt // p)[:, None, None], cols[None], dr[:, None, None]] = vals
 
 
 def _flat_gids(i_log: torch.Tensor, nb: int) -> torch.Tensor:
@@ -386,6 +409,7 @@ def _tntpiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int
     mglob = nt * nb
     sent = mglob  # tournament sentinel: sorts last, marks dead slots
     gids = _flat_gids(i_log, nb)
+    cols = _all_slots(q, ntl, t.device)
 
     def tournament(k) -> np.ndarray:
         """Local tournaments of the owning column's mesh rows, the merge
@@ -423,7 +447,7 @@ def _tntpiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int
         # a first-half slot
         pos = np.concatenate([base + np.arange(nb), win])
         slot_ok = np.concatenate([np.ones(nb, bool), (win >= base + nb) & (win < sent)])
-        _swap_rows(loc, pos, slot_ok, pos2row, p, nb)
+        _swap_rows(loc, pos, slot_ok, pos2row, p, nb, cols)
 
     rowperm = np.arange(mglob)
     if la <= 0:
@@ -476,19 +500,27 @@ def getrf_pp_dist(
             torch.from_numpy(perm).to(t.device), info)
 
 
-def _pp_panel_factor(loc, k, p, q, nt, m_true, gids):
+def _pp_panel_factor(loc, k, p, q, nt, m_true, gids, win):
     """The partial-pivot panel factor on a broadcast copy of panel column
     k (the internal_getrf.cc half): ``slate_tpu``'s per-column argmax over
     each mesh row's window, the cross-row choice, the in-panel swap (a
     masked psum) and the elimination, batched over the mesh rows.  Reads
-    only local column slot k // q.  Returns (flat (p, mtl nb, nb), the
-    pivot position chosen per column as a device tensor)."""
-    mtl, nb = loc.shape[2], loc.shape[4]
+    only local column slot k // q.  ``win`` = (slots (p, wl), each tile
+    row's slot in them (nt,) on the device and on the host, ``_tile_slots``)
+    is each mesh row's candidate window, and ``gids`` (p, wl nb) their
+    global rows: every local row slot for the dense factor, the band
+    factor's sliding window.  Returns (flat (p, wl nb, nb), the pivot
+    position chosen per column as a device tensor)."""
+    nb = loc.shape[4]
     dev = loc.device
     mglob = nt * nb
     base, c0 = k * nb, k % q
-    m_loc = mtl * nb
-    pan = bcast_from_col(loc[:, c0:c0 + 1, :, k // q], c0, q)  # (p, 1, mtl, nb, nb)
+    slots, tslot, tslot_host = win
+    wl = slots.shape[1]
+    slot_g = int(tslot_host[k])  # gcol's slot in mesh row k % p's window
+    m_loc = wl * nb
+    pcol = loc[torch.arange(p, device=dev)[:, None], c0, slots, k // q][:, None]
+    pan = bcast_from_col(pcol, c0, q)  # (p, 1, wl, nb, nb)
     flat = pan[:, 0].reshape(p, m_loc, nb).clone()
     rows_r = torch.arange(p, device=dev)
     col_ids = torch.arange(nb, device=dev)
@@ -512,12 +544,12 @@ def _pp_panel_factor(loc, k, p, q, nt, m_true, gids):
 
         # in-panel swap of rows piv <-> gcol (slate_tpu: a masked psum)
         tile_p = piv // nb
-        slot_p = tile_p // p
-        own_p = (tile_p % p == rows_r) & (slot_p < mtl)
-        idx_p = (slot_p.clamp(max=mtl - 1) * nb + piv % nb).view(1)
-        tile_g, slot_g = gcol // nb, (gcol // nb) // p
-        own_g = (rows_r == tile_g % p) & (slot_g < mtl)
-        idx_g = min(slot_g, mtl - 1) * nb + gcol % nb
+        slot_p = torch.take(tslot, tile_p)  # in the owning row's window (no host read)
+        own_p = (tile_p % p == rows_r) & (slot_p < wl)
+        idx_p = (slot_p.clamp(max=wl - 1) * nb + piv % nb).view(1)
+        # gcol lies in tile k, on mesh row k % p
+        own_g = (rows_r == k % p) & (slot_g < wl)
+        idx_g = min(slot_g, wl - 1) * nb + gcol % nb
         vp = torch.where(own_p[:, None], flat.index_select(1, idx_p)[:, 0], 0)
         vg = torch.where(own_g[:, None], flat[:, idx_g], 0)
         rows2 = psum_a(torch.stack([vp, vg], dim=1)[:, None], ROW_AXIS, p)[0, 0]  # (2, nb)
@@ -538,15 +570,16 @@ def _pp_panel_factor(loc, k, p, q, nt, m_true, gids):
     return flat, piv_pos
 
 
-def _pp_apply_swaps(loc, rowperm, flat, piv_pos, k, p, q, nt):
-    """Apply the panel's nb transpositions to the stored rows (simulated on
-    the host, then one full-row exchange) and write the factored panel
-    into the owning column.  Reads full rows: any deferred update must be
-    applied first."""
+def _pp_apply_swaps(loc, rowperm, flat, piv, k, p, q, nt, slots, cols):
+    """Apply the panel's nb transpositions ``piv`` (host positions) to the
+    stored rows (simulated on the host, then one row exchange over the
+    swap column slots ``cols`` (q, W)) and write the factored panel into
+    its row slots ``slots`` (p, wl) of the owning column: every slot for
+    the dense factor, the band factor's windows.  Reads the rows as
+    stored: any deferred update of those columns must be applied first."""
     nb = loc.shape[4]
     mglob = nt * nb
     base = k * nb
-    piv = piv_pos.cpu().numpy()
     pos2row = np.arange(mglob)
     for j in range(nb):
         tgt, cur = base + j, int(piv[j])
@@ -555,8 +588,9 @@ def _pp_apply_swaps(loc, rowperm, flat, piv_pos, k, p, q, nt):
         rowperm[tgt], rowperm[cur] = rowperm[cur], rowperm[tgt]
     pos = np.concatenate([base + np.arange(nb), piv])
     slot_ok = np.concatenate([np.ones(nb, bool), piv >= base + nb])
-    _swap_rows(loc, pos, slot_ok, pos2row, p, nb)
-    loc[:, k % q, :, k // q] = flat.view(flat.shape[0], -1, nb, nb)
+    _swap_rows(loc, pos, slot_ok, pos2row, p, nb, cols)
+    pi = torch.arange(p, device=loc.device)[:, None]
+    loc[pi, k % q, slots, k // q] = flat.view(p, -1, nb, nb)
 
 
 def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) -> np.ndarray:
@@ -564,11 +598,16 @@ def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) ->
     mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
     _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device)
     gids = _flat_gids(i_log, nb)
+    dev = t.device
+    # the whole height and width: the band factor's windows, unwindowed
+    rows, cols = _all_slots(p, mtl, dev), _all_slots(q, ntl, dev)
+    tslot = _tile_slots(np.zeros(p, np.int64), nt, p, mtl)
+    win = (rows, torch.from_numpy(tslot).to(dev), tslot)
     rowperm = np.arange(nt * nb)
     if la <= 0:
         for k in range(nt):
-            flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids)
-            _pp_apply_swaps(loc, rowperm, flat, piv_pos, k, p, q, nt)
+            flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids, win)
+            _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, rows, cols)
             _nopiv_step(loc, k, p, q, i_log, j_log, panel_done=True)
         return rowperm
     # lookahead (getrf.cc's panel/update overlap): refresh the panel column,
@@ -577,11 +616,123 @@ def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) ->
     upd = None
     for k in range(nt):
         _nopiv_narrow(loc, upd, k, p, q, with_row=False)
-        flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids)
+        flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids, win)
         _nopiv_bulk(loc, upd, excl_kc=k // q)
-        _pp_apply_swaps(loc, rowperm, flat, piv_pos, k, p, q, nt)
+        _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, rows, cols)
         _, upd = _nopiv_panel(loc, k, p, q, i_log, j_log, panel_done=True)
     _nopiv_bulk(loc, upd)
+    return rowperm
+
+
+# ---------------------------------------------------------------------------
+# band LU with partial pivoting (src/gbtrf.cc)
+# ---------------------------------------------------------------------------
+
+
+def gbtrf_band_dist(
+    a: DistMatrix, kl: int, ku: int, lookahead: Optional[int] = None,
+    bcast_impl: Optional[str] = None, overwrite_a: bool = False,
+) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
+    """Band partial-pivot LU on the mesh at band cost (src/gbtrf.cc): the
+    partial-pivot panel and swaps of :func:`getrf_pp_dist` with every phase
+    windowed -- the panel's candidate rows to the wd_l = (nb - 1 + kl) //
+    nb + 1 tile rows that can be nonzero (``wlr`` local slots a mesh row),
+    the row swaps to the columns holding the moved rows' L history and U
+    fill (up to column g + kl + ku of a row g), and the row solve and
+    trailing update to the wd_l x wd_u tile window.  The factor is P A =
+    L U with P over the padded row space, as :func:`getrf_pp_dist`'s, so a
+    swap moves the rows' earlier multipliers too; ``slate_tpu`` starts
+    every swap window at k - (wd_l - 1) and leaves behind those of a row
+    moved down from above tile k (wrong once the windows are narrower than
+    the grid), while here the window reaches back to the oldest of them.
+    Pivots, info and U are ``slate_tpu``'s.  Total work is O(n (kl + nb)
+    (kl + ku + nb)).  Returns (LU, perm over the padded row space, info).
+
+    ``lookahead`` is accepted for API symmetry but the strict schedule runs
+    at every depth, as in ``slate_tpu``: there is no read-only operand to
+    prefetch (every panel reads column k as step k - 1 left it), and the
+    deferred-update form is illegal, because the swap column window slides
+    with k and its exclusion set would depend on the pivots chosen at run
+    time.  The solves and the trailing product are inline torch ops: the
+    band factor calls no hand kernel (``slate_tpu`` pins it to its XLA
+    forms)."""
+    p, q = mesh_shape(a.mesh)
+    if a.mt != a.nt:
+        raise ValueError("gbtrf_band_dist needs a square tile grid")
+    a.require_diag_pad("gbtrf_band_dist")
+    del lookahead  # the strict schedule at every depth (docstring)
+    nb = a.nb
+    wd_l = min(((nb - 1) + kl) // nb + 1, a.nt)  # rows touched per panel
+    wd_u = min(((nb - 1) + kl + ku) // nb + 1, a.nt)  # U fill-in width
+    # a candidate row's U fill reaches right to tile k + wd_usw - 1
+    wd_usw = min(((nb - 1) + 2 * kl + ku) // nb + 1, a.nt)
+    t = a.tiles if overwrite_a else a.tiles.clone()
+    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)):
+        perm = _gb_pp_tiles(t, p, q, a.nt, a.m, wd_l, wd_u, wd_usw)
+    info = _lu_info_dist(t, p, q, nb)
+    return (DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True),
+            torch.from_numpy(perm).to(t.device), info)
+
+
+def _gb_pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, wd_l: int, wd_u: int,
+                 wd_usw: int) -> np.ndarray:
+    """``slate_tpu``'s ``_gb_pp_jit`` kernel, in place on the cyclic tile
+    stack, every device of the grid at once."""
+    loc = local_view(t, p, q)
+    mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
+    wlr = min(-(-wd_l // p) + 1, mtl)
+    wlc = min(-(-wd_u // q) + 1, ntl)
+    wlsw = min(-(-((wd_l - 1) + wd_usw) // q) + 1, ntl)
+    dtype, dev = t.dtype, t.device
+    w = _BandWindows(nt, p, q, mtl, ntl, wlr, wlc, dev)
+    sw = _BandWindows(nt, p, q, mtl, ntl, wlr, wlsw, dev,
+                     col_base=lambda ks: np.maximum(ks - (wd_l - 1), 0))
+    gids = (w.i_win[..., None] * nb + torch.arange(nb, device=dev)).reshape(nt, p, wlr * nb)
+    tslot = _tile_slots(w.sr, nt, p, wlr)  # (nt steps, nt tile rows)
+    tslot_dev = torch.from_numpy(tslot).to(dev)
+    eye = torch.eye(nb, dtype=dtype, device=dev)
+    pi, qi = w.pi, w.qi
+    c_h = np.arange(q)
+    rowperm = np.arange(nt * nb)
+    for k in range(nt):
+        r0, c0, kr, kc = k % p, k % q, k // p, k // q
+        # the shared pivot panel and swaps, windowed to the band: candidate
+        # rows in tiles [k, k + wd_l), a swapped row's nonzeros in tiles
+        # [k_lo, k + wd_usw)
+        flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids[k],
+                                         (w.rows[k], tslot_dev[k], tslot[k]))
+        piv = piv_pos.cpu().numpy()
+        # A row's L history starts at the first step it was a candidate,
+        # tile(original row) - (wd_l - 1).  slate_tpu starts every swap
+        # window at k - (wd_l - 1), which misses the history of a row an
+        # earlier step moved down from above tile k, leaving stale
+        # multipliers (P A != L U once the windows are narrower than the
+        # grid); the window here reaches the oldest history of the rows moved.
+        moved = rowperm[np.concatenate([k * nb + np.arange(nb), piv])]
+        k_lo = max(0, min(k, int(moved.min()) // nb) - (wd_l - 1))
+        if k_lo == max(k - (wd_l - 1), 0):
+            cols = sw.cols[k]  # slate_tpu's window
+        else:
+            width = min(-(-((k - k_lo) + wd_usw) // q) + 1, ntl)
+            start = np.clip((k_lo - c_h + q - 1) // q, 0, ntl - width)
+            cols = torch.from_numpy(start[:, None] + np.arange(width)).to(dev)
+        _pp_apply_swaps(loc, rowperm, flat, piv, k, p, q, nt, w.rows[k], cols)
+        # the windowed tail: the row solve on the owning mesh row, then the
+        # trailing update of the (wlr, wlc) window
+        luk = bcast_diag_tile(loc, k, p, q)[0, 0]
+        ridx = (r0, qi[:, None], kr, w.cols[k])  # the owning row's window: (q, wlc)
+        roww = loc[ridx]
+        usolved = solve_tri((luk.tril(-1) + eye).expand_as(roww), roww, upper=False, left=True,
+                            unitriangular=True)
+        right = (w.j_win[k] > k)[..., None, None]
+        newrow = torch.where(right, usolved, roww)
+        loc[ridx] = newrow
+        colw = loc[pi[:, None], c0, w.rows[k], kc]  # the owning column's window: (p, wlr)
+        below = (w.i_win[k] > k)[..., None, None]
+        pan = bcast_from_col(torch.where(below, colw, 0)[:, None], c0, q)
+        urow = bcast_from_row(torch.where(right, newrow, 0)[None], r0, p)
+        idx = _window_index(w, k)
+        loc[idx] = loc[idx] - _tile_products(pan, urow)
     return rowperm
 
 

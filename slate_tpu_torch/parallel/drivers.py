@@ -15,7 +15,9 @@ chains of ``dist_twostage.py`` and ``dist_stedc.py``), the inverses ``getri_mesh
 and ``potri_mesh`` (src/getri.cc, potri.cc: the factor, then the two
 sweeps on the identity) and the band multiplies ``gbmm_mesh`` /
 ``hbmm_mesh`` (band storage on the dense tile stack, projected on (kl,
-ku)), with the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs
+ku)), the band solves ``pbsv_mesh`` / ``gbsv_mesh`` (the windowed
+``pbtrf_band_dist`` / ``gbtrf_band_dist``, then the dense mesh sweeps) and
+``tbsm_mesh``, with the ``_la/_bi/_pi/_ui/_nm`` option readers.  Factorization inputs
 are padded with an identity diagonal block (``from_dense(...,
 diag_pad_one=True)``), so padded runs stay exact.
 
@@ -494,3 +496,81 @@ def svd_mesh(a, mesh: VirtualMesh, nb: int = 64, want_vectors: bool = True):
     v = chase_apply_dist(f2.rvs, f2.rtaus, pv[:, None] * vb.to(dtype), n, nb, mesh)
     vd = unmbr_ge2tb_v_dist(f, from_dense(v, mesh, nb))
     return to_dense(ud), s, to_dense(vd).conj().T.resolve_conj()
+
+
+def tbsm_mesh(
+    a, kd: int, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, uplo: Uplo = Uplo.Lower,
+    diag: Diag = Diag.NonUnit, perm=None,
+) -> torch.Tensor:
+    """Distributed triangular-band solve, optionally applying LU pivots
+    first (src/tbsm.cc, the tbsmPivots path): ``perm`` is a permutation of
+    the padded row space (``gbtrf_band_dist``'s), applied to B by
+    ``permute_rows_dist``; then ``trsm_dist`` on the band-projected A."""
+    from ..core.matrix import band_project
+
+    kl, ku = (kd, 0) if uplo == Uplo.Lower else (0, kd)
+    ad = from_dense(band_project(torch.as_tensor(a, device=mesh.device), kl, ku), mesh, nb,
+                    diag_pad_one=True)
+    bd = from_dense(b, mesh, nb)
+    if perm is not None:
+        bd = permute_rows_dist(bd, perm)
+    return to_dense(trsm_dist(ad, bd, uplo, Op.NoTrans, diag))
+
+
+def _band_opts(opts: Optional[Options], who: str) -> None:
+    """The band solves run no checkpointed or monitored loop yet:
+    Option.Checkpoint raises (``_resilience``, as in every mesh driver) and
+    so does Option.NumMonitor ``on``."""
+    from .dist_chol import _check_num_monitor
+
+    _resilience(opts)
+    _check_num_monitor(_nm(opts), who)
+
+
+def pbsv_mesh(
+    a, b, kd: int, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed Hermitian-band solve (src/pbsv.cc, pbtrf.cc): the
+    factorization's k-loop touches only the tile window inside the
+    bandwidth (``pbtrf_band_dist``: O(n kd^2) work; Cholesky preserves the
+    band); a band as wide as the grid degenerates to the dense schedule.
+    The two sweeps are the dense ``trsm_dist`` (the banded L's masked
+    products are small against the factor for a skinny B).  Returns (X
+    dense, info).  ``opts`` carries Option.Lookahead and Option.BcastImpl."""
+    from ..core.matrix import band_project
+    from .dist_chol import pbtrf_band_dist
+
+    _band_opts(opts, "pbsv_mesh")
+    la, bi = _la(opts), _bi(opts)
+    ab = band_project(torch.as_tensor(a, device=mesh.device), kd, kd)
+    l, info = pbtrf_band_dist(from_dense(ab, mesh, nb, diag_pad_one=True), kd, lookahead=la,
+                              bcast_impl=bi, overwrite_a=True)
+    del ab
+    bd = from_dense(b, mesh, nb)
+    y = trsm_dist(l, bd, Uplo.Lower, Op.NoTrans, lookahead=la, bcast_impl=bi)
+    x = trsm_dist(l, y, Uplo.Lower, Op.ConjTrans, lookahead=la, bcast_impl=bi)
+    return to_dense(x), info
+
+
+def gbsv_mesh(
+    a, b, kl: int, ku: int, mesh: VirtualMesh, nb: int = _DEFAULT_NB,
+    opts: Optional[Options] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Distributed general-band solve (src/gbsv.cc, gbtrf.cc): the
+    partial-pivot band LU whose panel, swaps, row solve and trailing update
+    touch only the band envelope (``gbtrf_band_dist``; U fills in to
+    kl + ku under pivoting), O(n (kl + nb)(kl + ku + nb)) work; then B
+    permuted and the two dense sweeps.  Returns (X dense, info)."""
+    from ..core.matrix import band_project
+    from .dist_lu import gbtrf_band_dist
+
+    _band_opts(opts, "gbsv_mesh")
+    la, bi = _la(opts), _bi(opts)
+    ab = band_project(torch.as_tensor(a, device=mesh.device), kl, ku)
+    lu, perm, info = gbtrf_band_dist(from_dense(ab, mesh, nb, diag_pad_one=True), kl, ku,
+                                     lookahead=la, bcast_impl=bi, overwrite_a=True)
+    del ab
+    pb = permute_rows_dist(from_dense(b, mesh, nb), perm)
+    y = trsm_dist(lu, pb, Uplo.Lower, Op.NoTrans, Diag.Unit, lookahead=la, bcast_impl=bi)
+    x = trsm_dist(lu, y, Uplo.Upper, Op.NoTrans, lookahead=la, bcast_impl=bi)
+    return to_dense(x), info
