@@ -236,19 +236,48 @@ printing one JSON line before the next starts (any failure exits non-zero):
    warm-up at n = 1024: info, eta (omega for gbsv), seconds and the split
    (factor, permute, trsm_dist, from_dense, to_dense), peak memory, no
    hand-kernel launch, and pbtrf_band_dist at lookahead 0 and 1 bitwise;
-46. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+46. hesv_single: hesv_array (nb = 32, 32 right-hand sides) on a Hermitian
+   indefinite uniform[-1, 1) operand, f32 n = 1536, f64 1024, complex64
+   512, each after a warm-up at n = 256: info 0, eta < 100 n eps, seconds
+   split into he2hb, hb2st, the Q^H apply, gtsv and the Q apply, peak
+   memory, qr_panel_offset launches derived from _he2hb_panel_count (0 for
+   complex, whose panels keep the library pair); then gtsv_array alone,
+   f64 n = 2048 with a small diagonal: the share of steps that swapped,
+   the error against torch.linalg.solve in f64 (ratio to n eps max|x|),
+   microseconds a step;
+47. gesv_rbt: gesv_rbt_array on uniform[-1, 1), 32 right-hand sides, f32
+   n = 8192 and f64 n = 8191 (the identity-pad path): info 0, eta <
+   100 n eps, omega beside 10 sqrt(n) eps (a reading), no hand-kernel
+   launch, RBTFactors.solve on a fresh right-hand side under the eta gate,
+   gesv_array NoPiv on the same operand beside it (readings); f64 n = 1024
+   with A[0, 0] = 0: NoPiv reports a nonzero info or a non-finite X, RBT
+   passes;
+48. redistribute_mesh: f32 n = 16384, nb = 256, off the virtual 2 x 4
+   mesh: to 4 x 2 under eager and shardmap (the ring), bitwise equal, the
+   ring's audited bytes redistribute_wire_bytes, the moved bytes' rate
+   against 3.35 TB/s; to 1 x 8 with diag_pad at n = 15260 (60 tiles grow
+   to 64; the fresh pad tiles the identity under both lowerings); nb 256
+   -> 512 -> 256 bitwise; then the non-uniform tiling at f32 n = 8192
+   (tile sizes cycling 256, 128, 192): the round trip bitwise, gemm_summa
+   within product_ratio of the f64 product (kt summa_update launches), and
+   redistribute_nonuniform -> potrf_dist -> two trsm_dist: info 0, eta <
+   100 n eps, chol_panel_tiles / chol_trailing_update launches derived by
+   expected_potrf_launches; then slice7b_seconds: the three phases' own
+   seconds and their sum beside the 30 s budget;
+49. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
    stedc_dist, heev_chain, the LU panel_pallas half; n = 64, nb = 8,
    2 x 4);
-47. total: the script's seconds; then kernels: the line of every ported
+50. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
    rows those of phase 32's public 8192^3 calls; the chol_panel_tiles,
    chol_trailing_update and lu_rowsolve_tiles rows also carry
    ``launches_by_path``, their mesh posv / nopiv launches beside those of
-   phase 37's potri_mesh / getri_mesh, chol_diag_inv's f32 row its posv
-   and phase 44 launches, and the qr_panel_offset rows
-   those of phases 39, 40 and 42 beside the mesh gels' and, under
+   phase 37's potri_mesh / getri_mesh and, in f32, phase 48's non-uniform
+   posv (summa_update's f32 row its non-uniform gemm), chol_diag_inv's f32
+   row its posv and phase 44 launches, and the qr_panel_offset rows
+   those of phases 39, 40, 42 and 46 beside the mesh gels' and, under
    ``at_he2hb_panel``, phase 41's readings), then the card line and, last,
    {"ok": true, "device": {...}}.
 
@@ -4214,6 +4243,340 @@ def band_mesh_phase(kernels, mp, torch):
     emit(out)
 
 
+# slice 7b: the indefinite solver, the RBT solve and redistribute.  Sized to
+# seconds: the hesv chase is a host-bound eager loop (~4 n wavefront steps)
+# and so is the no-pivot LU's column loop; the three phases, warm-ups and
+# readings included, are held to SLICE7B_BUDGET_S on the card.  At f32 hesv
+# 2048 (4.97 s) and RBT 16384 (3.17 s, NoPiv 2.98 s beside it; H100, 700 W)
+# they took too much of it: cut to 1536 and 8192.
+HESV_NB = 32
+HESV_N = (("float32", 1536), ("float64", 1024), ("complex64", 512))
+GTSV_N = 2048  # f64
+RBT_N = (("float32", 8192), ("float64", 8191))  # 8191: the identity-pad path
+RBT_ZERO_N = 1024  # f64, A[0, 0] = 0
+REDIST_N = 16384  # f32, nb = 256, from the 2 x 4 grid
+REDIST_PAD_N = 15260  # 60 tiles of 256: 60 on the 2 x 4 grid, 64 on the 1 x 8 grid
+NONUNIFORM_N = 8192  # f32
+NONUNIFORM_CYCLE = (256, 128, 192)
+SLICE7B_WARMUP_N = 256
+SLICE7B_BUDGET_S = 30.0
+
+
+def uniform(shape, dtype, seed, torch):
+    """uniform[-1, 1) (real and imaginary parts), made on the device."""
+    u = torch.rand(shape, generator=torch.Generator(device="cuda").manual_seed(seed),
+                   dtype=dtype, device="cuda")
+    return u.mul_(2).sub_(1)
+
+
+def hermitian_indefinite(n, dtype, seed, torch):
+    """uniform[-1, 1) mirrored from its lower triangle, real diagonal:
+    Hermitian, with eigenvalues of both signs."""
+    u = uniform((n, n), dtype, seed, torch)
+    a = u.tril()
+    a.add_(u.tril(-1).mH)
+    if a.is_complex():
+        a.diagonal().imag.zero_()
+    return a
+
+
+def hesv_single_phase(kernels, testing, torch):
+    """hesv_array (nb = 32) on a Hermitian indefinite uniform[-1, 1) operand
+    with 32 right-hand sides, f32 n = 1536, f64 1024 and complex64 512,
+    each after a warm-up at n = 256: info 0 and eta < 100 n eps; seconds,
+    split into he2hb, hb2st, the Q^H apply, gtsv and the Q apply (each call
+    timed to the card's completion), peak memory, and qr_panel_offset's
+    launches against he2hb's panel count (0 where panel_engaged keeps the
+    library pair: complex).  Then gtsv_array alone, f64 n = 2048, on a
+    tridiagonal whose small diagonal makes rows swap: the share of steps
+    that swapped, the error against torch.linalg.solve of the dense f64
+    matrix as a ratio to n eps max|x|, and microseconds a step.  Returns
+    {dtype: launches} for the real dtypes."""
+    from slate_tpu_torch.linalg import eig, indefinite
+
+    out = {"phase": "hesv_single", "nb": HESV_NB}
+    launches = {}
+    for name, n in HESV_N:
+        dtype = getattr(torch, name)
+        aw = hermitian_indefinite(SLICE7B_WARMUP_N, dtype, SEED + 300, torch)
+        _, warmup_seconds, _ = timed_solve(
+            lambda: indefinite.hesv_array(aw, aw[:, :NRHS].clone(), HESV_NB), torch)
+        del aw
+        a = hermitian_indefinite(n, dtype, SEED + 301, torch)
+        b = randn((n, NRHS), dtype, SEED + 302, torch)
+        split = {}
+        reset_counts(kernels)
+        with ExitStack() as st:
+            for fn, label in (("he2hb", "he2hb"), ("hb2st", "hb2st"),
+                              ("_unmtr_he2hb_adj", "q_adjoint_apply"),
+                              ("_unmtr_hb2st_adj", "q_adjoint_apply"), ("gtsv_array", "gtsv"),
+                              ("unmtr_hb2st", "q_apply"), ("unmtr_he2hb", "q_apply")):
+                st.enter_context(Timed(indefinite, fn, split, label, torch))
+            (x, f, info), seconds, peak = timed_solve(
+                lambda: indefinite.hesv_array(a, b, HESV_NB), torch)
+        got = read_counts(kernels)["qr_panel_offset"]
+        want = eig._he2hb_panel_count(n, HESV_NB) if kernels.panel_engaged(dtype) else 0
+        e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+        out[name] = {"n": n, "info": int(info), "eta": e, "eta_gate": gate, "seconds": seconds,
+                     "warmup_seconds": warmup_seconds, "split": split, "peak_mem_bytes": peak,
+                     "qr_panel_offset_launches": got,
+                     "derived": want, "hand_kernel_launches": hand_launches(kernels)}
+        check(int(info) == 0, f"hesv {name}: info {int(info)}")
+        check(tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all()), f"hesv {name}: bad X")
+        check(e < gate, f"hesv {name}: eta {e} >= {gate}")
+        check(got == want, f"hesv {name}: {got} qr_panel_offset launches, derived {want}")
+        if want:
+            launches[dtype] = got
+        del a, b, x, f
+        torch.cuda.empty_cache()
+    # gtsv alone
+    n = GTSV_N
+    dtype = torch.float64
+    dl, du = uniform((n - 1,), dtype, SEED + 303, torch), uniform((n - 1,), dtype, SEED + 304, torch)
+    d = uniform((n,), dtype, SEED + 305, torch).mul_(1e-2)
+    b = randn((n, NRHS), dtype, SEED + 306, torch)
+    w = SLICE7B_WARMUP_N
+    indefinite.gtsv_array(dl[:w - 1], d[:w], du[:w - 1], b[:w])
+    (x, info), seconds, peak = timed_solve(lambda: indefinite.gtsv_array(dl, d, du, b), torch)
+    t = torch.diag(d) + torch.diag(dl, -1) + torch.diag(du, 1)
+    ref = torch.linalg.solve(t, b)
+    err = float((x - ref).abs().max() / (n * torch.finfo(dtype).eps * ref.abs().max()))
+    swaps = sum(testing.gtsv_swaps(dl.tolist(), d.tolist(), du.tolist()))
+    out["gtsv_float64"] = {"n": n, "nrhs": NRHS, "info": int(info), "seconds": seconds,
+                           "peak_mem_bytes": peak,
+                           "us_per_step": seconds / (2 * n - 1) * 1e6,
+                           "swap_share": swaps / (n - 1), "err_over_n_eps_xmax": err}
+    emit(out)
+    check(int(info) == 0, f"gtsv: info {int(info)}")
+    check(err < 1, f"gtsv: error {err} n eps max|x| from the library's dense solve")
+    check(0 < swaps < n - 1, f"gtsv: {swaps} of {n - 1} steps swapped")
+    del dl, d, du, b, x, t, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gesv_rbt_phase(kernels, torch):
+    """gesv_rbt_array on uniform[-1, 1) with 32 right-hand sides, f32
+    n = 8192 and f64 n = 8191 (the identity-pad path), each after a
+    warm-up at n = 256: info 0 and eta < 100 n eps (gates), omega beside
+    the LU family's 10 sqrt(n) eps (a reading: RBT's safety without pivots
+    is probabilistic), seconds, peak memory, no hand-kernel launch (the
+    no-pivot LU and its solves are library calls, as in slate_tpu);
+    gesv_array NoPiv on the same operand beside it (seconds, info, eta,
+    omega: readings); RBTFactors.solve on a fresh right-hand side under the
+    eta gate against the original A.  Then f64 n = 1024 with A[0, 0] = 0:
+    NoPiv must report a nonzero info or a non-finite X, RBT pass its
+    gates."""
+    from slate_tpu_torch.linalg import lu, rbt
+    from slate_tpu_torch.types import MethodLU
+
+    out = {"phase": "gesv_rbt"}
+    for name, n in RBT_N:
+        dtype = getattr(torch, name)
+        gen = torch.Generator(device="cuda")
+        aw = uniform((SLICE7B_WARMUP_N,) * 2, dtype, SEED + 310, torch)
+        rbt.gesv_rbt_array(aw, aw[:, :NRHS].clone(), generator=gen.manual_seed(SEED))
+        del aw
+        a = uniform((n, n), dtype, SEED + 311, torch)
+        b = randn((n, NRHS), dtype, SEED + 312, torch)
+        reset_counts(kernels)
+        (x, f), seconds, peak = timed_solve(
+            lambda: rbt.gesv_rbt_array(a, b, generator=gen.manual_seed(SEED + 313)), torch)
+        launched = hand_launches(kernels)
+        e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+        w, w_gate = omega(a, x, b, torch), omega_gate(n, dtype, torch)
+        b2 = randn((n, NRHS), dtype, SEED + 314, torch)
+        e2 = eta(a, f.solve(b2), b2, torch)
+        (xn, fn), nopiv_seconds, nopiv_peak = timed_solve(
+            lambda: lu.gesv_array(a, b, MethodLU.NoPiv), torch)
+        out[name] = {"n": n, "npad": f.npad, "depth": f.ud.shape[0], "info": int(f.info), "eta": e,
+                     "eta_gate": gate, "omega": w, "omega_reading_line": w_gate,
+                     "omega_over_line": w / w_gate, "seconds": seconds, "peak_mem_bytes": peak,
+                     "hand_kernel_launches": launched, "factors_solve_eta": e2,
+                     "nopiv": {"seconds": nopiv_seconds, "peak_mem_bytes": nopiv_peak,
+                               "info": int(fn.info),
+                               "eta": eta(a, xn, b, torch), "omega": omega(a, xn, b, torch),
+                               "x_finite": bool(torch.isfinite(xn).all())}}
+        check(int(f.info) == 0, f"gesv_rbt {name}: info {int(f.info)}")
+        check(tuple(x.shape) == (n, NRHS) and bool(torch.isfinite(x).all()), f"gesv_rbt {name}: bad X")
+        check(e < gate, f"gesv_rbt {name}: eta {e} >= {gate}")
+        check(e2 < gate, f"gesv_rbt {name}: RBTFactors.solve eta {e2} >= {gate}")
+        check(not launched, f"gesv_rbt {name}: hand kernels launched {launched}")
+        del a, b, b2, x, f, xn, fn
+        torch.cuda.empty_cache()
+    n, dtype = RBT_ZERO_N, torch.float64
+    a = uniform((n, n), dtype, SEED + 315, torch)
+    a[0, 0] = 0
+    b = randn((n, NRHS), dtype, SEED + 316, torch)
+    xn, fn = lu.gesv_array(a, b, MethodLU.NoPiv)
+    x, f = rbt.gesv_rbt_array(a, b, generator=torch.Generator(device="cuda").manual_seed(SEED + 317))
+    e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+    nopiv_failed = int(fn.info) != 0 or not bool(torch.isfinite(xn).all())
+    out["zero_a00_float64"] = {"n": n, "nopiv_info": int(fn.info),
+                               "nopiv_x_finite": bool(torch.isfinite(xn).all()),
+                               "rbt_info": int(f.info), "rbt_eta": e, "eta_gate": gate,
+                               "rbt_omega": omega(a, x, b, torch)}
+    emit(out)
+    check(nopiv_failed, "gesv_rbt: NoPiv solved A[0, 0] = 0 without a sign of the zero pivot")
+    check(int(f.info) == 0 and e < gate, f"gesv_rbt A[0, 0] = 0: info {int(f.info)}, eta {e}")
+    del a, b, x, f, xn, fn
+    torch.cuda.empty_cache()
+
+
+def nonuniform_sizes(n):
+    """NONUNIFORM_CYCLE repeated to n, the last size trimmed."""
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(NONUNIFORM_CYCLE[len(sizes) % len(NONUNIFORM_CYCLE)])
+    sizes[-1] -= sum(sizes) - n
+    return sizes
+
+
+def redistribute_mesh_phase(kernels, mp, bucket_plan, torch):
+    """redistribute, f32 n = 16384 at nb = 256 off the virtual 2 x 4 mesh:
+    to 4 x 2 under eager and under shardmap (the ring), bitwise equal, the
+    ring's audited bytes equal redistribute_wire_bytes, seconds and the
+    moved bytes' rate (each byte of the stack read and written once)
+    against 3.35 TB/s; to 1 x 8 with diag_pad at n = 15260 (60 tiles grow
+    to 64), the four fresh pad tiles the identity under both lowerings; an
+    nb change 256 -> 512 and back, bitwise.  Then the non-uniform tiling at
+    f32 n = 8192, tile sizes cycling (256, 128, 192): the round trip
+    bitwise, gemm_summa of two non-uniform operands within product_ratio
+    of the f64 product, and redistribute_nonuniform(nb = 256,
+    diag_pad_one) -> potrf_dist -> two trsm_dist: info 0, eta < 100 n eps,
+    chol_panel_tiles / chol_trailing_update launches derived by
+    expected_potrf_launches.  Each timed call follows a warm-up at
+    n = 256 and has its peak memory read.  Returns the non-uniform paths'
+    launches."""
+    from slate_tpu_torch.core.tiling import from_cyclic
+    from slate_tpu_torch.parallel import comm, dist
+    from slate_tpu_torch.types import Diag, MethodGemm, Op, Uplo, select_gemm_method
+
+    dtype = torch.float32
+    m24, m42, m18 = (mp.make_mesh(p, q, device="cuda") for p, q in ((P, Q), (Q, P), (1, P * Q)))
+    out = {"phase": "redistribute_mesh", "nb": NB}
+    w = mp.from_dense(randn((SLICE7B_WARMUP_N,) * 2, dtype, SEED + 320, torch), m24, NB)
+    for impl in ("eager", "shardmap"):
+        mp.redistribute(w, m42, impl=impl)
+    mp.redistribute(mp.redistribute(w, m42, nb=2 * NB), m24, nb=NB)
+    del w
+
+    peaks = {}
+
+    def run(fn, label=None):
+        """fn()'s result, seconds and audited bytes; its peak memory under
+        ``label``."""
+        torch.cuda.reset_peak_memory_stats()
+        with comm.comm_audit() as recs:
+            res, seconds = timed(fn, torch)
+        if label:
+            peaks[label] = torch.cuda.max_memory_allocated()
+        return res, seconds, sum(nbytes * mult for _, nbytes, mult in recs)
+
+    n = REDIST_N
+    d = mp.from_dense(randn((n, n), dtype, SEED + 321, torch), m24, NB)
+    stack = d.tiles.numel() * d.tiles.element_size()
+    te, e_s, e_wire = run(lambda: mp.redistribute(d, m42, impl="eager"), "to_4x2_eager")
+    ts, s_s, s_wire = run(lambda: mp.redistribute(d, m42, impl="shardmap"), "to_4x2_shardmap")
+    want_wire = dist.redistribute_wire_bytes(d.tiles.shape, P, Q, d.tiles.element_size())
+    same = bool(torch.equal(te.tiles, ts.tiles)) and (te.m, te.n, te.nb, te.diag_pad) == (
+        ts.m, ts.n, ts.nb, ts.diag_pad)
+    out["to_4x2"] = {"n": n, "stack_bytes": stack, "bitwise": same,
+                     "eager": {"seconds": e_s, "audited_bytes": e_wire,
+                               "rate_of_peak": 2 * stack / e_s / PEAK_BYTES_S},
+                     "shardmap": {"seconds": s_s, "audited_bytes": s_wire,
+                                  "wire_bytes_formula": want_wire,
+                                  "rate_of_peak": 2 * stack / s_s / PEAK_BYTES_S}}
+    check(same, "redistribute 2x4 -> 4x2: eager and shardmap differ")
+    check(s_wire == want_wire and e_wire == 0,
+          f"redistribute 2x4 -> 4x2: audited {s_wire} / {e_wire} bytes, formula {want_wire}")
+    del te, ts
+    r2, r_s, _ = run(lambda: mp.redistribute(d, m42, nb=2 * NB), "nb_to_512")
+    r3, b_s, _ = run(lambda: mp.redistribute(r2, m24, nb=NB), "nb_to_256")
+    out["nb_256_512_256"] = {"seconds": [r_s, b_s], "bitwise": bool(torch.equal(r3.tiles, d.tiles))}
+    check(out["nb_256_512_256"]["bitwise"], "redistribute nb 256 -> 512 -> 256: not bitwise")
+    del d, r2, r3
+    torch.cuda.empty_cache()
+    n = REDIST_PAD_N
+    d = mp.from_dense(randn((n, n), dtype, SEED + 322, torch), m24, NB, diag_pad_one=True)
+    grown = {}
+    for impl in ("eager", "shardmap"):
+        g, seconds, _ = run(lambda: mp.redistribute(d, m18, impl=impl), f"to_1x8_{impl}")
+        logi = from_cyclic(g.tiles, 1, P * Q)
+        eye = torch.eye(NB, dtype=dtype, device="cuda")
+        fresh = list(range(d.mt, g.mt))
+        grown[impl] = {"seconds": seconds, "tiles": [d.mt, g.mt], "diag_pad": g.diag_pad,
+                       "fresh_identity": all(bool(torch.equal(logi[t, t], eye)) for t in fresh)}
+        check(g.diag_pad and fresh == [60, 61, 62, 63] and grown[impl]["fresh_identity"],
+              f"redistribute 2x4 -> 1x8 ({impl}): {grown[impl]}")
+        grown[impl]["result"] = g
+    same = bool(torch.equal(grown["eager"].pop("result").tiles, grown["shardmap"].pop("result").tiles))
+    out["to_1x8_diag_pad"] = {"n": n, "bitwise": same, **grown}
+    check(same, "redistribute 2x4 -> 1x8: eager and shardmap differ")
+    del d, logi
+    torch.cuda.empty_cache()
+    # the non-uniform tiling
+    n = NONUNIFORM_N
+    sizes = nonuniform_sizes(n)
+    a = dominant_spd(n, dtype, SEED + 323, torch)
+    b = randn((n, NRHS), dtype, SEED + 324, torch)
+    aw = dominant_spd(SLICE7B_WARMUP_N, dtype, SEED + 325, torch)
+    ww = [SLICE7B_WARMUP_N // 2] * 2
+    mp.to_dense_nonuniform(mp.redistribute_nonuniform(
+        mp.from_dense_nonuniform(aw, m24, ww, ww), ww, ww, nb=NB, diag_pad_one=True), ww, ww)
+    dn, f_s, _ = run(lambda: mp.from_dense_nonuniform(a, m24, sizes, sizes), "from_dense_nonuniform")
+    back, t_s, _ = run(lambda: mp.to_dense_nonuniform(dn, sizes, sizes), "to_dense_nonuniform")
+    nu = {"n": n, "tiles": len(sizes), "nb": dn.nb, "from_seconds": f_s, "to_seconds": t_s,
+          "roundtrip_bitwise": bool(torch.equal(back, a))}
+    check(nu["roundtrip_bitwise"] and dn.nb == max(NONUNIFORM_CYCLE), f"non-uniform round trip: {nu}")
+    del back
+    g1, g2 = randn((n, n), dtype, SEED + 326, torch), randn((n, n), dtype, SEED + 327, torch)
+    ga, gb = mp.from_dense_nonuniform(g1, m24, sizes, sizes), mp.from_dense_nonuniform(g2, m24, sizes, sizes)
+    method = select_gemm_method(ga.mt, gb.nt, ga.nt)
+    mp.gemm_summa(1.0, mp.from_dense_nonuniform(aw, m24, ww, ww), mp.from_dense_nonuniform(aw, m24, ww, ww))
+    reset_counts(kernels)
+    c, g_s, _ = run(lambda: mp.gemm_summa(1.0, ga, gb), "nonuniform_gemm")
+    gemm_launches = read_counts(kernels)["summa_update"]
+    ratio = product_ratio(mp.to_dense_nonuniform(c, sizes, sizes), g1.double() @ g2.double(), n, 1,
+                          torch.finfo(dtype).eps, float(g1.abs().max()), float(g2.abs().max()))
+    want_gemm = ga.nt if method == MethodGemm.GemmC else None
+    nu["gemm"] = {"seconds": g_s, "method": method.name, "err_over_tol": ratio,
+                  "summa_update_launches": gemm_launches, "derived": want_gemm}
+    check(ratio < 1, f"non-uniform gemm_summa: error {ratio} of product_ratio's bound")
+    check(want_gemm is not None and gemm_launches == want_gemm,
+          f"non-uniform gemm_summa ({method.name}): {gemm_launches} summa_update launches, "
+          f"derived {want_gemm}")
+    del g1, g2, ga, gb, c
+    torch.cuda.empty_cache()
+
+    def posv(dn, sizes, b):
+        ad = mp.redistribute_nonuniform(dn, sizes, sizes, nb=NB, diag_pad_one=True)
+        l, info = mp.potrf_dist(ad, overwrite_a=True)
+        bd = mp.from_dense(b, m24, NB)
+        y = mp.trsm_dist(l, bd, Uplo.Lower, Op.NoTrans, Diag.NonUnit)
+        x = mp.trsm_dist(l, y, Uplo.Lower, Op.ConjTrans, Diag.NonUnit)
+        return mp.to_dense(x), info, ad.nt
+
+    posv(mp.from_dense_nonuniform(aw, m24, ww, ww), ww, aw[:, :NRHS].clone())  # the warm-up
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    (x, info, nt), p_s, _ = run(lambda: posv(dn, sizes, b), "nonuniform_posv")
+    counts = read_counts(kernels)
+    want = expected_potrf_launches(nt, 1, bucket_plan)
+    e, gate = eta(a, x, b, torch), 100 * n * torch.finfo(dtype).eps
+    nu["posv"] = {"seconds": p_s, "info": int(info), "eta": e, "eta_gate": gate,
+                  "launches": {k: counts[k] for k in want}, "derived": want}
+    out["nonuniform"] = nu
+    out["peak_mem_bytes"] = peaks
+    emit(out)
+    check(int(info) == 0 and e < gate, f"non-uniform posv: info {int(info)}, eta {e} (gate {gate})")
+    for k, v in want.items():
+        check(counts[k] == v, f"non-uniform posv: {counts[k]} {k} launches, derived {v}")
+    del a, b, x, dn, aw
+    torch.cuda.empty_cache()
+    return {"summa_update": gemm_launches, **{k: counts[k] for k in want}}
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -4434,10 +4797,34 @@ def main():
     rows[0]["launches"] += wide
     band_mesh_phase(kernels, mp, torch)
 
-    # 46. the dryrun
+    # 46-48. slice 7b: hesv, gesv_rbt, redistribute and the non-uniform
+    # tiling.  Row 10 gains hesv_array's launches, rows 6, 11 and 12 (f32)
+    # those of the non-uniform gemm_summa and posv; the three phases' own
+    # seconds are summed against SLICE7B_BUDGET_S
+    t7 = {}
+    t0 = time.perf_counter()
+    hesv = hesv_single_phase(kernels, testing, torch)
+    t7["hesv_single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gesv_rbt_phase(kernels, torch)
+    t7["gesv_rbt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nonuni = redistribute_mesh_phase(kernels, mp, bucket_plan, torch)
+    t7["redistribute_mesh"] = time.perf_counter() - t0
+    emit({"phase": "slice7b_seconds", **t7, "sum": sum(t7.values()), "budget": SLICE7B_BUDGET_S})
+    for dt, got in hesv.items():
+        qr_rows[("qr_panel_offset", dt)]["launches_by_path"]["hesv_array"] = got
+    for name, path in (("chol_panel_tiles", "nonuniform_posv"),
+                       ("chol_trailing_update", "nonuniform_posv"),
+                       ("summa_update", "nonuniform_gemm")):
+        row = mesh_rows[(name, torch.float32)]
+        row.setdefault("launches_by_path", {"mesh_gemm" if name == "summa_update" else "mesh_posv":
+                                            row["launches"]})[path] = nonuni[name]
+
+    # 49. the dryrun
     dryrun_phase()
 
-    # 47. the script's seconds, kernels line, card line, result
+    # 50. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -4,8 +4,10 @@ A second package beside ``slate_tpu`` (the JAX reference, which this package
 never imports).  Ported so far: the single-chip BLAS-3 verbs, the
 Cholesky (with potri), LU (with getri, the norms and condition estimators
 and mixed-precision refinement), QR, Hermitian eigen and SVD drivers, the
-band solvers (pbsv / gbsv, tbsm), the tile operations, the mesh solvers
-(with the windowed band factors), BLAS-3, inverses, estimators, eigen and
+band solvers (pbsv / gbsv, tbsm), the indefinite solver (hesv) and the
+RBT solve (gesv_rbt), the tile operations, the mesh solvers
+(with the windowed band factors), redistribute and the non-uniform
+tiling, BLAS-3, inverses, estimators, eigen and
 SVD drivers on a virtual mesh, the ABFT
 layer, and hand-written Hopper kernels for every Pallas kernel on those
 paths (``ops/kernels.py``, ``csrc/*.cu``).  Entry points compute on the
@@ -49,6 +51,7 @@ from .linalg import (
     getrs_array,
     heev_array,
     hegv_array,
+    hesv_array,
     norm,
     pocondest,
     posv,

@@ -5,7 +5,8 @@ Counterpart of ``multiply``, ``hermitian_multiply`` /
 ``symmetric_multiply`` / ``triangular_multiply`` / ``triangular_solve`` /
 ``rank_k_update`` / ``rank_2k_update``, ``lu_factor`` / ``lu_solve`` /
 ``lu_solve_using_factor`` / ``lu_inverse``, ``chol_factor`` /
-``chol_solve`` / ``chol_solve_using_factor`` / ``chol_inverse`` and
+``chol_solve`` / ``chol_solve_using_factor`` / ``chol_inverse``,
+``indefinite_factor`` / ``indefinite_solve`` and
 ``least_squares_solve`` / ``qr_factor`` /
 ``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` and
 ``eig_vals`` / ``eig_decompose`` / ``generalized_eig`` / ``svd_vals`` /
@@ -23,7 +24,7 @@ import torch
 
 from .blas3 import blas3
 from .core.matrix import BaseMatrix, operand_device
-from .linalg import chol, eig, lu, qr
+from .linalg import chol, eig, indefinite, lu, qr
 from .linalg import svd as svd_mod
 from .types import MethodLU, Op, Option, Options, Side, Uplo, get_option
 
@@ -163,6 +164,21 @@ def chol_solve_using_factor(l: ArrayLike, b: ArrayLike, uplo: Uplo = Uplo.Lower,
 def chol_inverse(l: ArrayLike, uplo: Uplo = Uplo.Lower, device=None):
     """A^-1's ``uplo`` triangle from the Cholesky factor (potri)."""
     return chol.potri_array(_data(l, operand_device(l, device)), uplo)
+
+
+# -- indefinite (indefinite_factor / indefinite_solve) -----------------------
+
+
+def indefinite_factor(a: ArrayLike, nb: int = 32, device=None):
+    """(HetrfFactors, info) of a Hermitian indefinite matrix (hetrf)."""
+    return indefinite.hetrf_array(blas3._arr(a, operand_device(a, device)), nb)
+
+
+def indefinite_solve(a: ArrayLike, b: ArrayLike, nb: int = 32, device=None):
+    """(x, info) of A X = B, A Hermitian indefinite (hesv)."""
+    dev = operand_device(a, device)
+    x, _, info = indefinite.hesv_array(blas3._arr(a, dev), blas3._arr(b, dev), nb)
+    return x, info
 
 
 # -- least squares / QR / LQ -------------------------------------------------

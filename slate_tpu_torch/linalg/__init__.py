@@ -36,6 +36,7 @@ from .refine import (
     posv_mixed_array,
     posv_mixed_gmres_array,
 )
+from .rbt import RBTFactors, apply_butterfly, gerbt_array, gesv_rbt_array
 from .tri import trtri_array, trtrm_array
 from .qr import (
     LQFactors,
@@ -80,4 +81,14 @@ from .svd import (
     tb2bd,
     unmbr_ge2tb_u,
     unmbr_ge2tb_v,
+)
+from .indefinite import (
+    HetrfFactors,
+    gtsv_array,
+    hesv_array,
+    hetrf_array,
+    hetrs_array,
+    sysv_array,
+    sytrf_array,
+    sytrs_array,
 )

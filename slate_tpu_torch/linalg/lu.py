@@ -563,7 +563,8 @@ def getrs_array(f: LUFactors, b: torch.Tensor, op: Op = Op.NoTrans) -> torch.Ten
 
 
 def gesv_array(a: torch.Tensor, b: torch.Tensor, method: MethodLU = MethodLU.PartialPiv):
-    """Factor and solve (src/gesv.cc).  Returns (x, factors)."""
+    """Factor and solve (src/gesv.cc).  Returns (x, factors); under
+    MethodLU.RBT the factors are ``rbt.RBTFactors``."""
     if method == MethodLU.PartialPiv:
         f = getrf_array(a)
     elif method == MethodLU.CALU:
@@ -571,9 +572,9 @@ def gesv_array(a: torch.Tensor, b: torch.Tensor, method: MethodLU = MethodLU.Par
     elif method == MethodLU.NoPiv:
         f = getrf_nopiv_array(a)
     elif method == MethodLU.RBT:
-        raise NotImplementedError(
-            "gesv_array: MethodLU.RBT (the random butterfly transform) comes with slice 7 "
-            "(linalg/rbt.py); use PartialPiv, CALU or NoPiv")
+        from .rbt import gesv_rbt_array
+
+        return gesv_rbt_array(a, b)
     else:
         raise ValueError(method)
     return getrs_array(f, b), f

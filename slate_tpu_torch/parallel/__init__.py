@@ -20,7 +20,21 @@ Ozaki residual gemm_summa_ozaki, norm_dist).  The other mesh drivers come
 with their slices."""
 
 from .mesh import COL_AXIS, ROW_AXIS, VirtualMesh, make_mesh, mesh_shape
-from .dist import DistMatrix, empty_like, from_dense, local_view, padded_tiles, to_dense
+from .dist import (
+    REDIST_IMPLS,
+    DistMatrix,
+    empty_like,
+    fresh_pad_diag_range,
+    from_dense,
+    from_dense_nonuniform,
+    local_view,
+    padded_tiles,
+    redistribute,
+    redistribute_nonuniform,
+    redistribute_wire_bytes,
+    to_dense,
+    to_dense_nonuniform,
+)
 from .summa import OzakiSplit, gemm_summa, gemm_summa_ozaki, ozaki_presplit, ozaki_presplit_cached
 from .dist_chol import pbtrf_band_dist, potrf_dist
 from .dist_blas3 import hemm_summa, her2k_dist, syr2k_dist, transpose_dist, trmm_dist

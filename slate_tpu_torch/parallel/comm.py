@@ -160,6 +160,24 @@ def psum_scatter_a(x: torch.Tensor, axis_name: str, size: int,
     return s.movedim(1 + scatter_dimension, d)
 
 
+def ppermute_a(x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+    """Audited ppermute over ``axis``: device ``t`` of the axis receives
+    device ``s``'s payload for every pair ``(s, t)`` of ``perm``, and a
+    device no pair targets receives zeros (``lax.ppermute``).  ``x`` holds
+    every device's payload along the axis.  Records the bytes crossing
+    links, payload x pairs, as ``slate_tpu``'s ``ppermute_a`` does."""
+    _rec_hop(f"ppermute[{axis}]", x, len(perm))
+    d = _GRID_DIM[axis]
+    src = [None] * x.shape[d]
+    for s, t in perm:
+        src[int(t)] = int(s)
+    out = x.index_select(d, torch.tensor([s or 0 for s in src], device=x.device))
+    idle = [t for t, s in enumerate(src) if s is None]
+    if idle:
+        out.index_fill_(d, torch.tensor(idle, device=x.device), 0)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Option.BcastImpl: the rooted-broadcast lowering and its hop schedules
 # ---------------------------------------------------------------------------

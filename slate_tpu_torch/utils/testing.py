@@ -18,8 +18,9 @@ and ``matmul_split6_model`` model its f32 form, ``matmul_split6_reading``
 holds it to them), ``tile_stack_at`` / ``tile_special_stack`` build the
 tile kernels' stacks at any word offset, with NaN, +-inf, -0.0 and
 subnormals placed against their 16-byte vectors, ``tile_bits_equal`` /
-``tile_max_equal`` compare their results as words, and
-``refine_gate_ok`` a solve to the mixed-precision refinement's gate.
+``tile_max_equal`` compare their results as words,
+``refine_gate_ok`` a solve to the mixed-precision refinement's gate, and
+``gtsv_swaps`` replays the tridiagonal solve's pivot decisions.
 """
 
 from __future__ import annotations
@@ -738,3 +739,20 @@ def tile_max_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     itype = TILE_WORDS[got.dtype][0]
     return (got.shape == want.shape and torch.equal(nan, torch.isnan(want))
             and torch.equal(got.view(itype)[~nan], want.view(itype)[~nan]))
+
+
+def gtsv_swaps(dl, d, du) -> list:
+    """Which of ``gtsv_array``'s n - 1 elimination steps swap rows k and
+    k + 1 (|l_k| > |U(k, k)| strictly), replayed on the host in Python
+    numbers from the three diagonals (sequences of real or complex)."""
+    n = len(d)
+    row = [d[0], du[0] if n > 1 else 0]
+    out = []
+    for k in range(n - 1):
+        nxt = [dl[k], d[k + 1], du[k + 1] if k + 1 < n - 1 else 0]
+        swap = abs(nxt[0]) > abs(row[0])
+        top, bot = (nxt, row + [0]) if swap else (row + [0], nxt)
+        m = bot[0] / (top[0] if top[0] != 0 else 1)
+        row = [bot[1] - m * top[1], bot[2] - m * top[2]]
+        out.append(swap)
+    return out

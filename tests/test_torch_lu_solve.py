@@ -7,8 +7,9 @@ packages: ``slate_tpu``'s ``LUFactors`` carried into the port by
 ``utils.testing.lufactors_from_numpy``.  Each solution passes the normwise
 gate eta < 100 n eps and the componentwise omega < 10 sqrt(n) eps (the
 residual in f64 / c128); the two packages' solutions agree to 100 n eps
-max|x|.  ``gesv_array`` for every MethodLU but RBT (which raises until its
-slice), with perm and info bitwise; ``getri_oop_array``; ``trtri_array``
+max|x|.  ``gesv_array`` for every MethodLU, with perm and info bitwise (RBT, whose
+butterflies are random in each package: the solve gates, agreement within
+100 n eps kappa and its RBTFactors); ``getri_oop_array``; ``trtri_array``
 and ``trtrm_array`` across the recursion; and the api's LU verbs with the
 device rule.
 """
@@ -99,12 +100,36 @@ def test_gesv_methods_match_jax(method, dtype):
     assert np.abs(xt.numpy() - np.asarray(xj)).max() <= 100 * N * eps * np.abs(np.asarray(xj)).max()
 
 
-def test_gesv_rbt_raises_until_its_slice():
-    a, b = _operands(np.float64, 7)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tlu.gesv_array(torch.from_numpy(a), torch.from_numpy(b), MethodLU.RBT)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tapi.lu_solve(torch.from_numpy(a), torch.from_numpy(b), MethodLU.RBT)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_gesv_rbt_method_matches_jax(dtype):
+    """MethodLU.RBT solves through linalg.rbt in both packages, each with
+    its own random butterflies: both pass the solve gates, agree to
+    100 n eps kappa max|x|, and return RBTFactors that solve a fresh
+    right-hand side against the original A."""
+    from slate_tpu_torch.linalg.rbt import RBTFactors
+
+    a, b = _operands(dtype, 7)
+    xj, fj = jlu.gesv_array(jnp.asarray(a), jnp.asarray(b), JMethod.RBT)
+    xt, ft = tlu.gesv_array(torch.from_numpy(a), torch.from_numpy(b), MethodLU.RBT)
+    assert isinstance(ft, RBTFactors) and type(fj).__name__ == "RBTFactors"
+    assert int(ft.info) == int(fj.info) == 0
+    eta, _ = _gates(a, xt.numpy(), b)
+    assert eta < 1, eta
+    eps, kappa = _eps(dtype), np.linalg.cond(a.astype(np.float64))
+    xj = np.asarray(xj)
+    assert np.abs(xt.numpy() - xj).max() <= 100 * N * eps * kappa * np.abs(xj).max()
+    b2 = generate("rands", N, 2, dtype=dtype, seed=9)
+    assert _gates(a, ft.solve(torch.from_numpy(b2)).numpy(), b2)[0] < 1
+
+
+def test_lu_solve_rbt_matches_jax():
+    a, b = _operands(np.float64, 8)
+    xt = tapi.lu_solve(torch.from_numpy(a), torch.from_numpy(b), MethodLU.RBT)
+    xj = np.asarray(japi.lu_solve(jnp.asarray(a), jnp.asarray(b), JMethod.RBT))
+    assert xt.device.type == "cpu" and xt.shape == b.shape
+    assert _gates(a, xt.numpy(), b)[0] < 1
+    assert np.abs(xt.numpy() - xj).max() <= 100 * N * _eps(np.float64) * np.linalg.cond(a) \
+        * np.abs(xj).max()
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])
