@@ -264,10 +264,29 @@ printing one JSON line before the next starts (any failure exits non-zero):
    100 n eps, chol_panel_tiles / chol_trailing_update launches derived by
    expected_potrf_launches; then slice7b_seconds: the three phases' own
    seconds and their sum beside the 30 s budget;
-49. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+49. ckpt_mesh (2 x 4, nb = 256, after a warm-up chain at n = 1024):
+   potrf_ckpt f32 n = 16384 every 16 steps, getrf_nopiv_ckpt f32 16384
+   (uniform[-1, 1) + n I) every 16, getrf_pp_ckpt f32 1024 every 3,
+   geqrf_ckpt f32 8192 x 4096 every 4 and he2hb_ckpt f32 4096 every 4:
+   the chain bitwise the plain driver, its launches derived by
+   expected_ckpt_launches (every step in the strict schedule) and its
+   snapshot count; a seeded kill in the second segment (the lost steps
+   exact) and the same-mesh resume bitwise, the kill + resume launches
+   the chain's; for the three tile-stack ops the 2 x 4 -> 4 x 2 resume
+   bitwise (pp's perm too), the ring's audited bytes
+   redistribute_wire_bytes, info 0 and eta < 100 n eps through the two
+   trsm_dist sweeps; for geqrf / he2hb the refusal of the 4 x 2 grid;
+   potrf's in-segment kill (lost steps kill.k - 16, launches the chain's
+   plus the re-run steps') and async snapshots (the chain bitwise, the
+   killed run's snapshot bitwise the sync one); pp's disk round trip;
+   plain and chain seconds (the overhead), resume seconds and peak
+   memory, and one sync and one async snapshot timed alone (seconds and
+   GB/s to the host, bitwise each other); then slice9b_seconds: each
+   op's seconds and their sum beside the 15 s budget, with the card line;
+50. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
    stedc_dist, heev_chain, the LU panel_pallas half; n = 64, nb = 8,
    2 x 4);
-50. total: the script's seconds; then kernels: the line of every ported
+51. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
@@ -278,7 +297,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
    posv (summa_update's f32 row its non-uniform gemm), chol_diag_inv's f32
    row its posv and phase 44 launches, and the qr_panel_offset rows
    those of phases 39, 40, 42 and 46 beside the mesh gels' and, under
-   ``at_he2hb_panel``, phase 41's readings), then the card line and, last,
+   ``at_he2hb_panel``, phase 41's readings; the f32 rows of the kernels
+   phase 49 reaches add its chains' launches under ``<op>_ckpt``), then
+   the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -4577,6 +4598,299 @@ def redistribute_mesh_phase(kernels, mp, bucket_plan, torch):
     return {"summa_update": gemm_launches, **{k: counts[k] for k in want}}
 
 
+# slice 9b: checkpoint and restart on the virtual 2 x 4 mesh at nb = 256.
+# Each (op, size, every) runs the plain driver, the checkpointed chain, a
+# seeded kill in the second segment with its resumes, and the op's own
+# checks; the phase's seconds are held to CKPT_BUDGET_S.  The pp loop is a
+# host-bound column loop (~0.26 s a step of 256 columns on the H100's
+# host): at pp 2048 the phase read 22.5 s (pp 7.24 s of it; the potrf and
+# nopiv resumes' host permutation, 1.6-1.9 s each, has since moved to the
+# card), so pp is cut to 1024 (4 steps: its second segment is step 3).
+CKPT_CASES = (("potrf", (16384, 16384), 16), ("getrf_nopiv", (16384, 16384), 16),
+              ("getrf_pp", (1024, 1024), 3), ("geqrf", (8192, 4096), 4),
+              ("he2hb", (4096, 4096), 4))
+CKPT_WARMUP_N = 1024
+CKPT_SEED = 90
+CKPT_BUDGET_S = 15.0
+
+
+def expected_ckpt_launches(op, steps):
+    """Launches of a checkpointed chain's ``steps`` steps, derived from its
+    segments: every step runs in the strict schedule (lookahead 0), so it
+    has one panel launch and, for potrf and the no-pivot LU, one whole
+    trailing update (no narrow refresh, no drain); pp solves its panel row
+    only (its update is pinned to the matmul form); geqrf factors the owning
+    column's p panels in one offset launch and merges them in p - 1;
+    he2hb factors one replicated panel a step."""
+    return {"potrf": {"chol_panel_tiles": steps, "chol_trailing_update": steps},
+            "getrf_nopiv": {"lu_panel_tiles": steps, "lu_rowsolve_tiles": steps,
+                            "lu_trailing_update": steps},
+            "getrf_pp": {"lu_rowsolve_tiles": steps},
+            "geqrf": {"qr_panel_offset": steps, "qr_panel": steps * (P - 1)},
+            "he2hb": {"qr_panel_offset": steps}}[op]
+
+
+def ckpt_operand(op, shape, seed, mesh, mp, torch):
+    """(dense A, its DistMatrix) for ``op``: SPD, uniform[-1, 1) + n I,
+    uniform[-1, 1), Gaussian, symmetric Gaussian."""
+    m, n = shape
+    dtype = torch.float32
+    if op == "potrf":
+        a = dominant_spd(n, dtype, seed, torch)
+    elif op in ("getrf_nopiv", "getrf_pp"):
+        a = lu_matrix("nopiv" if op == "getrf_nopiv" else "pp", n, dtype, seed, torch)
+    elif op == "geqrf":
+        a = randn((m, n), dtype, seed, torch)
+    else:
+        a = sym_operand(n, dtype, seed, torch)
+    return a, mp.from_dense(a, mesh, NB, diag_pad_one=op in ("potrf", "getrf_nopiv", "getrf_pp"))
+
+
+def ckpt_bitwise(ref, got, torch):
+    from slate_tpu_torch.ft.ckpt_smoke import result_tensors
+
+    return all(torch.equal(r, g) for r, g in zip(result_tensors(ref), result_tensors(got)))
+
+
+def ckpt_solve_eta(op, a, fac, mp, mesh, torch):
+    """eta of the factor's solve (two trsm_dist sweeps; pp permutes B
+    first) on 32 Gaussian right-hand sides."""
+    from slate_tpu_torch.types import Diag, Op, Uplo
+
+    n = a.shape[0]
+    b = randn((n, NRHS), a.dtype, SEED + 95, torch)
+    bd = mp.from_dense(b, mesh, NB)
+    f = fac[0]
+    if op == "potrf":
+        y = mp.trsm_dist(f, bd, Uplo.Lower, Op.NoTrans)
+        x = mp.trsm_dist(f, y, Uplo.Lower, Op.ConjTrans)
+    else:
+        if op == "getrf_pp":
+            bd = mp.permute_rows_dist(bd, fac[1])
+        y = mp.trsm_dist(f, bd, Uplo.Lower, Op.NoTrans, Diag.Unit)
+        x = mp.trsm_dist(f, y, Uplo.Upper, Op.NoTrans)
+    return eta(a, mp.to_dense(x), b, torch)
+
+
+def ckpt_snapshot_rates(op, d, every, torch):
+    """One sync and one async snapshot of ``op``'s carry over ``d`` (the
+    functions the chain calls at a boundary), timed alone: seconds and
+    GB/s to the host; for the async one the host's time to issue it (the
+    device clone and the copy's launch, no device sync) beside the time
+    from issue to its fence; the two snapshots bitwise."""
+    import numpy as np
+    from slate_tpu_torch.ft import ckpt
+
+    st = ckpt._carry_init(op, d)
+    args = (op, d, st, every, every, "auto", "auto")
+    sync, s_sec = timed(lambda: ckpt._snapshot(*args), torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pend = ckpt._PendingSnapshot(*args, False, True)
+    issue_sec = time.perf_counter() - t0
+    asnap = pend.wait()
+    total_sec = time.perf_counter() - t0
+    same = all(np.array_equal(x, y) for x, y in
+               [(sync.tiles, asnap.tiles)] + [(sync.arrays[k], asnap.arrays[k]) for k in sync.arrays])
+    nbytes = sync.nbytes
+    return {"bytes": nbytes, "sync_seconds": s_sec, "sync_gb_s": nbytes / s_sec / 1e9,
+            "async_issue_seconds": issue_sec, "async_issue_to_fence_seconds": total_sec,
+            "async_gb_s": nbytes / total_sec / 1e9, "bitwise": same}
+
+
+def ckpt_kill(op, fn, k, in_segment=False):
+    from slate_tpu_torch.ft import ckpt, inject
+
+    try:
+        with inject.fault_scope(inject.FaultPlan([inject.KillFault(op, k, in_segment=in_segment)])):
+            fn()
+    except ckpt.Preempted as e:
+        return e.checkpoint
+    fail(f"ckpt {op}: no Preempted at an armed kill at step {k}")
+
+
+def ckpt_counts_add(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def ckpt_op_phase(op, shape, every, kernels, mp, m24, m42, torch):
+    """One op's checks on the card: the chain bitwise the plain driver with
+    its launches derived; a seeded kill in the second segment and the
+    same-mesh resume bitwise, the kill + resume launches the chain's; for
+    the tile-stack ops the 2 x 4 -> 4 x 2 resume bitwise with the ring's
+    audited bytes ``redistribute_wire_bytes``, for the multi-array ops its
+    refusal; potrf's in-segment kill (lost steps exact, launches the
+    chain's plus the re-run steps') and async snapshots (bitwise the sync
+    ones); pp's disk round trip; info 0 and eta < 100 n eps for the
+    factors' solves; snapshot rates, seconds and peak memory."""
+    import tempfile
+    from slate_tpu_torch.ft import ckpt, elastic, inject
+    from slate_tpu_torch.ft.policy import ft_counter_values
+    from slate_tpu_torch.linalg.eig import _he2hb_panel_count
+    from slate_tpu_torch.parallel import comm
+    from slate_tpu_torch.types import SlateError
+
+    plain = {"potrf": mp.potrf_dist, "getrf_nopiv": mp.getrf_nopiv_dist,
+             "getrf_pp": mp.getrf_pp_dist, "geqrf": mp.geqrf_dist, "he2hb": mp.he2hb_dist}[op]
+    chained = getattr(ckpt, f"{op}_ckpt")
+    m, n = shape
+    a, d = ckpt_operand(op, shape, CKPT_SEED + len(op), m24, mp, torch)
+    steps = _he2hb_panel_count(n, NB) if op == "he2hb" else d.nt
+    want = expected_ckpt_launches(op, steps)
+    out = {"phase": f"ckpt_mesh_{op}", "m": m, "n": n, "nb": NB, "grid": [P, Q], "every": every,
+           "steps": steps}
+    multi = op in ("geqrf", "he2hb")
+
+    def counted(fn):
+        reset_counts(kernels)
+        res, seconds = timed(fn, torch)
+        return res, seconds, {k: read_counts(kernels)[k] for k in want}
+
+    ref, out["plain_seconds"] = timed(lambda: plain(d), torch)
+    c0 = ft_counter_values()
+    got, out["chain_seconds"], chain_counts = counted(lambda: chained(d, every=every))
+    c1 = ft_counter_values()
+    out["chain_overhead"] = out["chain_seconds"] / out["plain_seconds"] - 1
+    out["chain_snapshots"] = c1["ckpt_snapshots"] - c0["ckpt_snapshots"]
+    out["chain_snapshot_bytes"] = c1["ckpt_snapshot_bytes"] - c0["ckpt_snapshot_bytes"]
+    out["launches"], out["derived"] = chain_counts, want
+    out["chain_bitwise"] = ckpt_bitwise(ref, got, torch)
+    check(out["chain_bitwise"], f"ckpt {op}: the chain is not bitwise the plain driver")
+    check(chain_counts == want, f"ckpt {op}: chain launches {chain_counts}, derived {want}")
+    check(out["chain_snapshots"] == (steps - 1) // every,
+          f"ckpt {op}: {out['chain_snapshots']} snapshots for {steps} steps every {every}")
+    del got
+    torch.cuda.empty_cache()
+
+    # a seeded kill in the second segment, then the same-mesh resume
+    kill_k = every + inject.seeded_kill(CKPT_SEED + steps, op, steps).k % min(every, steps - every)
+    c0 = ft_counter_values()
+    ck, kill_s, kill_counts = counted(lambda: ckpt_kill(op, lambda: chained(d, every=every), kill_k))
+    c1 = ft_counter_values()
+    out["kill"] = {"k": kill_k, "snapshot_step": ck.step, "seconds": kill_s,
+                   "lost_steps": c1["ckpt_lost_steps"] - c0["ckpt_lost_steps"]}
+    check(ck.step == every and out["kill"]["lost_steps"] == kill_k - every,
+          f"ckpt {op}: kill {out['kill']}")
+    if op == "getrf_pp":
+        # the disk round trip (the carry is 4 MiB here): the same-mesh
+        # resume reads the snapshot back from a temporary file
+        with tempfile.TemporaryDirectory() as td:
+            path = ck.save(f"{td}/ck.npz")
+            out["disk_bytes"] = os.path.getsize(path)
+            ck = ckpt.Checkpoint.load(path)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    res, out["resume_seconds"], res_counts = counted(lambda: elastic.resume(ck, m24))
+    out["resume_peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    out["resume_bitwise"] = ckpt_bitwise(ref, res, torch)
+    out["kill_resume_launches"] = ckpt_counts_add(kill_counts, res_counts)
+    check(out["resume_bitwise"], f"ckpt {op}: the same-mesh resume is not bitwise")
+    check(out["kill_resume_launches"] == want,
+          f"ckpt {op}: kill + resume launches {out['kill_resume_launches']}, derived {want}")
+
+    if multi:
+        try:
+            elastic.resume(ck, m42)
+            refused = False
+        except SlateError:
+            refused = True
+        out["reshaped_refused"] = refused
+        check(refused, f"ckpt {op}: a 4 x 2 resume of a grid-locked carry was not refused")
+    else:
+        reset_counts(kernels)
+        with comm.comm_audit() as recs:  # psum lowering: the ring's are the only hops
+            res2, r2_s = timed(lambda: elastic.resume(ck, m42, bcast_impl="psum"), torch)
+        r2_counts = {k: read_counts(kernels)[k] for k in want}
+        ring = sum(b * mult for name, b, mult in recs if name.startswith("ppermute"))
+        wire = mp.redistribute_wire_bytes(d.tiles.shape, P, Q, d.tiles.element_size())
+        same = bool(torch.equal(mp.to_dense(ref[0]), mp.to_dense(res2[0])))
+        out["reshaped"] = {"seconds": r2_s, "bitwise": same, "ring_audited_bytes": ring,
+                           "wire_bytes_formula": wire,
+                           "kill_resume_launches": ckpt_counts_add(kill_counts, r2_counts)}
+        check(same, f"ckpt {op}: the 2 x 4 -> 4 x 2 resume is not bitwise")
+        check(ring == wire, f"ckpt {op}: ring audited {ring} bytes, formula {wire}")
+        check(out["reshaped"]["kill_resume_launches"] == want,
+              f"ckpt {op}: 4 x 2 kill + resume launches {out['reshaped']}")
+        if op == "getrf_pp":
+            out["reshaped"]["perm_bitwise"] = bool(torch.equal(ref[1][:n], res2[1][:n]))
+            check(out["reshaped"]["perm_bitwise"], "ckpt getrf_pp: the 4 x 2 perm differs")
+        del res2
+        info = int(ref[-1])
+        e, gate = ckpt_solve_eta(op, a, res, mp, m24, torch), 100 * n * torch.finfo(a.dtype).eps
+        out.update(info=info, eta=e, eta_gate=gate)
+        check(info == 0 and int(res[-1]) == 0, f"ckpt {op}: info {info} / {int(res[-1])}")
+        check(e < gate, f"ckpt {op}: eta {e} >= {gate}")
+    del res
+    torch.cuda.empty_cache()
+
+    if op == "potrf":
+        # an in-segment kill: the partial segment runs, then is lost
+        k_in = every + 1 + (kill_k % (every - 1))
+        c0 = ft_counter_values()
+        ck_in, _, in_counts = counted(
+            lambda: ckpt_kill(op, lambda: chained(d, every=every), k_in, in_segment=True))
+        c1 = ft_counter_values()
+        lost = c1["ckpt_lost_steps"] - c0["ckpt_lost_steps"]
+        res_in, _, rin_counts = counted(lambda: elastic.resume(ck_in, m24))
+        rerun = {k: v + (k_in - every) for k, v in want.items()}
+        out["in_segment"] = {"k": k_in, "snapshot_step": ck_in.step, "lost_steps": lost,
+                             "inseg_kills": c1["ckpt_inseg_kills"] - c0["ckpt_inseg_kills"],
+                             "bitwise": ckpt_bitwise(ref, res_in, torch),
+                             "launches": ckpt_counts_add(in_counts, rin_counts), "derived": rerun}
+        check(lost == k_in - ck_in.step and out["in_segment"]["inseg_kills"] == 1
+              and out["in_segment"]["bitwise"] and out["in_segment"]["launches"] == rerun,
+              f"ckpt potrf in-segment kill: {out['in_segment']}")
+        del res_in, ck_in
+        # async snapshots: the chain bitwise, the killed run's snapshot
+        # bitwise the sync one
+        c0 = ft_counter_values()
+        ga, a_s = timed(lambda: chained(d, every=every, async_snapshots=True), torch)
+        c1 = ft_counter_values()
+        ck_a = ckpt_kill(op, lambda: chained(d, every=every, async_snapshots=True), kill_k)
+        out["async"] = {"chain_seconds": a_s, "bitwise": ckpt_bitwise(ref, ga, torch),
+                        "async_snapshots": c1["ckpt_async_snapshots"] - c0["ckpt_async_snapshots"],
+                        "overlap_s": c1["ckpt_async_overlap_s"] - c0["ckpt_async_overlap_s"],
+                        "snapshot_bitwise": bool((ck_a.tiles == ck.tiles).all())
+                        and ck_a.step == ck.step}
+        check(out["async"]["bitwise"] and out["async"]["snapshot_bitwise"]
+              and out["async"]["async_snapshots"] == (steps - 1) // every,
+              f"ckpt potrf async: {out['async']}")
+        del ga, ck_a
+    del ck, ref
+    torch.cuda.empty_cache()
+    out["snapshot"] = ckpt_snapshot_rates(op, d, every, torch)
+    check(out["snapshot"]["bitwise"], f"ckpt {op}: async snapshot differs from sync")
+    del a, d
+    torch.cuda.empty_cache()
+    emit(out)
+    return chain_counts
+
+
+def ckpt_mesh_phase(kernels, mp, smi_line, torch):
+    """Slice 9b on the card: ckpt_op_phase for every (op, size, every) of
+    CKPT_CASES after a warm-up chain (sync and async) at n = 1024; returns
+    the chains' launches and the phase's seconds per op."""
+    from slate_tpu_torch.ft import ckpt
+
+    m24, m42 = mp.make_mesh(P, Q, device="cuda"), mp.make_mesh(Q, P, device="cuda")
+    seconds = {}
+    t0 = time.perf_counter()
+    w = mp.from_dense(dominant_spd(CKPT_WARMUP_N, torch.float32, CKPT_SEED, torch), m24, NB,
+                      diag_pad_one=True)
+    for asnap in (False, True):
+        ckpt.potrf_ckpt(w, every=1, async_snapshots=asnap)  # pinned buffers, the side stream
+    del w
+    seconds["warmup"] = time.perf_counter() - t0
+    launches = {}
+    for op, shape, every in CKPT_CASES:
+        t0 = time.perf_counter()
+        launches[op] = ckpt_op_phase(op, shape, every, kernels, mp, m24, m42, torch)
+        seconds[op] = time.perf_counter() - t0
+    emit({"phase": "slice9b_seconds", **seconds, "sum": sum(seconds.values()),
+          "budget": CKPT_BUDGET_S, "card": smi_line})
+    return launches
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -4821,10 +5135,24 @@ def main():
         row.setdefault("launches_by_path", {"mesh_gemm" if name == "summa_update" else "mesh_posv":
                                             row["launches"]})[path] = nonuni[name]
 
-    # 49. the dryrun
+    # 49. slice 9b: checkpoint and restart.  The chains' launches join the
+    # f32 rows of the kernels they reach (rows 6-10, 12, 13)
+    ckpt_launches = ckpt_mesh_phase(kernels, mp, smi_line, torch)
+    main_path = {"chol_panel_tiles": "mesh_posv", "chol_trailing_update": "mesh_posv",
+                 "lu_panel_tiles": "mesh_gesv_nopiv", "lu_rowsolve_tiles": "mesh_gesv_nopiv",
+                 "lu_trailing_update": "mesh_gesv_nopiv", "qr_panel": "gels",
+                 "qr_panel_offset": "mesh_gels"}
+    by_name = {**mesh_rows, **lu_rows, **qr_rows}
+    for op, counts in ckpt_launches.items():
+        for name, got in counts.items():
+            row = by_name[(name, torch.float32)]
+            row.setdefault("launches_by_path", {main_path[name]: row["launches"]})[f"{op}_ckpt"] = got
+            check(got, f"{row['name']}: no launch on {op}_ckpt")
+
+    # 50. the dryrun
     dryrun_phase()
 
-    # 50. the script's seconds, kernels line, card line, result
+    # 51. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

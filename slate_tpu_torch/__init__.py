@@ -9,7 +9,8 @@ RBT solve (gesv_rbt), the tile operations, the mesh solvers
 (with the windowed band factors), redistribute and the non-uniform
 tiling, BLAS-3, inverses, estimators, eigen and
 SVD drivers on a virtual mesh, the ABFT
-layer, and hand-written Hopper kernels for every Pallas kernel on those
+layer, checkpoint and restart of the mesh factorizations (``ft.ckpt``,
+``ft.elastic``), and hand-written Hopper kernels for every Pallas kernel on those
 paths (``ops/kernels.py``, ``csrc/*.cu``).  Entry points compute on the
 tensors' device: pass CUDA tensors for the card, CPU tensors for the plain
 twins; other operands go to the card unless ``device`` says otherwise.
@@ -42,7 +43,8 @@ from .core import (
     TriangularMatrix,
 )
 from .blas3 import gbmm, gemm, hbmm, hemm, her2k, herk, symm, syr2k, syrk, tbsm, trmm, trsm
-from . import api, linalg, ops
+from . import api, ft, linalg, ops
+from .ft import Checkpoint, Preempted, reshard, resumable, resume
 from .linalg import (
     gecondest,
     gesv_array,

@@ -20,9 +20,13 @@ generalized to full factorizations by Du, Bosilca & Dongarra (PPoPP 2012).
   the ``ft.*`` counters.
 - ``python -m slate_tpu_torch.ft.smoke`` is the acceptance run: one
   injected fault per op class on the virtual 2 x 4 mesh.
-
-``slate_tpu``'s checkpoint/restart (``ft.ckpt``, ``ft.elastic``) comes
-with a later PR.
+- ``ckpt``: the checkpointed mesh k-loops (``potrf_ckpt``,
+  ``getrf_nopiv_ckpt``, ``getrf_pp_ckpt``, ``geqrf_ckpt``, ``he2hb_ckpt``)
+  as segment chains with host snapshots (``Checkpoint``), ``Preempted`` at
+  an injected ``KillFault``; ``Option.Checkpoint`` in the mesh drivers.
+- ``elastic``: ``resume`` a snapshot on the same or a reshaped mesh,
+  ``reshard`` a live matrix.  ``python -m slate_tpu_torch.ft.ckpt_smoke``
+  is their acceptance run.
 """
 
 from .policy import (  # noqa: F401
@@ -39,6 +43,16 @@ from .inject import (  # noqa: F401
     fault_scope,
     seeded_kill,
 )
+from .ckpt import (  # noqa: F401
+    Checkpoint,
+    Preempted,
+    geqrf_ckpt,
+    getrf_nopiv_ckpt,
+    getrf_pp_ckpt,
+    he2hb_ckpt,
+    potrf_ckpt,
+)
+from .elastic import reshard, resumable, resume  # noqa: F401
 
 __all__ = [
     "FtError",
@@ -51,4 +65,14 @@ __all__ = [
     "KillFault",
     "fault_scope",
     "seeded_kill",
+    "Checkpoint",
+    "Preempted",
+    "geqrf_ckpt",
+    "getrf_nopiv_ckpt",
+    "getrf_pp_ckpt",
+    "he2hb_ckpt",
+    "potrf_ckpt",
+    "reshard",
+    "resumable",
+    "resume",
 ]

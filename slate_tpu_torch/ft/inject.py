@@ -74,8 +74,8 @@ class KillFault:
     """Host-level preemption fault: the machine dies at k-loop step ``k``.
 
     Unlike ``Fault`` (a data corruption lowered into the kernel spec),
-    a kill never enters a kernel — ``slate_tpu``'s checkpointed drivers
-    (``ft/ckpt.py``, not ported yet) consult the active plan between
+    a kill never enters a kernel — the checkpointed drivers
+    (``ft/ckpt.py``) consult the active plan between
     segment dispatches and raise ``Preempted``, losing exactly the
     (unsnapshotted) steps a real preemption would.  ``persist=False`` models a one-shot
     preemption: the resumed run executes clean.  ``persist=True``

@@ -95,9 +95,7 @@ def resolve_policy(opts: Optional[Options]) -> FtPolicy:
 
 _COUNTERS = (
     "ft.detected", "ft.corrected", "ft.recomputed", "ft.uncorrectable",
-    # the checkpoint/restart counters of slate_tpu's ft/ckpt.py and
-    # ft/elastic.py, kept so the keys match; nothing in the port counts
-    # them until checkpointing is ported
+    # the checkpoint/restart counters of ft/ckpt.py and ft/elastic.py
     "ft.ckpt_snapshots", "ft.ckpt_snapshot_bytes", "ft.ckpt_kills",
     "ft.ckpt_lost_steps", "ft.ckpt_resumes", "ft.ckpt_reshards",
     "ft.ckpt_redistribute_bytes", "ft.ckpt_resume_runtime_s",

@@ -198,19 +198,32 @@ def _phases(p, q, i_log, j_log, roff, coff, cplx):
     return panel, narrow, bulk
 
 
-def _potrf_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int) -> None:
+def bucket_spans(nt: int, p: int, q: int, k0: int = 0, k1: Optional[int] = None):
+    """The steps [k0, k1) cut by ``comm.bucket_plan``: (ka, kb, s0r, s0c) for
+    every bucket they meet, each span on its bucket's trailing window."""
+    k1 = nt if k1 is None else k1
+    for b0, b1, s0r, s0c in bucket_plan(nt, p, q):
+        ka, kb = max(b0, k0), min(b1, k1)
+        if ka < kb:
+            yield ka, kb, s0r, s0c
+
+
+def _potrf_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
+                 k1: Optional[int] = None) -> None:
     """The bucketed, pipelined k-loop of ``slate_tpu``'s ``_potrf_jit``, in
-    place on the cyclic tile stack ``t``."""
+    place on the cyclic tile stack ``t``; steps [k0, k1) of it (the
+    checkpointed chain's segments, ``ft.ckpt``), each on the window of the
+    bucket that holds it."""
     loc = local_view(t, p, q)  # (p, q, mtl, ntl, nb, nb)
     mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
     cplx = t.is_complex()
-    for k0, k1, s0r, s0c in bucket_plan(nt, p, q):
+    for ka, kb, s0r, s0c in bucket_spans(nt, p, q, k0, k1):
         view = loc[:, :, s0r:, s0c:]
         _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device, s0r, s0c)
         panel, narrow, bulk = _phases(p, q, i_log, j_log, s0r, s0c, cplx)
         zero_pl = (torch.zeros((1, 1, mtl - s0r, nb, nb), dtype=t.dtype, device=t.device),
                    torch.zeros((1, 1, ntl - s0c, nb, nb), dtype=t.dtype, device=t.device))
-        pipelined_factor_loop(k0, k1, la, panel, narrow, bulk, view, zero_pl)
+        pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, zero_pl)
 
 
 # ---------------------------------------------------------------------------

@@ -73,7 +73,6 @@ from .comm import (
     bcast_from_col,
     bcast_from_row,
     bcast_impl_scope,
-    bucket_plan,
     la_depth,
     local_indices,
     pipelined_factor_loop,
@@ -81,7 +80,13 @@ from .comm import (
     resolve_bcast_impl,
 )
 from .dist import DistMatrix, local_view
-from .dist_chol import _BandWindows, _check_num_monitor, _tile_products, _window_index
+from .dist_chol import (
+    _BandWindows,
+    _check_num_monitor,
+    _tile_products,
+    _window_index,
+    bucket_spans,
+)
 from .mesh import mesh_shape
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -298,14 +303,15 @@ def getrf_nopiv_dist(
     return DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True), info
 
 
-def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int) -> None:
+def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
+                       k1: Optional[int] = None) -> None:
     """The bucketed, pipelined k-loop of ``slate_tpu``'s ``_lu_jit``, in
     place on the cyclic tile stack ``t``: each bucket runs on a statically
     smaller trailing window, and the deferred update drains at the bucket's
-    end."""
+    end.  Steps [k0, k1) of it for the checkpointed chain (``ft.ckpt``)."""
     loc = local_view(t, p, q)
     mtl, ntl = loc.shape[2], loc.shape[3]
-    for k0, k1, s0r, s0c in bucket_plan(nt, p, q):
+    for ka, kb, s0r, s0c in bucket_spans(nt, p, q, k0, k1):
         view = loc[:, :, s0r:, s0c:]
         _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device, s0r, s0c)
 
@@ -320,7 +326,7 @@ def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int) -> Non
                 return _nopiv_bulk(v, upd)
             return _nopiv_bulk(v, upd, k // p - s0r, k // q - s0c)
 
-        pipelined_factor_loop(k0, k1, la, panel, narrow, bulk, view, None)
+        pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, None)
 
 
 # ---------------------------------------------------------------------------
@@ -593,33 +599,53 @@ def _pp_apply_swaps(loc, rowperm, flat, piv, k, p, q, nt, slots, cols):
     loc[pi, k % q, slots, k // q] = flat.view(p, -1, nb, nb)
 
 
-def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) -> np.ndarray:
+class _PPGeometry:
+    """The dense partial-pivot loop's fixed indices on the local view: the
+    logical tile indices, the global row ids, and the whole height and
+    width as the band factor's windows (unwindowed)."""
+
+    def __init__(self, loc: torch.Tensor, p: int, q: int, nt: int):
+        mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
+        dev = loc.device
+        _, _, self.i_log, self.j_log = local_indices(p, q, mtl, ntl, dev)
+        self.gids = _flat_gids(self.i_log, nb)
+        self.rows, self.cols = _all_slots(p, mtl, dev), _all_slots(q, ntl, dev)
+        tslot = _tile_slots(np.zeros(p, np.int64), nt, p, mtl)
+        self.win = (self.rows, torch.from_numpy(tslot).to(dev), tslot)
+
+
+def _pp_strict_steps(t: torch.Tensor, rowperm: np.ndarray, p: int, q: int, nt: int, m_true: int,
+                     k0: int, k1: int) -> None:
+    """Steps [k0, k1) of the partial-pivot loop in the strict schedule, in
+    place on the cyclic tile stack and the host ``rowperm``: the lookahead-0
+    form of :func:`_pp_tiles` and the checkpointed chain's segments
+    (``ft.ckpt``)."""
     loc = local_view(t, p, q)
-    mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
-    _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device)
-    gids = _flat_gids(i_log, nb)
-    dev = t.device
-    # the whole height and width: the band factor's windows, unwindowed
-    rows, cols = _all_slots(p, mtl, dev), _all_slots(q, ntl, dev)
-    tslot = _tile_slots(np.zeros(p, np.int64), nt, p, mtl)
-    win = (rows, torch.from_numpy(tslot).to(dev), tslot)
+    g = _PPGeometry(loc, p, q, nt)
+    for k in range(k0, k1):
+        flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, g.gids, g.win)
+        _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, g.rows, g.cols)
+        _nopiv_step(loc, k, p, q, g.i_log, g.j_log, panel_done=True)
+
+
+def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) -> np.ndarray:
+    nb = t.shape[-1]
     rowperm = np.arange(nt * nb)
     if la <= 0:
-        for k in range(nt):
-            flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids, win)
-            _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, rows, cols)
-            _nopiv_step(loc, k, p, q, i_log, j_log, panel_done=True)
+        _pp_strict_steps(t, rowperm, p, q, nt, m_true, 0, nt)
         return rowperm
+    loc = local_view(t, p, q)
+    g = _PPGeometry(loc, p, q, nt)
     # lookahead (getrf.cc's panel/update overlap): refresh the panel column,
     # factor it with pivoting, land the rest of the deferred update, then
     # swap full rows, solve the panel row and defer this step's update
     upd = None
     for k in range(nt):
         _nopiv_narrow(loc, upd, k, p, q, with_row=False)
-        flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, gids, win)
+        flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, g.gids, g.win)
         _nopiv_bulk(loc, upd, excl_kc=k // q)
-        _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, rows, cols)
-        _, upd = _nopiv_panel(loc, k, p, q, i_log, j_log, panel_done=True)
+        _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, g.rows, g.cols)
+        _, upd = _nopiv_panel(loc, k, p, q, g.i_log, g.j_log, panel_done=True)
     _nopiv_bulk(loc, upd)
     return rowperm
 

@@ -38,8 +38,9 @@ Factor storage mirrors ``slate_tpu``: V packed below the R slots inside the
 tiles, the per-(mesh row, panel) T_loc stack, and the replicated tree
 factors.  ``unmqr_dist`` replays them against a conformal B.
 ``num_monitor="on"`` (the ``_qr_orth_loss`` gauge) and the flight recorder's
-step dispatch come with the observability slice; the checkpointed chain
-(``geqrf_ckpt``) with slice 9.
+step dispatch come with the observability slice.  The checkpointed chain
+(``ft.ckpt.geqrf_ckpt``) runs :func:`_qr_panel_step` over a step range on
+the same carry.
 """
 
 from __future__ import annotations

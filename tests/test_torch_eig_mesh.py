@@ -243,12 +243,15 @@ def test_heev_mesh_complex_and_fallback():
 
 
 def test_heev_mesh_refuses_what_is_not_ported(monkeypatch):
+    # Option.Checkpoint is ported (stage 1 through ft.ckpt.he2hb_ckpt):
+    # by option and by environment it gives the plain run's bits
     a = _t(_herm(16, 4))
-    with pytest.raises(NotImplementedError, match="Checkpoint"):
-        tp.heev_mesh(a, _tmesh(), nb=4, opts={tt.Option.Checkpoint: 2})
+    w0, z0 = tp.heev_mesh(a, _tmesh(), nb=4)
+    w1, z1 = tp.heev_mesh(a, _tmesh(), nb=4, opts={tt.Option.Checkpoint: 2})
+    assert torch.equal(w0, w1) and torch.equal(z0, z1)
     monkeypatch.setenv("SLATE_TPU_CKPT", "3")
-    with pytest.raises(NotImplementedError, match="Checkpoint"):
-        tp.heev_mesh(a, _tmesh(), nb=4)
+    w2, z2 = tp.heev_mesh(a, _tmesh(), nb=4)
+    assert torch.equal(w0, w2) and torch.equal(z0, z2)
     monkeypatch.delenv("SLATE_TPU_CKPT")
     with pytest.raises(NotImplementedError, match="num_monitor"):
         tp.heev_mesh(a, _tmesh(), nb=4, opts={tt.Option.NumMonitor: "on"})

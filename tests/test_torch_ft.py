@@ -235,8 +235,10 @@ def test_ft_and_checkpoint_refusals(ops64, monkeypatch):
     with pytest.raises(ValueError, match="cannot be combined"):
         jdrv.potrf_mesh(jnp.asarray(ops64["spd"]), _jmesh(), NB,
                         opts={JOption.FaultTolerance: "correct", JOption.Checkpoint: 2})
-    with pytest.raises(NotImplementedError, match="Checkpoint"):
-        tp.potrf_mesh(spd, mesh, NB, opts={TOption.Checkpoint: 2})
+    # Checkpoint alone is ported: the checkpointed chain, the plain bits
+    l0, info0 = tp.potrf_mesh(spd, mesh, NB)
+    l1, info1 = tp.potrf_mesh(spd, mesh, NB, opts={TOption.Checkpoint: 2})
+    assert torch.equal(l0.tiles, l1.tiles) and int(info0) == int(info1) == 0
     monkeypatch.setenv("SLATE_TPU_CKPT", "3")
     with pytest.raises(ValueError, match="cannot be combined"):
         tp.getrf_nopiv_mesh(_t(ops64["dd"]), mesh, NB, opts={TOption.FaultTolerance: "detect"})

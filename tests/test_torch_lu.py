@@ -346,16 +346,24 @@ def test_unported_options_raise(form, monkeypatch):
     a, _ = _operands(form, 64, np.float32)
     # FaultTolerance is ported: nopiv reroutes to the ABFT LU, the pivoted
     # forms have no ABFT form and run plain (both as slate_tpu); with
-    # Checkpoint it is refused as in slate_tpu
+    # Checkpoint it is refused as in slate_tpu.  Checkpoint alone routes
+    # nopiv and pp to their checkpointed chains (the plain bits); tntpiv
+    # has no checkpointed form and raises
     assert int(_T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.FaultTolerance: "detect"})[-1]) == 0
     with pytest.raises(ValueError, match="cannot be combined"):
         _T_GETRF[form](_t(a), _tmesh(), NB,
                        opts={tt.Option.FaultTolerance: "detect", tt.Option.Checkpoint: 4})
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        _T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.Checkpoint: 4})
-    monkeypatch.setenv("SLATE_TPU_CKPT", "2")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        _T_GETRF[form](_t(a), _tmesh(), NB)
+    plain = _T_GETRF[form](_t(a), _tmesh(), NB)
+    for opts, env in (({tt.Option.Checkpoint: 4}, None), (None, "2")):
+        if env:
+            monkeypatch.setenv("SLATE_TPU_CKPT", env)
+        if form == "tntpiv":
+            with pytest.raises(NotImplementedError, match="Checkpoint"):
+                _T_GETRF[form](_t(a), _tmesh(), NB, opts=opts)
+        else:
+            got = _T_GETRF[form](_t(a), _tmesh(), NB, opts=opts)
+            assert torch.equal(got[0].tiles, plain[0].tiles)
+            assert all(torch.equal(x, y) for x, y in zip(got[1:], plain[1:]))
     monkeypatch.delenv("SLATE_TPU_CKPT")
     with pytest.raises(NotImplementedError, match="observability slice"):
         _T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.NumMonitor: "on"})

@@ -226,11 +226,15 @@ def test_port_bitwise_across_lowerings_and_panel_impls():
 def test_options_and_refusals(monkeypatch):
     a, b = _operands(64, 40, np.float32)
     mesh = _tmesh()
-    with pytest.raises(NotImplementedError, match="Checkpoint"):
-        tp.geqrf_mesh(a, mesh, NB, opts={tt.Option.Checkpoint: 3})
+    # Option.Checkpoint is ported (ft.ckpt.geqrf_ckpt): the plain bits
+    f0 = tp.geqrf_mesh(a, mesh, NB)
+    f1 = tp.geqrf_mesh(a, mesh, NB, opts={tt.Option.Checkpoint: 3})
+    assert torch.equal(f0.fact.tiles, f1.fact.tiles)
+    assert all(torch.equal(x, y) for x, y in zip(f0[1:], f1[1:]))
+    x0 = tp.gels_mesh(a, b, mesh, NB)
     monkeypatch.setenv("SLATE_TPU_CKPT", "2")
-    with pytest.raises(NotImplementedError, match="Checkpoint"):
-        tp.gels_mesh(a, b, mesh, NB)
+    x1 = tp.gels_mesh(a, b, mesh, NB)
+    assert torch.equal(x0[0], x1[0]) and torch.equal(x0[1], x1[1])
     monkeypatch.delenv("SLATE_TPU_CKPT")
     with pytest.raises(NotImplementedError, match="num_monitor"):
         tp.geqrf_mesh(a, mesh, NB, opts={tt.Option.NumMonitor: "on"})
