@@ -8,7 +8,8 @@ printing one JSON line before the next starts (any failure exits non-zero):
 
 1. card:   device name, and the ``nvidia-smi`` name and power limit line;
 2. build:  every csrc/*.cu with nvcc into slate_tpu_torch/_build/, one nvcc
-           per source, all started together (seconds); then ptxas: each
+           per source, all started together, beside torch.profiler's
+           one-time start-up (seconds of each); then ptxas: each
            kernel's registers, spilled bytes and static shared memory from
            the build logs, and the matmul core's dynamic shared memory (a
            spill in tile_gemm, ft_summa_update, matmul or tile_ops fails);
@@ -114,7 +115,8 @@ printing one JSON line before the next starts (any failure exits non-zero):
 22. ft_drivers: posv_mesh and gesv_nopiv_mesh f32 at n = 16384 under
    FaultTolerance correct (eta, omega, info 0), and a persistent double
    fault raising FtError;
-23. ft_smoke: slate_tpu_torch.ft.smoke on the card (seven scenarios);
+23. ft_smoke: slate_tpu_torch.ft.smoke on the card (seven scenarios, then
+   its RunReport: valid, the ft section, --check against itself passing);
 24. mesh_invariants at n = 4096: bitwise across lookahead 0/1/2 and across
    the psum/ring/doubling lowerings, and the non-SPD info rule;
 25. lu_invariants at n = 4096: the no-pivot and partial-pivot solves
@@ -180,7 +182,8 @@ printing one JSON line before the next starts (any failure exits non-zero):
    against their twins at the inputs of their widest call in the measured
    posv (n = 16384) and gesv (n = 8192) auto runs, summa_update's f64 row
    taking the posv run's launches;
-35. mixed_smoke: slate_tpu_torch.parallel.mixed_smoke on the card;
+35. mixed_smoke: slate_tpu_torch.parallel.mixed_smoke on the card (with
+   its RunReport: valid, the ir section, --check against itself passing);
 36. mesh_blas3 f32 at n = 16384 and f64 at n = 8192 (2 x 4, nb = 256):
    hemm_summa Left under HemmC (B n x n) and HemmA (B n x 1024, the rule's
    pick), hemm_summa Right, her2k_dist full, trmm_dist Left lower,
@@ -197,15 +200,16 @@ printing one JSON line before the next starts (any failure exits non-zero):
    overhead, a seeded trailing fault corrected to 1e-12 max|C|) and f32
    n = 16384 (its action and floor ratio);
 39. eig_mesh: heev_mesh (2 x 4, nb = 64, vectors, the distributed
-   solver) f32 at n = 8192 and f64 at n = 2048 (cut from 4096: the chase
-   is a host-bound eager loop) on (G + G^T) / 2, after a
+   solver) f32 at n = 6144 (cut from 8192 to make room for the obs phase)
+   and f64 at n = 2048 (cut from 4096: the chase is a host-bound eager
+   loop) on (G + G^T) / 2, after a
    warm-up at n = 256: seconds, the split (he2hb_dist, gather_diagband +
    hb2st, stedc_dist, chase_apply_dist, unmtr_he2hb_dist), peak memory,
    _he2hb_panel_count qr_panel_offset launches; gates: max|A Z - Z W| /
    (max|A| n) and max|Z^T Z - I| < 100 n eps, w within n eps ||A||_2 of
    torch.linalg.eigvalsh in f64;
-40. svd_mesh: svd_mesh (2 x 4, nb = 64) f32 8192^2 and f64 2048^2 (cut
-   as eig_mesh's) on a
+40. svd_mesh: svd_mesh (2 x 4, nb = 64) f32 6144^2 (cut from 8192 to make
+   room for the obs phase) and f64 2048^2 (cut as eig_mesh's) on a
    Gaussian A: the same readings (the split: ge2tb_dist, gather_diagband +
    tb2bd, bdsqr, the two chase_apply_dist, unmbr_ge2tb_u_dist /
    _v_dist), nblocks + LQ-panel qr_panel_offset launches; gates:
@@ -283,10 +287,33 @@ printing one JSON line before the next starts (any failure exits non-zero):
    memory, and one sync and one async snapshot timed alone (seconds and
    GB/s to the host, bitwise each other); then slice9b_seconds: each
    op's seconds and their sum beside the 15 s budget, with the card line;
-50. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
-   stedc_dist, heev_chain, the LU panel_pallas half; n = 64, nb = 8,
-   2 x 4);
-51. total: the script's seconds; then kernels: the line of every ported
+   then ft.ckpt_smoke on the card, its RunReport valid and --check of it
+   against itself passing;
+50. obs (2 x 4, nb = 256, after a warm-up at n = 2048): posv_mesh f32 at
+   n = 32768 and its gemm_summa residual with obs off, then on: X and R
+   bitwise, the span tree (posv_mesh over potrf_mesh > potrf_dist and two
+   trsm_dist, gemm_summa beside it), each span's comm bytes equal to a
+   comm audit of the same call, seconds on and off, eta, the launches of
+   the obs-on run (and, equal, the obs-off run's) derived by
+   expected_potrf_launches; then obs.flight.run_flight for
+   potrf f32 n = 32768, summa, getrf_nopiv and trsm at 8192, geqrf
+   8192 x 4096 and he2hb 4096 (lookahead 1; the strict chains 0): each
+   flown result bitwise its plain driver, the rows and the launches of the
+   whole flight (plain, flown and the depth-0 contrast) derived from the
+   loops, overlap_eff 0 at depth
+   0 and in (0, 1] at depth 1 (0 for the strict chains), the model's bytes
+   equal to the measured ones and to a comm audit of the runs, the
+   FlightReport valid, the residual over 64 sampled columns under 100 n
+   eps, the potrf Gantt valid; one instrumented potrf_dist under
+   torch.profiler's host activity (its span in the profile), obs.smoke on
+   the card; then
+   slice10a_seconds: the phase's seconds by part beside the 20 s budget,
+   with the card line.  On one card a bcast row is indexing: its seconds
+   are fence and host overhead, not wire time;
+51. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+   stedc_dist, heev_chain, the LU panel_pallas half, flight_timeline;
+   n = 64, nb = 8, 2 x 4);
+52. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
@@ -298,8 +325,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
    row its posv and phase 44 launches, and the qr_panel_offset rows
    those of phases 39, 40, 42 and 46 beside the mesh gels' and, under
    ``at_he2hb_panel``, phase 41's readings; the f32 rows of the kernels
-   phase 49 reaches add its chains' launches under ``<op>_ckpt``), then
-   the card line and, last,
+   phase 49 reaches add its chains' launches under ``<op>_ckpt``, and
+   those phase 50 reaches its flights' under ``flight_<op>`` (every driver
+   run of the flight) and the obs-on posv's under ``obs_posv``), then the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -3697,13 +3725,18 @@ def ft_smoke_phase():
 
     res = smoke.run_smoke("cuda")
     emit({"phase": "ft_smoke", **res})
-    check(res["ok"] and len(res["scenarios"]) == 8, f"ft smoke failed: {res['scenarios']}")
+    check(res["ok"] and len(res["scenarios"]) == 8 and res["report"]["ok"],
+          f"ft smoke failed: {res['scenarios']} {res['report']}")
 
 
 EIG_NB = 64  # heev_mesh / svd_mesh's default band width
 # f64 cut from 4096 to 2048: the chase is an eager host
-# loop, 12.5 s (hb2st) and 20.9 s (tb2bd) of the f64 4096 runs on the H100
-EIG_MESH_N = {"float32": 8192, "float64": 2048}
+# loop, 12.5 s (hb2st) and 20.9 s (tb2bd) of the f64 4096 runs on the H100.
+# f32 cut from 8192 to 6144 for slice 10a's phase: svd_mesh first (40.38 s
+# of a 595.7 s script at 8192; the chase is the host-bound share), then
+# heev_mesh when a full run with the obs phase left under 40 s under 600
+# (588.3 s; heev_mesh f32 8192 24.87 s there)
+EIG_MESH_N = {"float32": 6144, "float64": 2048}
 EIG_SINGLE_N, EIG_SINGLE_NB = 2048, 32
 EIG_WARMUP_N = 256
 EIG_VALUE_C = 1.0  # eigen/singular values within EIG_VALUE_C n eps ||A||_2 of the f64 library's
@@ -4888,7 +4921,251 @@ def ckpt_mesh_phase(kernels, mp, smi_line, torch):
         seconds[op] = time.perf_counter() - t0
     emit({"phase": "slice9b_seconds", **seconds, "sum": sum(seconds.values()),
           "budget": CKPT_BUDGET_S, "card": smi_line})
+    # the checkpoint smoke, its RunReport and --check on the card
+    from slate_tpu_torch.ft import ckpt_smoke
+
+    t0 = time.perf_counter()
+    res = ckpt_smoke.run_smoke("cuda")
+    emit({"phase": "ckpt_smoke", "seconds": time.perf_counter() - t0,
+          **{k: res[k] for k in ("ok", "checks", "failures", "counters")}})
+    check(res["ok"] and res["checks"].get("report") and res["checks"].get("report-ft"),
+          f"ckpt smoke failed: {res['failures']}")
     return launches
+
+
+# slice 10a: the observability core on the virtual 2 x 4 mesh at nb = 256.
+# The instrumented posv_mesh (f32, the mesh posv's size) beside its obs-off
+# run, then one flight per mesh k-loop: potrf at full width, the others at
+# the sizes of the checkpoint phase, each at lookahead 1 (the strict chains
+# at 0).  The phase's seconds are held to OBS_BUDGET_S.
+OBS_POSV_N = 32768
+OBS_FLIGHTS = (("potrf", 32768, None), ("summa", 8192, None), ("getrf_nopiv", 8192, None),
+               ("trsm", 8192, None), ("geqrf", 4096, 8192), ("he2hb", 4096, None))
+OBS_COLS = 64  # the flights' residuals read 64 evenly spaced columns
+OBS_SEED = 200
+OBS_BUDGET_S = 20.0
+OBS_TREE = [("potrf_dist", "potrf_mesh", 2), ("potrf_mesh", "posv_mesh", 1),
+            ("trsm_dist", "posv_mesh", 1), ("trsm_dist", "posv_mesh", 1),
+            ("posv_mesh", None, 0), ("gemm_summa", None, 0)]
+
+
+def expected_flight_rows(op, nt, la):
+    """Rows of one flight, derived from its loop: summa a fetch and an
+    update a step; the factor loops a panel and its broadcast a step plus,
+    at lookahead 0, one update a step, at lookahead 1 two deferred halves a
+    step after the first and the drain (a bucket's drain and the next
+    bucket's first narrow update are one row); trsm, geqrf and he2hb three
+    phases a step."""
+    if op == "summa":
+        return 2 * nt
+    if op in ("potrf", "getrf_nopiv"):
+        return 3 * nt if la == 0 else 4 * nt - 1
+    return 3 * nt
+
+
+def expected_flight_launches(op, nt, la, bucket_plan):
+    """Hand-kernel launches of one flown run (the plain driver's own loop):
+    summa one update a step; potrf and the no-pivot LU their drivers';
+    trsm none (its solves and update are torch ops); geqrf one offset panel
+    and p - 1 merges a step; he2hb one offset panel a step."""
+    if op == "summa":
+        return {"summa_update": nt}
+    if op == "potrf":
+        return expected_potrf_launches(nt, la, bucket_plan)
+    if op == "getrf_nopiv":
+        return expected_lu_launches("nopiv", nt, la, bucket_plan)
+    if op == "geqrf":
+        return {"qr_panel_offset": nt, "qr_panel": nt * (P - 1)}
+    if op == "he2hb":
+        return {"qr_panel_offset": nt}
+    return {}
+
+
+def profiler_start(torch):
+    """torch.profiler's one-time start-up in the process (8.3 s on the
+    chip machine's host), paid beside the build: the obs phase's profiled
+    call then costs its own time.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pass
+    return time.perf_counter() - t0
+
+
+def spans_of(finished):
+    return [(s["name"], s["parent"], s["depth"]) for s in finished]
+
+
+def obs_phase(kernels, mp, bucket_plan, smi_line, torch):
+    """Slice 10a on the card: the instrumented posv_mesh and its gemm_summa
+    residual (X and R bitwise the obs-off run, the span tree, each span's
+    comm bytes against a comm audit of the same call, seconds on and off,
+    the launches), the six flights (each result bitwise its plain driver,
+    the rows and launches derived from the loops, the overlap gates, the
+    model's bytes against the audit, the report valid), one instrumented
+    call under torch.profiler, the obs smoke and a flight Gantt.  Returns
+    (the flights' launches by op, the instrumented posv's launches)."""
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.obs import flight, perfetto, smoke
+    from slate_tpu_torch.parallel import comm
+
+    dtype, n = torch.float32, OBS_POSV_N
+    gate = 100 * n * float(torch.finfo(dtype).eps)
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    secs = {}
+    t_phase = time.perf_counter()
+
+    # warm-up: the instrumented chain and a flight at small sizes
+    t0 = time.perf_counter()
+    aw = dominant_spd(2048, dtype, OBS_SEED, torch)
+    bw = randn((2048, NRHS), dtype, OBS_SEED + 1, torch)
+    with obs.force_enabled():
+        mp.posv_mesh(aw, bw, mesh, NB)
+    flight.run_flight("potrf", n=2048, nb=NB, depth=1, mesh=mesh, gen="torch", cols=OBS_COLS)
+    obs.reset()
+    del aw, bw
+    torch.cuda.synchronize()
+    secs["warmup"] = time.perf_counter() - t0
+
+    # 1. posv_mesh and its residual, obs off then on
+    t0 = time.perf_counter()
+    a = dominant_spd(n, dtype, OBS_SEED + 2, torch)
+    b = randn((n, NRHS), dtype, OBS_SEED + 3, torch)
+    ad = mp.from_dense(a, mesh, NB)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    with comm.comm_audit() as posv_recs:
+        t1 = time.perf_counter()
+        x_off, info = mp.posv_mesh(a, b, mesh, NB)
+        torch.cuda.synchronize()
+        posv_off = time.perf_counter() - t1
+    off_counts = {k: v for k, v in read_counts(kernels).items() if v}
+    with comm.comm_audit() as gemm_recs:
+        t1 = time.perf_counter()
+        r_off = mp.gemm_summa(1.0, ad, mp.from_dense(x_off, mesh, NB)).tiles
+        torch.cuda.synchronize()
+        gemm_off = time.perf_counter() - t1
+    obs.reset()
+    obs.enable()
+    try:
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        x_on, info_on = mp.posv_mesh(a, b, mesh, NB)
+        posv_on = time.perf_counter() - t1
+        posv_counts = {k: v for k, v in read_counts(kernels).items() if v}
+        t1 = time.perf_counter()
+        r_on = mp.gemm_summa(1.0, ad, mp.from_dense(x_on, mesh, NB)).tiles
+        gemm_on = time.perf_counter() - t1
+    finally:
+        obs.disable()
+    spans = list(obs.FINISHED)
+    by_name = {s["name"]: s for s in spans}
+    audit = {"posv_mesh": sum(nb * m for _, nb, m in posv_recs),
+             "gemm_summa": sum(nb * m for _, nb, m in gemm_recs)}
+    rd = mp.to_dense(mp.DistMatrix(tiles=r_on, m=n, n=NRHS, nb=NB, mesh=mesh))
+    e = float((rd - b).abs().max() / (a.abs().max() * x_on.abs().max() * n + b.abs().max()))
+    nt = -(-n // NB)
+    want = expected_potrf_launches(nt, 1, bucket_plan)
+    secs["posv"] = time.perf_counter() - t0
+    emit({"phase": "obs_posv", "n": n, "nb": NB, "mesh": [P, Q], "info": int(info_on), "eta": e,
+          "posv_seconds_off": posv_off, "posv_seconds_on": posv_on,
+          "gemm_seconds_off": gemm_off, "gemm_seconds_on": gemm_on,
+          "spans": spans_of(spans), "comm_bytes": {k: by_name[k]["metrics"]["comm_bytes"]
+                                                   for k in audit},
+          "audited_bytes": audit, "launches": posv_counts, "launches_off": off_counts,
+          "derived": want, "card": smi_line})
+    check(int(info) == 0 and int(info_on) == 0 and e < gate, f"obs posv: info {int(info_on)} eta {e}")
+    check(torch.equal(x_on, x_off) and torch.equal(r_on, r_off), "obs posv: X or R differs with obs on")
+    check(spans_of(spans) == OBS_TREE, f"obs posv: span tree {spans_of(spans)}")
+    for k, v in audit.items():
+        check(by_name[k]["metrics"]["comm_bytes"] == v,
+              f"obs posv: {k} span comm bytes {by_name[k]['metrics']['comm_bytes']} != audit {v}")
+    check(posv_counts == want == off_counts,
+          f"obs posv: launches {posv_counts} (obs off {off_counts}), derived {want}")
+    del a, b, ad, x_off, x_on, r_off, r_on, rd
+    torch.cuda.empty_cache()
+
+    # 2. the flights
+    launches = {}
+    for i, (op, fn, fm) in enumerate(OBS_FLIGHTS):
+        t0 = time.perf_counter()
+        reset_counts(kernels)
+        with comm.comm_audit() as recs:
+            rep = flight.run_flight(op, n=fn, nb=NB, depth=1, mesh=mesh, m=fm, gen="torch",
+                                    seed=OBS_SEED + 10 + i, cols=OBS_COLS)
+        got = {k: v for k, v in read_counts(kernels).items() if v}
+        seconds = time.perf_counter() - t0
+        secs[f"flight_{op}"] = seconds
+        cfg, sched = rep["config"], rep["sched"]
+        la, nt = cfg["lookahead"], cfg["nt"]
+        rows = len(rep["events"]) // (P * Q)
+        # the driver runs: plain and flown at depth la and, for the
+        # pipelined ops, the depth-0 contrast
+        depths = (la, la) if op in ("geqrf", "he2hb") else (la, la, 0)
+        want = {}
+        for d in depths:
+            for k, v in expected_flight_launches(op, nt, d, bucket_plan).items():
+                want[k] = want.get(k, 0) + v
+        runs = len(depths)
+        audited = sum(nb * m for _, nb, m in recs)
+        errs = flight.validate_flight_report(rep)
+        emit({"phase": f"flight_{op}", "n": fn, "m": fm or fn, "nb": NB, "nt": nt, "lookahead": la,
+              "seconds": seconds, "rows": rows, "derived_rows": expected_flight_rows(op, nt, la),
+              "events": len(rep["events"]), "launches": got,
+              "derived": want, "bitwise_plain": rep["bitwise_plain"],
+              "sched": {k: sched[k] for k in ("critical_path_s", "overlap_eff", "overlap_eff_la0",
+                                               "exposed_comm_s", "total_comm_s", "total_compute_s",
+                                               "wall_s", "measured_bytes")},
+              "model_bytes": rep["model"]["total_bytes"], "phase_bytes": rep["model"]["phase_bytes"],
+              "audited_bytes": audited, "flops": sum(e["flops"] for e in rep["events"]),
+              "resid": rep["values"]["resid"], "problems": errs, "card": smi_line})
+        check(rep["bitwise_plain"], f"flight {op}: the flown result differs from the plain driver's")
+        check(rows == expected_flight_rows(op, nt, la) and len(rep["events"]) == rows * P * Q,
+              f"flight {op}: {rows} rows, derived {expected_flight_rows(op, nt, la)}")
+        check(got == want, f"flight {op}: launches {got}, derived {want} over {runs} runs")
+        if op in ("geqrf", "he2hb"):
+            check(sched["overlap_eff"] == 0.0 == sched["overlap_eff_la0"],
+                  f"flight {op}: strict overlap_eff {sched['overlap_eff']}")
+        else:
+            check(sched["overlap_eff_la0"] == 0.0 and 0.0 < sched["overlap_eff"] <= 1.0,
+                  f"flight {op}: overlap_eff {sched['overlap_eff']} (la0 {sched['overlap_eff_la0']})")
+        check(rep["model"]["total_bytes"] > 0
+              and sched["measured_bytes"] == rep["model"]["total_bytes"]
+              and audited == runs * rep["model"]["total_bytes"],
+              f"flight {op}: model {rep['model']['total_bytes']} measured "
+              f"{sched['measured_bytes']} audited {audited} over {runs} runs")
+        check(not errs, f"flight {op}: report {errs}")
+        check(rep["values"]["resid"] < gate, f"flight {op}: resid {rep['values']['resid']}")
+        launches[op] = got
+        if op == "potrf":
+            tr = perfetto.flight_chrome_trace(rep["events"], rep["hop_events"], grid=(P, Q))
+            terrs = perfetto.validate_chrome_trace(tr)
+            check(not terrs and len({e["tid"] for e in tr["traceEvents"] if e["ph"] == "X"}) == P * Q,
+                  f"flight potrf Gantt: {terrs[:4]}")
+        del rep
+        torch.cuda.empty_cache()
+
+    # 3. the record_function bridge, 4. the obs smoke (its report and trace)
+    t0 = time.perf_counter()
+    small = mp.from_dense(dominant_spd(1024, dtype, OBS_SEED + 30, torch), mesh, NB,
+                          diag_pad_one=True)
+    # the host activity alone: record_function marks the host timeline, and
+    # the CUDA activity's start-up took ~11 s in this phase's first run (the
+    # host activity's one-time start-up runs beside the build)
+    with obs.force_enabled():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            mp.potrf_dist(small)
+            torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    res = smoke.run_smoke(device="cuda")
+    obs.reset()
+    secs["profiler_smoke"] = time.perf_counter() - t0
+    emit({"phase": "obs_smoke", "profiler_has_span": "potrf_dist" in keys, **res})
+    check("potrf_dist" in keys, "torch.profiler: no potrf_dist span (record_function bridge)")
+    check(res["ok"], f"obs smoke failed: {res['failures']}")
+    total = time.perf_counter() - t_phase
+    emit({"phase": "slice10a_seconds", **secs, "sum": total, "budget": OBS_BUDGET_S,
+          "within_budget": total <= OBS_BUDGET_S, "card": smi_line})
+    return launches, posv_counts
 
 
 def dryrun_phase():
@@ -4897,7 +5174,7 @@ def dryrun_phase():
     res = dryrun.dryrun("cuda")
     emit({"phase": "dryrun", **res})
     check(res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa", "stedc_dist",
-                                                "heev_chain", "panel_pallas"],
+                                                "heev_chain", "panel_pallas", "flight_timeline"],
           f"dryrun failed: {res['phases']}")
 
 
@@ -4937,9 +5214,12 @@ def main():
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     names = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        prof_start = pool.submit(profiler_start, torch)
         list(pool.map(_build.load, names))
-    emit({"phase": "build", "sources": names, "seconds": time.perf_counter() - t0})
+        prof_seconds = prof_start.result()
+    emit({"phase": "build", "sources": names, "seconds": time.perf_counter() - t0,
+          "profiler_start_seconds": prof_seconds})
     ptxas = {name: ptxas_report(_build.log_path(name)) for name in names}
     # the QR panel's dynamic shared memory at its path shapes (bytes)
     m_leaf = {dname(dt): GELS_MN[dname(dt)][0] for dt in (torch.float32, torch.float64)}
@@ -5149,10 +5429,22 @@ def main():
             row.setdefault("launches_by_path", {main_path[name]: row["launches"]})[f"{op}_ckpt"] = got
             check(got, f"{row['name']}: no launch on {op}_ckpt")
 
-    # 50. the dryrun
+    # 50. slice 10a: the observability core.  The flights' launches join the
+    # f32 rows of the kernels they reach under flight_<op>, the
+    # instrumented posv's under obs_posv
+    flight_launches, obs_posv = obs_phase(kernels, mp, bucket_plan, smi_line, torch)
+    main_path["summa_update"] = "mesh_gemm"
+    for path, counts in [(f"flight_{op}", c) for op, c in flight_launches.items()] + \
+            [("obs_posv", obs_posv)]:
+        for name, got in counts.items():
+            row = by_name[(name, torch.float32)]
+            row.setdefault("launches_by_path", {main_path[name]: row["launches"]})[path] = got
+            check(got, f"{row['name']}: no launch on {path}")
+
+    # 51. the dryrun
     dryrun_phase()
 
-    # 51. the script's seconds, kernels line, card line, result
+    # 52. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -58,6 +58,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..obs import REGISTRY
 from ..ops.kernels import (
     ft_summa_update,
@@ -1103,6 +1104,7 @@ def getrf_nopiv_ft(
 # parallel.drivers when Option.FaultTolerance is not off
 
 
+@instrument("gemm_mesh_ft")
 def gemm_mesh_ft(alpha, a, b, mesh, nb=256, beta=0.0, c=None,
                  opts: Optional[Options] = None) -> torch.Tensor:
     out, _ = gemm_ft(alpha, a, b, mesh, nb, beta, c, policy=resolve_policy(opts),
@@ -1112,6 +1114,7 @@ def gemm_mesh_ft(alpha, a, b, mesh, nb=256, beta=0.0, c=None,
     return out
 
 
+@instrument("her2k_mesh_ft")
 def her2k_mesh_ft(alpha, a, b, mesh, nb=256, beta=0.0, c=None, conj: bool = True,
                   opts: Optional[Options] = None) -> torch.Tensor:
     out, _ = her2k_ft(alpha, a, b, mesh, nb, beta, c, conj=conj, policy=resolve_policy(opts),
@@ -1120,6 +1123,7 @@ def her2k_mesh_ft(alpha, a, b, mesh, nb=256, beta=0.0, c=None, conj: bool = True
     return out
 
 
+@instrument("potrf_mesh_ft")
 def potrf_mesh_ft(a, mesh, nb=256, opts: Optional[Options] = None):
     l, info, _ = potrf_ft(a, mesh, nb, policy=resolve_policy(opts),
                           lookahead=get_option(opts, Option.Lookahead),
@@ -1128,6 +1132,7 @@ def potrf_mesh_ft(a, mesh, nb=256, opts: Optional[Options] = None):
     return l, info
 
 
+@instrument("getrf_nopiv_mesh_ft")
 def getrf_nopiv_mesh_ft(a, mesh, nb=256, opts: Optional[Options] = None):
     lu, info, _ = getrf_nopiv_ft(a, mesh, nb, policy=resolve_policy(opts),
                                  lookahead=get_option(opts, Option.Lookahead),

@@ -70,6 +70,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..core.tiling import cyclic_perm, inv_perm
 from ..linalg.eig import _he2hb_panel_count
 from ..ops.kernels import panel_impl_scope, resolve_panel_impl, resolve_update_impl, update_impl_scope
@@ -523,6 +524,7 @@ def _check_square(a: DistMatrix, who: str, num_monitor) -> None:
     _check_num_monitor(num_monitor, who)
 
 
+@instrument("potrf_ckpt")
 def potrf_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                panel_impl: Optional[str] = None, num_monitor: Optional[str] = None,
                async_snapshots=None):
@@ -541,6 +543,7 @@ def potrf_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                 resolve_panel_impl(panel_impl), async_snap=resolve_ckpt_async(async_snapshots))
 
 
+@instrument("getrf_nopiv_ckpt")
 def getrf_nopiv_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                      panel_impl: Optional[str] = None, num_monitor: Optional[str] = None,
                      async_snapshots=None, growth_abort: bool = True):
@@ -559,6 +562,7 @@ def getrf_nopiv_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None
                 growth_abort=growth_abort)
 
 
+@instrument("getrf_pp_ckpt")
 def getrf_pp_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                   num_monitor: Optional[str] = None, async_snapshots=None):
     """Checkpointed partial-pivot mesh LU (``getrf_pp_dist``, bitwise): the
@@ -573,6 +577,7 @@ def getrf_pp_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                 async_snap=resolve_ckpt_async(async_snapshots))
 
 
+@instrument("geqrf_ckpt")
 def geqrf_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                async_snapshots=None, num_monitor: Optional[str] = None):
     """Checkpointed distributed CAQR: ``geqrf_dist``'s results (bitwise)
@@ -591,6 +596,7 @@ def geqrf_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                 async_snap=resolve_ckpt_async(async_snapshots))
 
 
+@instrument("he2hb_ckpt")
 def he2hb_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
                async_snapshots=None, num_monitor: Optional[str] = None):
     """Checkpointed two-stage eig stage-1 reduction: ``he2hb_dist``'s

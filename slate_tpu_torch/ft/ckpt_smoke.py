@@ -24,15 +24,16 @@ with ``slate_tpu``'s operands (f64, ``utils.testing.generate``) and seeds:
    resumes, reshards, redistribute bytes) move; also the ring
    redistribution bitwise the eager one on a ragged operand.
 
-Prints one JSON line: every check, the factors' largest difference from
-the uninterrupted runs, and the ``ft.ckpt_*`` counter deltas.
-``slate_tpu`` also writes them into a RunReport and gates it with
-``obs.report --check``; RunReports come with the observability slice.
-Exits non-zero if any check failed.
+Then the RunReport (``ft_ckpt.report.json``: the resumed factors' largest
+difference from the uninterrupted runs, the ``ft`` section): valid, its
+``ft`` section carrying the resumes, and ``obs.report --check`` of it
+against itself passing.  Prints one JSON line: every check, the factors'
+largest difference from the uninterrupted runs, and the ``ft.ckpt_*``
+counter deltas.  Exits non-zero if any check failed.
 
 Usage::
 
-    python -m slate_tpu_torch.ft.ckpt_smoke [--device cpu|cuda] [--n 64] [--nb 8]
+    python -m slate_tpu_torch.ft.ckpt_smoke [--device cpu|cuda] [--n 64] [--nb 8] [--out DIR]
 """
 
 from __future__ import annotations
@@ -57,12 +58,14 @@ def result_tensors(x) -> list:
     return [x]
 
 
-def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8) -> dict:
-    """Run the checks; returns {"ok", "checks", "failures", ...}."""
+def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8, out_dir=None) -> dict:
+    """Run the checks; returns {"ok", "checks", "failures", ...}.  ``out_dir``
+    None keeps the RunReport in a temporary directory."""
     import numpy as np
     import torch
 
     from ..linalg.eig import _he2hb_panel_count
+    from ..obs.report import write_checked_report
     from ..parallel import from_dense, make_mesh, redistribute, to_dense
     from ..parallel.dist_chol import potrf_dist
     from ..parallel.dist_lu import getrf_nopiv_dist, getrf_pp_dist
@@ -207,6 +210,13 @@ def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8) -> dict:
           and ftv["ckpt_snapshot_bytes"] > 0 and ftv["ckpt_redistribute_bytes"] > 0
           and ftv["ckpt_inseg_kills"] >= 1 and ftv["ckpt_async_snapshots"] >= 1,
           f"ckpt counters {ftv}")
+    doc, errs, rc = write_checked_report(
+        out_dir, "ft_ckpt.report.json", "ft_ckpt_smoke",
+        config={"n": n, "nb": nb, "grid": "2x4", "regrid": "4x2", "every": every},
+        values={f"ckpt_resume_max_abs_diff_{op}": v for op, v in resid.items()})
+    check("report", not errs and rc == 0, f"schema {errs}, --check exit {rc}")
+    check("report-ft", doc.get("ft", {}).get("ckpt_resumes", 0) >= 9,
+          f"RunReport ft section {doc.get('ft')}")
     return {"ok": not failures, "device": device, "n": n, "nb": nb, "grid": "2x4",
             "regrid": "4x2", "every": every, "checks": checks, "failures": failures,
             "resume_max_abs_diff": resid, "counters": ftv}
@@ -217,8 +227,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--nb", type=int, default=8)
+    ap.add_argument("--out", default=None, help="the RunReport's directory (default: temporary)")
     args = ap.parse_args(argv)
-    res = run_smoke(args.device, args.n, args.nb)
+    res = run_smoke(args.device, args.n, args.nb, args.out)
     print(json.dumps(res), flush=True)
     return 0 if res["ok"] else 1
 

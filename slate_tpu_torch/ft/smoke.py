@@ -15,13 +15,15 @@ detect -> locate -> correct path, with ``slate_tpu``'s seeds and operands
    dual-sided carried checksums (the GEMM repair class);
 
 then the ``ft.*`` counters (detected >= 7, corrected >= 5, recomputed >= 1,
-uncorrectable >= 1, ``slate_tpu``'s floors).  Prints one JSON line (the
-scenarios and the counters; RunReports come with the observability slice)
-and exits non-zero if any scenario failed.
+uncorrectable >= 1, ``slate_tpu``'s floors), and the RunReport
+(``smoke_report.json``: the gemm and potrf residuals, the ``ft`` section):
+valid, its ``ft`` section carrying the detections, and ``obs.report
+--check`` of it against itself passing.  Prints one JSON line (the
+scenarios and the counters) and exits non-zero if any scenario failed.
 
 Usage::
 
-    python -m slate_tpu_torch.ft.smoke [--device cpu|cuda] [--n 64] [--nb 8]
+    python -m slate_tpu_torch.ft.smoke [--device cpu|cuda] [--n 64] [--nb 8] [--out DIR]
 """
 
 from __future__ import annotations
@@ -31,12 +33,15 @@ import json
 import sys
 
 
-def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8) -> dict:
-    """Run the seven scenarios; returns {"ok", "scenarios", "counters"}."""
+def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8, out_dir=None) -> dict:
+    """Run the seven scenarios and the report step; returns {"ok",
+    "scenarios", "counters", "report"}.  ``out_dir`` None keeps the report in a
+    temporary directory."""
     import numpy as np
     import torch
 
     from ..obs import reset
+    from ..obs.report import write_checked_report
     from ..parallel import make_mesh, to_dense
     from ..utils.testing import generate
     from . import abft, inject
@@ -137,8 +142,15 @@ def run_smoke(device: str = "cuda", n: int = 64, nb: int = 8) -> dict:
     counters = {k: ftv[k] for k in ("detected", "corrected", "recomputed", "uncorrectable")}
     record("counters", counters["detected"] >= 7 and counters["corrected"] >= 5
            and counters["recomputed"] >= 1 and counters["uncorrectable"] >= 1)
-    return {"ok": all(s["ok"] for s in scenarios.values()), "device": device, "n": n, "nb": nb,
-            "grid": "2x4", "scenarios": scenarios, "counters": counters}
+
+    doc, errs, rc = write_checked_report(
+        out_dir, "smoke_report.json", "ft_smoke", config={"n": n, "nb": nb, "grid": "2x4"},
+        values={"gemm_resid_error": float(err), "potrf_resid_error": float(resid)})
+    report = {"ok": not errs and doc.get("ft", {}).get("detected", 0) >= 7 and rc == 0,
+              "problems": errs, "check_rc": rc, "ft": doc.get("ft")}
+    return {"ok": all(s["ok"] for s in scenarios.values()) and report["ok"], "device": device,
+            "n": n, "nb": nb, "grid": "2x4", "scenarios": scenarios, "counters": counters,
+            "report": report}
 
 
 def main(argv=None) -> int:
@@ -146,8 +158,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--nb", type=int, default=8)
+    ap.add_argument("--out", default=None, help="the RunReport's directory (default: temporary)")
     args = ap.parse_args(argv)
-    res = run_smoke(args.device, args.n, args.nb)
+    res = run_smoke(args.device, args.n, args.nb, args.out)
     print(json.dumps(res), flush=True)
     return 0 if res["ok"] else 1
 

@@ -31,6 +31,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import _NB, _split, trsm_array
 from ..core.matrix import (
     BaseMatrix,
@@ -272,6 +273,7 @@ def _info(l: torch.Tensor) -> torch.Tensor:
     return torch.where(bad.any(), first + 1, 0).to(torch.int32)
 
 
+@instrument("potrf_array")
 def potrf_array(a: torch.Tensor, uplo: Uplo = Uplo.Lower) -> Tuple[torch.Tensor, torch.Tensor]:
     """Factor A = L L^H (or U^H U).  ``a`` holds the uplo triangle (the
     other is ignored).  Returns (factor triangle, info); info = 0 on success
@@ -318,6 +320,7 @@ def potrs(factor: TriangularMatrix, b: ArrayLike, device=None):
     return out
 
 
+@instrument("posv_array")
 def posv_array(a: torch.Tensor, b: torch.Tensor, uplo: Uplo = Uplo.Lower):
     """Factor + solve.  Returns (x, factor, info)."""
     f, info = potrf_array(a, uplo)

@@ -45,6 +45,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..core.matrix import symmetrize
 from ..ops.matmul import _tf32_scope, matmul
 from ..types import MethodEig, Precision, Uplo
@@ -448,6 +449,7 @@ def _heev(a, want_vectors, method, nb, vals):
     return w, unmtr_he2hb(f1, z)
 
 
+@instrument("heev_array")
 def heev_array(a: torch.Tensor, want_vectors: bool = True, method: MethodEig = MethodEig.DC,
                nb: int = _EIG_NB):
     """Hermitian eigen-decomposition (src/heev.cc): two-stage reduction,

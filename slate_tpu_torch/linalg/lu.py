@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import _NB, _arr, _split, solve_tri, split_pow2, trsm_array
 from ..core.matrix import BaseMatrix, Matrix, band_project, operand_device, tri_project
 from ..ops.matmul import matmul, matmul_sub_
@@ -343,6 +344,7 @@ def _getrf_left_looking(a: torch.Tensor, nb: Optional[int] = None
     return ap[:n, :n], perm[:n]
 
 
+@instrument("getrf_array")
 def getrf_array(a: torch.Tensor) -> LUFactors:
     """Partial-pivot LU, PA = LU (src/getrf.cc); the form by the module
     doc's dispatch rule."""
@@ -562,6 +564,7 @@ def getrs_array(f: LUFactors, b: torch.Tensor, op: Op = Op.NoTrans) -> torch.Ten
     return z[torch.argsort(perm)]
 
 
+@instrument("gesv_array")
 def gesv_array(a: torch.Tensor, b: torch.Tensor, method: MethodLU = MethodLU.PartialPiv):
     """Factor and solve (src/gesv.cc).  Returns (x, factors); under
     MethodLU.RBT the factors are ``rbt.RBTFactors``."""

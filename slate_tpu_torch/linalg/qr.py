@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import trsm_array
 from ..core.matrix import tri_project
 from ..ops.kernels import (
@@ -136,6 +137,7 @@ def _geqrf_rec(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat([top, bot], dim=0), t
 
 
+@instrument("geqrf_array")
 def geqrf_array(a: torch.Tensor) -> QRFactors:
     """slate::geqrf (src/geqrf.cc) -- A = Q R."""
     vr, t = _geqrf_rec(a)
@@ -284,6 +286,7 @@ def cholqr_array(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
+@instrument("gels_array")
 def gels_array(a: torch.Tensor, b: torch.Tensor, opts: Optional[Options] = None) -> torch.Tensor:
     """Least-squares / minimum-norm solve of A X ~= B (src/gels.cc).
     m >= n: QR (or CholeskyQR under ``Option.MethodGels``); m < n: the

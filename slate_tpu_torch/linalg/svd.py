@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.span import instrument
 from ..ops.matmul import matmul
 from .eig import _apply_panels, _chase_frame, _chase_sweep_apply, _ht, _larfg_masked, _pick
 from .eig import _wavefront_chase_segmented
@@ -283,6 +284,7 @@ def svd_staged(a: torch.Tensor, want_vectors: bool = True, nb: int = _SVD_NB):
     return _svd(a, want_vectors, nb)
 
 
+@instrument("svd_array")
 def svd_array(a: torch.Tensor, want_vectors: bool = True, nb: int = _SVD_NB):
     """Singular value decomposition (slate::svd): s descending, or
     (U_thin, s, Vh_thin)."""

@@ -25,9 +25,20 @@ slice.
 
 Lookahead helpers (``prefetch_bcast``, ``pipelined_factor_loop``) keep the
 reference's schedules as plain Python loops: eager PyTorch issues step
-k + d's panel work before step k's update exactly as written.  The
-``phase_scope`` / ``sched_audit`` schedule capture comes with the
-observability slice.
+k + d's panel work before step k's update exactly as written.
+
+Schedule capture (``sched_audit`` / ``phase_tag``, for ``obs.schedule``):
+a second audit stream whose records also carry the loop phase (``panel``
+/ ``bcast`` / ``bulk``), the step and, for a hop, its (src, dst) pairs.
+``slate_tpu`` records at trace time: inside a ``fori_loop`` its step is
+None, its multiplicity the trip count and its pairs the root-0 schedule.
+The port records every call with its concrete step, multiplicity 1 and
+the owner's own pairs, so per-phase totals agree and per-record pairs
+agree on the unrolled prologue steps only.
+
+The same phase markers drive the flight recorder (``obs.flight``): while a
+flight is recording, each phase of the plain loop becomes one row of its
+timeline, fenced on the card and stamped by the host clock.
 """
 
 from __future__ import annotations
@@ -57,6 +68,13 @@ _GRID_DIM = {ROW_AXIS: 0, COL_AXIS: 1}
 _AUDIT: Optional[list] = None
 _AUDIT_MULT = [1]
 
+# the schedule channel: (op, payload_bytes, mult, phase, step, pairs)
+_SCHED: Optional[list] = None
+_PHASE_CTX = [(None, None)]  # (phase, step) of the innermost phase_tag
+# the flight recorder's active runs (obs.flight); [-1] is None when no
+# flight is recording
+_FLIGHT: list = [None]
+
 
 @contextlib.contextmanager
 def comm_audit(propagate: bool = False):
@@ -83,6 +101,80 @@ def audit_scope(mult):
         _AUDIT_MULT.pop()
 
 
+@contextlib.contextmanager
+def sched_audit(propagate: bool = False):
+    """Yield a list that fills with (op, payload_bytes, multiplicity,
+    phase, step, pairs) records for every audited verb called while
+    active; phase and step come from the innermost ``phase_tag``, pairs
+    are a hop's (src, dst) list (None for a collective).
+    ``propagate=True`` re-appends the records to the enclosing capture."""
+    global _SCHED
+    old, _SCHED = _SCHED, []
+    try:
+        yield _SCHED
+    finally:
+        records, _SCHED = _SCHED, old
+        if propagate and old is not None:
+            old.extend(records)
+
+
+@contextlib.contextmanager
+def phase_tag(phase: str, step: Optional[int] = None):
+    """Tag the verbs called inside as loop phase ``phase`` of step ``step``
+    (the schedule capture's tag alone)."""
+    _PHASE_CTX.append((phase, None if step is None else int(step)))
+    try:
+        yield
+    finally:
+        _PHASE_CTX.pop()
+
+
+@contextlib.contextmanager
+def flight_row(phase: str, k: int, root_k: Optional[int] = None):
+    """One row of the recording flight's timeline, without a schedule tag
+    (a no-op when no flight records); ``root_k`` is the step that owns the
+    row's broadcasts, when it is not ``k``."""
+    run = _FLIGHT[-1]
+    if run is None:
+        yield
+        return
+    with run.row(phase, k, root_k):
+        yield
+
+
+@contextlib.contextmanager
+def phase_scope(phase: str, step: Optional[int] = None, root_k: Optional[int] = None):
+    """``phase_tag`` and, while a flight records, ``flight_row``: the body
+    is loop phase ``phase`` of step ``step`` and one row of the timeline."""
+    with phase_tag(phase, step), flight_row(phase, step, root_k):
+        yield
+
+
+def flying() -> bool:
+    """True while a flight records (the callers skip their flop counts
+    otherwise)."""
+    return _FLIGHT[-1] is not None
+
+
+def note_flops(flops: float) -> None:
+    """Add closed-form flops to the recording flight's open row."""
+    run = _FLIGHT[-1]
+    if run is not None:
+        run.add_flops(flops)
+
+
+def _sched(op: str, nbytes: int, pairs) -> None:
+    if _SCHED is None and _FLIGHT[-1] is None:
+        return
+    ph, st = _PHASE_CTX[-1]
+    rec = (op, int(nbytes), _AUDIT_MULT[-1], ph, st,
+           None if pairs is None else [(int(a), int(b)) for a, b in pairs])
+    if _SCHED is not None:
+        _SCHED.append(rec)
+    if _FLIGHT[-1] is not None:
+        _FLIGHT[-1].sched.append(rec)
+
+
 def _payload_bytes(x: torch.Tensor) -> int:
     numel = 1
     for s in x.shape[2:]:
@@ -96,16 +188,21 @@ def audit(op: str, nbytes: int) -> None:
     exchanges)."""
     if _AUDIT is not None:
         _AUDIT.append((op, int(nbytes), _AUDIT_MULT[-1]))
+    _sched(op, nbytes, None)
 
 
 def _rec(op: str, x: torch.Tensor) -> None:
     audit(op, _payload_bytes(x))
 
 
-def _rec_hop(op: str, x: torch.Tensor, npairs: int) -> None:
+def _rec_hop(op: str, x: torch.Tensor, perm) -> None:
     """A ppermute hop records the bytes crossing links: payload x pairs."""
-    if npairs > 0 and _AUDIT is not None:
-        _AUDIT.append((op, _payload_bytes(x) * npairs, _AUDIT_MULT[-1]))
+    if not perm:
+        return
+    nbytes = _payload_bytes(x) * len(perm)
+    if _AUDIT is not None:
+        _AUDIT.append((op, nbytes, _AUDIT_MULT[-1]))
+    _sched(op, nbytes, perm)
 
 
 def _full(x: torch.Tensor, axis: str, size: int) -> torch.Tensor:
@@ -166,7 +263,7 @@ def ppermute_a(x: torch.Tensor, axis: str, perm) -> torch.Tensor:
     device no pair targets receives zeros (``lax.ppermute``).  ``x`` holds
     every device's payload along the axis.  Records the bytes crossing
     links, payload x pairs, as ``slate_tpu``'s ``ppermute_a`` does."""
-    _rec_hop(f"ppermute[{axis}]", x, len(perm))
+    _rec_hop(f"ppermute[{axis}]", x, perm)
     d = _GRID_DIM[axis]
     src = [None] * x.shape[d]
     for s, t in perm:
@@ -281,7 +378,7 @@ def _rooted_bcast(x: torch.Tensor, owner: int, axis: str, size: int) -> torch.Te
         _rec(f"psum[{axis}]", x)
     elif size > 1:
         for perm in _bcast_hops(impl, size, int(owner) % size):
-            _rec_hop(f"ppermute[{axis}]", x, len(perm))
+            _rec_hop(f"ppermute[{axis}]", x, perm)
     return _owner_slice(x, owner, axis)
 
 
@@ -293,8 +390,10 @@ def _rooted_reduce(x: torch.Tensor, owner: int, axis: str, size: int) -> torch.T
     if impl == "psum":
         _rec(f"psum[{axis}]", x)
     elif size > 1:
-        for perm in reversed(_bcast_hops(impl, size, int(owner) % size)):
-            _rec_hop(f"ppermute[{axis}]", x, len(perm))
+        # slate_tpu audits one hop-set per rooted verb: the broadcast's
+        # schedule, in its order (the reduce runs it backwards)
+        for perm in _bcast_hops(impl, size, int(owner) % size):
+            _rec_hop(f"ppermute[{axis}]", x, perm)
     full = _full(x, axis, size)
     out = torch.zeros_like(full)
     out.narrow(d, int(owner), 1).copy_(full.sum(dim=d, keepdim=True))
@@ -401,26 +500,41 @@ def la_depth(lookahead, nt: int) -> int:
     return max(0, min(int(lookahead), int(nt)))
 
 
-def prefetch_bcast(nt: int, depth: int, fetch, consume, state):
+def prefetch_bcast(nt: int, depth: int, fetch, consume, state, root_of=None):
     """Software-pipelined k-loop over read-only panel broadcasts:
     ``fetch(k)`` builds step k's panels, ``consume(k, panels, state)``
     applies step k.  Depth d >= 1 fetches panels 0..d-1 first and then
-    fetch(k + d) before consume(k); every panel is fetched once."""
+    fetch(k + d) before consume(k); every panel is fetched once.
+
+    Phases as ``slate_tpu`` tags them: fetches ``bcast``, in-loop consumes
+    ``bulk``, the drained consumes untagged.  While a flight records, each
+    fetch is one row (``root_of(k)``: the step owning fetch k's broadcasts,
+    default k); a consume marks its own rows (``flight_row``)."""
     d = max(0, min(int(depth), int(nt)))
+    root_of = root_of or (lambda k: k)
+
+    def do_fetch(k):
+        with phase_scope("bcast", k, root_k=root_of(k)):
+            return fetch(k)
+
+    def do_consume(k, panels, state):
+        with phase_tag("bulk", k):
+            return consume(k, panels, state)
+
     if d == 0:
         for k in range(nt):
-            state = consume(k, fetch(k), state)
+            state = do_consume(k, do_fetch(k), state)
         return state
-    fifo = [fetch(k) for k in range(d)]
+    fifo = [do_fetch(k) for k in range(d)]
     for k in range(nt - d):
-        fifo.append(fetch(k + d))  # issued before the update consumes the head
-        state = consume(k, fifo.pop(0), state)
+        fifo.append(do_fetch(k + d))  # issued before the update consumes the head
+        state = do_consume(k, fifo.pop(0), state)
     for i in range(d):  # drain
         state = consume(nt - d + i, fifo[i], state)
     return state
 
 
-def pipelined_factor_loop(k0, k1, depth, panel, narrow, bulk, state, zero_payload):
+def pipelined_factor_loop(k0, k1, depth, panel, narrow, bulk, state, zero_payload, flops=None):
     """Deferred-trailing-update pipelining of a factorization k-loop.
 
     ``panel(k, state) -> (state, payload)`` factors and broadcasts step k;
@@ -430,21 +544,48 @@ def pipelined_factor_loop(k0, k1, depth, panel, narrow, bulk, state, zero_payloa
     schedule; depth >= 1 runs narrow -> panel -> bulk per step, starting
     from ``zero_payload`` and draining the last payload after the loop.
     Every element receives the same arithmetic in the same order at any
-    depth."""
+    depth.
+
+    Phases: panel(k) is ``panel`` of step k; an update is ``bulk`` of the
+    step whose payload it applies (k - 1 for a deferred one; the zero
+    payload of a loop's first step stands in for step k0 - 1's, which the
+    previous bucket drained).  ``flops(kind, j)`` gives the closed-form
+    flops of the panel of step j (kind ``panel``) and of step j's update
+    (``narrow``, ``excl``: the rest, ``full``) for a recording flight."""
     if int(k1) - int(k0) <= 0:
         return state
+    count = flops is not None and flying()
+
+    def note(kind, j):
+        if count:
+            note_flops(flops(kind, j))
+
     if int(depth) <= 0:
         for k in range(k0, k1):
-            state, pl = panel(k, state)
-            state = bulk(None, state, pl)
+            with phase_scope("panel", k):
+                note("panel", k)
+                state, pl = panel(k, state)
+            with phase_scope("bulk", k):
+                note("full", k)
+                state = bulk(None, state, pl)
         return state
     pl = zero_payload
     for k in range(k0, k1):
-        state = narrow(k, state, pl)
-        state, pl_new = panel(k, state)
-        state = bulk(k, state, pl)
+        with phase_scope("bulk", k - 1):
+            if k > k0:
+                note("narrow", k - 1)
+            state = narrow(k, state, pl)
+        with phase_scope("panel", k):
+            note("panel", k)
+            state, pl_new = panel(k, state)
+        with phase_scope("bulk", k - 1):
+            if k > k0:
+                note("excl", k - 1)
+            state = bulk(k, state, pl)
         pl = pl_new
-    return bulk(None, state, pl)
+    with phase_scope("bulk", k1 - 1):
+        note("full", k1 - 1)
+        return bulk(None, state, pl)
 
 
 def bucket_plan(nt: int, p: int, q: int, nbuckets: int = BUCKETS):

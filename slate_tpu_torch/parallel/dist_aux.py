@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..obs.span import instrument
 from ..types import Diag, Norm, Op, Uplo
 from .comm import (
     COL_AXIS,
@@ -61,6 +62,7 @@ def masked_abs(t_loc: torch.Tensor, p: int, q: int, m_true: int, n_true: int) ->
                                                       device=t_loc.device))
 
 
+@instrument("norm_dist")
 def norm_dist(norm: Norm, d: DistMatrix) -> torch.Tensor:
     """One / Inf / Max / Fro norm of a DistMatrix, computed distributed: a
     0-d tensor of the real dtype."""
@@ -90,6 +92,7 @@ def norm_dist(norm: Norm, d: DistMatrix) -> torch.Tensor:
     return out[0, 0]
 
 
+@instrument("herk_dist")
 def herk_dist(
     alpha,
     a: DistMatrix,
@@ -230,6 +233,7 @@ def _probe_vec(ld: DistMatrix):
     return dvec, tvec
 
 
+@instrument("gecondest_dist")
 def gecondest_dist(lud: DistMatrix, perm, anorm, norm: Norm = Norm.One, lookahead=None,
                    bcast_impl=None, iters: int = 5) -> torch.Tensor:
     """Reciprocal 1-norm (or Inf-norm) condition estimate from a
@@ -274,6 +278,7 @@ def gecondest_dist(lud: DistMatrix, perm, anorm, norm: Norm = Norm.One, lookahea
     return rcond
 
 
+@instrument("pocondest_dist")
 def pocondest_dist(ld: DistMatrix, anorm, lookahead=None, bcast_impl=None,
                    iters: int = 5) -> torch.Tensor:
     """Reciprocal condition estimate from a distributed Cholesky factor

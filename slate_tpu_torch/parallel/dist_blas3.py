@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import conj_scalar
 from ..ops.matmul import _tf32_scope
 from ..types import Diag, MethodHemm, Op, Precision, Side, Uplo, select_hemm_method
@@ -147,6 +148,7 @@ def _herm_diag(t: torch.Tensor, lower: bool, conj: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@instrument("transpose_dist")
 def transpose_dist(a: DistMatrix, conj: bool = False) -> DistMatrix:
     """op(A) on the same mesh: out tile (i, j) = op(in tile (j, i)).
     ``slate_tpu`` gathers the full tile stack on every device (two
@@ -191,6 +193,7 @@ def _mirror_col_panel(a_loc, k: int, p: int, q: int, i_log, uplo: Uplo, conj: bo
     return torch.where((i_log == k)[..., None, None], _herm_diag(acol, lower, conj), pan)
 
 
+@instrument("hemm_summa")
 def hemm_summa(
     side,
     alpha,
@@ -302,6 +305,7 @@ def _hemm_a(a: DistMatrix, b: DistMatrix, p: int, q: int, uplo: Uplo, conj: bool
 # ---------------------------------------------------------------------------
 
 
+@instrument("trmm_dist")
 def trmm_dist(
     side,
     uplo: Uplo,
@@ -376,6 +380,7 @@ def _trmm_left(a: DistMatrix, b: DistMatrix, p: int, q: int, uplo: Uplo, op: Op,
 # ---------------------------------------------------------------------------
 
 
+@instrument("her2k_dist")
 def her2k_dist(
     alpha,
     a: DistMatrix,
@@ -410,6 +415,7 @@ def her2k_dist(
                       diag_pad=a.mt * a.nb == a.m)
 
 
+@instrument("syr2k_dist")
 def syr2k_dist(alpha, a, b, beta=0.0, c=None, uplo: Uplo = Uplo.Lower, full: bool = False,
                lookahead: Optional[int] = None, bcast_impl: Optional[str] = None) -> DistMatrix:
     return her2k_dist(alpha, a, b, beta, c, uplo, conj=False, full=full, lookahead=lookahead,

@@ -27,8 +27,11 @@ torch ops, as ``slate_tpu`` computes them outside Pallas.
 
 The port factors the tile stack in place (``overwrite_a=True``) or in a
 copy (the default: ``slate_tpu``'s functional semantics, one more copy of
-the matrix).  ``num_monitor="on"`` (the in-carry numerics gauges) and the
-flight recorder's step dispatch belong to the observability slice.
+the matrix).  ``num_monitor="on"`` (the in-carry numerics gauges) comes
+with the numerics slice.  Under the flight recorder (``obs.flight``) the
+same loop records one row per phase: the panel (diagonal broadcast, factor
+and solves), its broadcast (the column broadcast and the transposed
+gather, tagged ``bcast``) and the deferred updates.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import solve_tri
 from ..linalg.chol import _cholesky, _ht
 from ..ops.kernels import (
@@ -62,6 +66,7 @@ from .comm import (
     bucket_plan,
     la_depth,
     local_indices,
+    phase_scope,
     pipelined_factor_loop,
     resolve_bcast_impl,
 )
@@ -79,6 +84,7 @@ def _check_num_monitor(num_monitor: Optional[str], who: str = "potrf_dist") -> N
     raise ValueError(f"unknown num_monitor {num_monitor!r}")
 
 
+@instrument("potrf_dist")
 def potrf_dist(
     a: DistMatrix, lookahead: Optional[int] = None,
     bcast_impl: Optional[str] = None, panel_impl: Optional[str] = None,
@@ -98,11 +104,15 @@ def potrf_dist(
         raise ValueError("potrf_dist needs a square tile grid")
     a.require_diag_pad("potrf_dist")
     _check_num_monitor(num_monitor)
+    from ..obs import flight as _flight
+
     t = a.tiles if overwrite_a else a.tiles.clone()
-    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)), \
+    la, bi = la_depth(lookahead, a.nt), resolve_bcast_impl(bcast_impl)
+    with bcast_impl_scope(bi), \
             panel_impl_scope(resolve_panel_impl(panel_impl)), \
-            update_impl_scope(resolve_update_impl(update_impl)):
-        _potrf_tiles(t, p, q, a.nt, la_depth(lookahead, a.nt))
+            update_impl_scope(resolve_update_impl(update_impl)), \
+            _flight.fly("potrf", (p, q), nt=a.nt, depth=min(la, 1), impl=bi):
+        _potrf_tiles(t, p, q, a.nt, la)
     info = _chol_info_dist(t, p, q, a.nb)
     return DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True), info
 
@@ -168,13 +178,14 @@ def _phases(p, q, i_log, j_log, roff, coff, cplx):
         on_diag = (i_log == k)[..., None, None]
         newcol = torch.where(below, solved, torch.where(on_diag, lkk, pcol))
         pcol.copy_(newcol)
-        pan = bcast_from_col(torch.where(below, newcol, 0), c0, q)
-        allpan = all_gather_a(pan, ROW_AXIS, p)[0, 0]  # (p, I, nb, nb): every row's panel
-        # logical row j sits at slot j // p - roff of mesh row j % p; columns
-        # below the window's row cut are finished (j <= k) and get zeros
-        slot = j_log // p - roff
-        pan_t = allpan[j_log % p, slot.clamp(min=0)]  # (1, q, J, nb, nb)
-        pan_t = torch.where((slot >= 0)[..., None, None], pan_t, 0)
+        with phase_scope("bcast", k):
+            pan = bcast_from_col(torch.where(below, newcol, 0), c0, q)
+            allpan = all_gather_a(pan, ROW_AXIS, p)[0, 0]  # (p, I, nb, nb): every row's panel
+            # logical row j sits at slot j // p - roff of mesh row j % p;
+            # columns below the window's row cut are finished (j <= k): zeros
+            slot = j_log // p - roff
+            pan_t = allpan[j_log % p, slot.clamp(min=0)]  # (1, q, J, nb, nb)
+            pan_t = torch.where((slot >= 0)[..., None, None], pan_t, 0)
         return view, (pan, pan_t)
 
     def narrow(k, view, payload):
@@ -208,6 +219,28 @@ def bucket_spans(nt: int, p: int, q: int, k0: int = 0, k1: Optional[int] = None)
             yield ka, kb, s0r, s0c
 
 
+def potrf_flops(nt: int, nb: int):
+    """Closed-form flops of the tile Cholesky's phases, for the flight
+    recorder: ``flops(kind, j)`` of step j's panel (the nb x nb factor,
+    nb^3 / 3, and the m = nt - 1 - j tile solves, nb^3 each) and of its
+    update (``full``: m diagonal tiles at nb^3 and m (m - 1) / 2 others at
+    2 nb^3; ``narrow``: column j + 1 of it; ``excl``: the rest).  The steps
+    sum to (nt nb)^3 / 3."""
+    c = float(nb) ** 3
+
+    def flops(kind: str, j: int) -> float:
+        m = nt - 1 - j
+        if kind == "panel":
+            return c / 3 + m * c
+        if kind == "narrow":
+            return (2 * m - 1) * c if m > 0 else 0.0
+        if kind == "excl":
+            return (m - 1) ** 2 * c if m > 0 else 0.0
+        return m * m * c
+
+    return flops
+
+
 def _potrf_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
                  k1: Optional[int] = None) -> None:
     """The bucketed, pipelined k-loop of ``slate_tpu``'s ``_potrf_jit``, in
@@ -223,7 +256,8 @@ def _potrf_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
         panel, narrow, bulk = _phases(p, q, i_log, j_log, s0r, s0c, cplx)
         zero_pl = (torch.zeros((1, 1, mtl - s0r, nb, nb), dtype=t.dtype, device=t.device),
                    torch.zeros((1, 1, ntl - s0c, nb, nb), dtype=t.dtype, device=t.device))
-        pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, zero_pl)
+        pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, zero_pl,
+                              potrf_flops(nt, nb))
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +333,7 @@ class _BandUpdate:
         return self._prod
 
 
+@instrument("pbtrf_band_dist")
 def pbtrf_band_dist(
     a: DistMatrix, kd: int, lookahead: Optional[int] = None,
     bcast_impl: Optional[str] = None, overwrite_a: bool = False,

@@ -41,8 +41,10 @@ panel and swaps on windows that slide with k (``_pp_panel_factor`` /
 height and width), then the windowed row solve and trailing update, in
 the strict schedule at every lookahead depth.
 
-``num_monitor="on"`` (the in-carry growth gauges) and the flight
-recorder's step dispatch come with the observability slice.
+``num_monitor="on"`` (the in-carry growth gauges) comes with the numerics
+half of the observability slice.  Under the flight recorder
+(``obs.flight``) the no-pivot loop records one row per phase: the panel,
+its broadcasts (tagged ``bcast``) and the deferred updates.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import solve_tri
 from ..linalg.lu import _getrf_nopiv_rec, _tournament_reduce
 from ..ops.kernels import (
@@ -75,6 +78,7 @@ from .comm import (
     bcast_impl_scope,
     la_depth,
     local_indices,
+    phase_scope,
     pipelined_factor_loop,
     psum_a,
     resolve_bcast_impl,
@@ -193,7 +197,8 @@ def _nopiv_panel(view, k, p, q, i_log, j_log, roff=0, coff=0, panel_done=False):
     """Panel phase of one step (factor, solves, broadcasts); the trailing
     update is returned as an :class:`_Update` for the caller to apply."""
     view, own = _nopiv_panel_compute(view, k, p, q, i_log, j_log, roff, coff, panel_done)
-    return view, _nopiv_panel_bcast(own, k, p, q)
+    with phase_scope("bcast", k):
+        return view, _nopiv_panel_bcast(own, k, p, q)
 
 
 def _nopiv_narrow(view, upd: Optional[_Update], k, p, q, roff=0, coff=0, with_row=True):
@@ -278,6 +283,7 @@ def _check_square(a: DistMatrix, who: str, num_monitor) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+@instrument("getrf_nopiv_dist")
 def getrf_nopiv_dist(
     a: DistMatrix, lookahead: Optional[int] = None,
     bcast_impl: Optional[str] = None, panel_impl: Optional[str] = None,
@@ -294,13 +300,39 @@ def getrf_nopiv_dist(
     bitwise the same at every depth and lowering.  ``overwrite_a`` factors
     ``a``'s tile stack in place instead of a copy."""
     p, q = _check_square(a, "getrf_nopiv_dist", num_monitor)
+    from ..obs import flight as _flight
+
     t = a.tiles if overwrite_a else a.tiles.clone()
-    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)), \
+    la, bi = la_depth(lookahead, a.nt), resolve_bcast_impl(bcast_impl)
+    with bcast_impl_scope(bi), \
             panel_impl_scope(resolve_panel_impl(panel_impl)), \
-            update_impl_scope(resolve_update_impl(update_impl)):
-        _getrf_nopiv_tiles(t, p, q, a.nt, la_depth(lookahead, a.nt))
+            update_impl_scope(resolve_update_impl(update_impl)), \
+            _flight.fly("getrf_nopiv", (p, q), nt=a.nt, depth=min(la, 1), impl=bi):
+        _getrf_nopiv_tiles(t, p, q, a.nt, la)
     info = _lu_info_dist(t, p, q, a.nb)
     return DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True), info
+
+
+def nopiv_flops(nt: int, nb: int):
+    """Closed-form flops of the no-pivot tile LU's phases, for the flight
+    recorder: ``flops(kind, j)`` of step j's panel (the nb x nb factor,
+    2 nb^3 / 3, and the m = nt - 1 - j column and m row tile solves, nb^3
+    each) and of its update (``full``: m^2 tile products at 2 nb^3;
+    ``narrow``: row and column j + 1 of it; ``excl``: the rest).  The steps
+    sum to 2 (nt nb)^3 / 3."""
+    c = 2.0 * float(nb) ** 3
+
+    def flops(kind: str, j: int) -> float:
+        m = nt - 1 - j
+        if kind == "panel":
+            return c / 3 + m * c
+        if kind == "narrow":
+            return (2 * m - 1) * c if m > 0 else 0.0
+        if kind == "excl":
+            return (m - 1) ** 2 * c if m > 0 else 0.0
+        return m * m * c
+
+    return flops
 
 
 def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
@@ -326,7 +358,8 @@ def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: in
                 return _nopiv_bulk(v, upd)
             return _nopiv_bulk(v, upd, k // p - s0r, k // q - s0c)
 
-        pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, None)
+        pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, None,
+                              nopiv_flops(nt, loc.shape[4]))
 
 
 # ---------------------------------------------------------------------------
@@ -381,6 +414,7 @@ def _flat_gids(i_log: torch.Tensor, nb: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@instrument("getrf_tntpiv_dist")
 def getrf_tntpiv_dist(
     a: DistMatrix, lookahead: Optional[int] = None,
     bcast_impl: Optional[str] = None, panel_impl: Optional[str] = None,
@@ -480,6 +514,7 @@ def _tntpiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int
 # ---------------------------------------------------------------------------
 
 
+@instrument("getrf_pp_dist")
 def getrf_pp_dist(
     a: DistMatrix, lookahead: Optional[int] = None,
     bcast_impl: Optional[str] = None, panel_impl: Optional[str] = None,
@@ -655,6 +690,7 @@ def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) ->
 # ---------------------------------------------------------------------------
 
 
+@instrument("gbtrf_band_dist")
 def gbtrf_band_dist(
     a: DistMatrix, kl: int, ku: int, lookahead: Optional[int] = None,
     bcast_impl: Optional[str] = None, overwrite_a: bool = False,
@@ -767,6 +803,7 @@ def _gb_pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, wd_l: in
 # ---------------------------------------------------------------------------
 
 
+@instrument("permute_rows_dist")
 def permute_rows_dist(b: DistMatrix, perm) -> DistMatrix:
     """B <- P B for a global row permutation over the padded row space:
     row g of the result is row perm[g] of B.  ``slate_tpu`` all_gathers B

@@ -37,8 +37,10 @@ blocks and the gather of the full-width R-row slices per step.
 Factor storage mirrors ``slate_tpu``: V packed below the R slots inside the
 tiles, the per-(mesh row, panel) T_loc stack, and the replicated tree
 factors.  ``unmqr_dist`` replays them against a conformal B.
-``num_monitor="on"`` (the ``_qr_orth_loss`` gauge) and the flight recorder's
-step dispatch come with the observability slice.  The checkpointed chain
+``num_monitor="on"`` (the ``_qr_orth_loss`` gauge) comes with the numerics
+half of the observability slice.  :func:`_qr_panel_step` tags its phases
+(``panel``, ``bcast``, ``bulk``) for the schedule capture and the flight
+recorder (``obs.flight``).  The checkpointed chain
 (``ft.ckpt.geqrf_ckpt``) runs :func:`_qr_panel_step` over a step range on
 the same carry.
 """
@@ -49,6 +51,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..obs.span import instrument
 from ..linalg.qr import _panel_qr_offset_t, _panel_qr_t, _v_of
 from ..ops.kernels import panel_impl_scope, resolve_panel_impl
 from ..ops.matmul import matmul
@@ -58,6 +61,9 @@ from .comm import (
     all_gather_a,
     bcast_from_col,
     bcast_impl_scope,
+    flying,
+    note_flops,
+    phase_scope,
     resolve_bcast_impl,
 )
 from .dist import DistMatrix, local_view
@@ -277,10 +283,24 @@ def _qr_panel_update(k: int, carry, pan, p: int, q: int, nb: int, m_true: int):
 
 def _qr_panel_step(k: int, carry, p: int, q: int, nb: int, m_true: int) -> None:
     """One CAQR panel step of the strict schedule, in place on the carry
-    (flat local matrices, T_loc stack, tree-V stack, tree-T stack)."""
-    pan_own = _qr_panel_factor(k, carry[0], p, q, nb, m_true)
-    pan = _qr_panel_bcast(pan_own, k, q)
-    _qr_panel_update(k, carry, pan, p, q, nb, m_true)
+    (flat local matrices, T_loc stack, tree-V stack, tree-T stack), its
+    phases tagged as ``slate_tpu``'s (``panel``, ``bcast``, ``bulk``).  A
+    recording flight counts the panel's Householder flops, 2 m w^2 -
+    2 w^3 / 3, and the update's compact-WY ones, 4 m w n' - 2 w^2 n', on
+    the padded trailing m x n'."""
+    if flying():
+        mk = p * carry[0].shape[2] - k * nb
+        nk = max(0, q * carry[0].shape[3] - (k + 1) * nb)
+    with phase_scope("panel", k):
+        if flying():
+            note_flops(2.0 * mk * nb * nb - 2.0 * nb ** 3 / 3)
+        pan_own = _qr_panel_factor(k, carry[0], p, q, nb, m_true)
+    with phase_scope("bcast", k):
+        pan = _qr_panel_bcast(pan_own, k, q)
+    with phase_scope("bulk", k):
+        if flying():
+            note_flops(4.0 * mk * nb * nk - 2.0 * nb * nb * nk)
+        _qr_panel_update(k, carry, pan, p, q, nb, m_true)
 
 
 def _qr_pad_identity(tiles: torch.Tensor, p: int, q: int, n_true: int) -> None:
@@ -295,6 +315,7 @@ def _qr_pad_identity(tiles: torch.Tensor, p: int, q: int, n_true: int) -> None:
         t[pad, pad] = 1
 
 
+@instrument("geqrf_dist")
 def geqrf_dist(a: DistMatrix, bcast_impl: Optional[str] = None, panel_impl: Optional[str] = None,
                num_monitor: Optional[str] = None, overwrite_a: bool = False) -> DistQR:
     """Factor A = Q R across the mesh (m >= n).  ``bcast_impl``
@@ -313,8 +334,11 @@ def geqrf_dist(a: DistMatrix, bcast_impl: Optional[str] = None, panel_impl: Opti
     tls = torch.zeros((p, nt, nb, nb), dtype=dtype, device=dev)
     tvs = torch.zeros((nt, nmerge, 2 * nb, nb), dtype=dtype, device=dev)
     tts = torch.zeros((nt, nmerge, nb, nb), dtype=dtype, device=dev)
-    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)), \
-            panel_impl_scope(resolve_panel_impl(panel_impl)):
+    from ..obs import flight as _flight
+
+    bi = resolve_bcast_impl(bcast_impl)
+    with bcast_impl_scope(bi), panel_impl_scope(resolve_panel_impl(panel_impl)), \
+            _flight.fly("geqrf", (p, q), nt=nt, depth=0, impl=bi):
         for k in range(nt):
             _qr_panel_step(k, (flat, tls, tvs, tts), p, q, nb, a.m)
     tiles = a.tiles if overwrite_a else torch.empty_like(a.tiles)
@@ -325,6 +349,7 @@ def geqrf_dist(a: DistMatrix, bcast_impl: Optional[str] = None, panel_impl: Opti
     return DistQR(fd, tls.reshape(p * nt, nb, nb), tvs, tts)
 
 
+@instrument("unmqr_dist")
 def unmqr_dist(f: DistQR, b: DistMatrix, op: Op = Op.ConjTrans,
                bcast_impl: Optional[str] = None) -> DistMatrix:
     """B <- Q^H B (op=ConjTrans) or Q B (any other op, as ``slate_tpu``)

@@ -35,9 +35,15 @@ count; here the first trip records at that multiplicity
 enters the loop here, so it records no loop collectives; ``slate_tpu``
 traces the body all the same.)
 
+The routed ladder runs in one ``{kind}_mixed`` driver span with a phase
+per tier (``ir``, ``gmres``, ``fallback``); a refinement trip tags its
+solve ``correct`` and its residual ``residual`` for the schedule capture,
+and the flight recorder records the factor but not the refinement loops
+(``obs.flight.no_flight``), as in ``slate_tpu``.
+
 Not here yet: the NumMonitor health tier (``_route_health`` and the
 convergence history; ``NumMonitor=on`` raises), which comes with the
-observability slice, and ``driver_span``.
+numerics slice.
 """
 
 from __future__ import annotations
@@ -51,10 +57,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import flight as _flight
+from ..obs.span import driver_span, instrument
 from ..linalg.refine import _lstsq_min_norm, gate_cte, ir_count, ir_gauge
 from ..ops.matmul import matmul
 from ..types import Diag, MethodGemm, Norm, Op, Option, Options, Uplo, get_option
-from .comm import COL_AXIS, ROW_AXIS, audit_scope, pmax, psum_a, resolve_bcast_impl
+from .comm import (COL_AXIS, ROW_AXIS, audit_scope, phase_scope, pmax, psum_a,
+                   resolve_bcast_impl)
 from .dist import DistMatrix, from_dense, local_view, padded_tiles, to_dense
 from .dist_aux import masked_abs, norm_dist
 from .dist_lu import permute_rows_dist
@@ -218,11 +227,15 @@ def _ir_common(ad: DistMatrix, bd: DistMatrix, lo_solve, info, max_iter: int, la
     xn = torch.zeros((), dtype=rdt, device=bd.tiles.device)
     it, done = -1, False
     while ok and not done and it < max_iter:
-        # slate_tpu audits the loop body once at max_iter + 1 trips
-        with audit_scope(max_iter + 1 if it == -1 else 0):
-            d = lo_solve(wrap(r_t, bd)).tiles
+        # slate_tpu audits the loop body once at max_iter + 1 trips; the
+        # flight recorder does not descend into it (slate_tpu's fused loop
+        # has no host between its phases): the factor before it records
+        with audit_scope(max_iter + 1 if it == -1 else 0), _flight.no_flight():
+            with phase_scope("correct"):
+                d = lo_solve(wrap(r_t, bd)).tiles
             x_t = x_t + d
-            r_t = residual(x_t)
+            with phase_scope("residual"):
+                r_t = residual(x_t)
             rn, xn = _inf_norm_pair(r_t, x_t, ad.mesh, bd.m, bd.n)
         it += 1
         done = bool(rn <= xn * cte)  # the one host read per trip
@@ -391,6 +404,7 @@ def _mixed_driver(kind: str, a, b, mesh, nb, max_iter, opts, pre):
             torch.as_tensor(info, device=dev).to(torch.int32))
 
 
+@instrument("posv_mixed_mesh")
 def posv_mixed_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, max_iter: Optional[int] = None,
     opts: Optional[Options] = None, pre=None,
@@ -403,6 +417,7 @@ def posv_mixed_mesh(
     return _mixed_driver("posv", a, b, mesh, nb, max_iter, opts, pre)
 
 
+@instrument("gesv_mixed_mesh")
 def gesv_mixed_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, max_iter: Optional[int] = None,
     opts: Optional[Options] = None, pre=None,
@@ -538,8 +553,9 @@ def _mixed_gmres_solve(kind: str, a, b, mesh: VirtualMesh, nb: int, opts, restar
     bad = bool(torch.as_tensor(info) != 0)
     cols, rnorms, convs = [], [], []
     for j in range(b2.shape[1]):
-        x, rn, cv = _gmres_column(ad, fact_solve, b2[:, j], restart, max_restarts, la, bi,
-                                  audit_mult)
+        with _flight.no_flight():
+            x, rn, cv = _gmres_column(ad, fact_solve, b2[:, j], restart, max_restarts, la, bi,
+                                      audit_mult)
         cols.append(torch.full_like(x, math.nan) if bad else x)
         rnorms.append(rn)
         convs.append(cv and not bad)
@@ -549,6 +565,7 @@ def _mixed_gmres_solve(kind: str, a, b, mesh: VirtualMesh, nb: int, opts, restar
     return x, rnorm, all(convs), info
 
 
+@instrument("posv_mixed_gmres_mesh")
 def posv_mixed_gmres_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
     restart: int = 30,
@@ -562,6 +579,7 @@ def posv_mixed_gmres_mesh(
     return x, rnorm, torch.as_tensor(info, device=x.device).to(torch.int32)
 
 
+@instrument("gesv_mixed_gmres_mesh")
 def gesv_mixed_gmres_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
     restart: int = 30,
@@ -602,20 +620,24 @@ def mixed_mesh_route(kind: str, a, b, mesh: VirtualMesh, nb: int, opts, plain_fn
             "(condition estimate and growth gauges); that tier comes with the "
             "observability slice")
     drv = posv_mixed_mesh if kind == "posv" else gesv_mixed_mesh
-    pre = _prefactor_cached(kind, a, mesh, nb, opts)
-    if mode in ("ir", "auto"):
-        x, iters, info = drv(a, b, mesh, nb, opts=opts, pre=pre)
-        if int(info) == 0 and int(iters) >= 0:
+    with driver_span(f"{kind}_mixed", mode=mode) as sp:
+        pre = _prefactor_cached(kind, a, mesh, nb, opts)
+        if mode in ("ir", "auto"):
+            with sp.phase("ir"):
+                x, iters, info = drv(a, b, mesh, nb, opts=opts, pre=pre)
+            if int(info) == 0 and int(iters) >= 0:
+                return x, info
+        if mode in ("gmres", "auto"):
+            if mode == "auto":
+                ir_count("ir.escalated_gmres", kind)
+            with sp.phase("gmres"):
+                x, _rnorm, conv, info = _mixed_gmres_solve(kind, a, b, mesh, nb, opts,
+                                                           restart=30, pre=pre)
+            info = torch.as_tensor(info, device=x.device).to(torch.int32)
+            if int(info) == 0 and conv:
+                return x, info
+        if not get_option(opts, Option.UseFallbackSolver, True):
             return x, info
-    if mode in ("gmres", "auto"):
-        if mode == "auto":
-            ir_count("ir.escalated_gmres", kind)
-        x, _rnorm, conv, info = _mixed_gmres_solve(kind, a, b, mesh, nb, opts, restart=30,
-                                                   pre=pre)
-        info = torch.as_tensor(info, device=x.device).to(torch.int32)
-        if int(info) == 0 and conv:
-            return x, info
-    if not get_option(opts, Option.UseFallbackSolver, True):
-        return x, info
-    ir_count("ir.fallback", kind)
-    return plain_fn()
+        ir_count("ir.fallback", kind)
+        with sp.phase("fallback"):
+            return plain_fn()

@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.span import instrument
 from ..linalg.tridiag import (
     _DC_SMALL,
     _deflate_z,
@@ -48,6 +49,7 @@ from .comm import COL_AXIS, ROW_AXIS, all_gather_a, bcast_from_row, bcast_impl_s
 from .mesh import mesh_shape
 
 
+@instrument("stedc_dist")
 def stedc_dist(d: torch.Tensor, e: torch.Tensor, mesh, bcast_impl: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eigen-decomposition of the symmetric tridiagonal (d, e) with the

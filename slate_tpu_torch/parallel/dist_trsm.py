@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..obs.span import instrument
 from ..blas3.blas3 import solve_tri
 from ..types import Diag, MethodTrsm, Op, Side, Uplo, select_trsm_method
 from .comm import (
@@ -32,8 +33,11 @@ from .comm import (
     bcast_from_col,
     bcast_from_row,
     bcast_impl_scope,
+    flight_row,
+    flying,
     la_depth,
     local_indices,
+    note_flops,
     prefetch_bcast,
     psum_scatter_a,
     resolve_bcast_impl,
@@ -44,6 +48,7 @@ from .dist_blas3 import tile_outer
 from .mesh import mesh_shape
 
 
+@instrument("trsm_dist")
 def trsm_dist(
     a: DistMatrix,
     b: DistMatrix,
@@ -69,13 +74,19 @@ def trsm_dist(
     a.require_diag_pad("trsm_dist")
     if method is None:
         method = select_trsm_method(Side.Left, b.mt, b.nt)
+    from ..obs import flight as _flight
+
     xt = b.tiles.clone()
-    la = la_depth(lookahead, a.nt)
-    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)):
+    la, bi = la_depth(lookahead, a.nt), resolve_bcast_impl(bcast_impl)
+    with bcast_impl_scope(bi):
         if method == MethodTrsm.TrsmA:
+            # stationary A's delivery has no per-step broadcast phase: the
+            # flight covers TrsmB only, as slate_tpu's does
             _trsm_a(a.tiles, xt, p, q, a.nt, uplo, op, diag, la)
         else:
-            _trsm_b(a.tiles, xt, p, q, a.nt, uplo, op, diag, la)
+            with _flight.fly("trsm", (p, q), nt=a.nt, depth=la, impl=bi,
+                             forward=_flags(uplo, op, diag)[3]):
+                _trsm_b(a.tiles, xt, p, q, a.nt, uplo, op, diag, la)
     return DistMatrix(tiles=xt, m=b.m, n=b.n, nb=b.nb, mesh=b.mesh)
 
 
@@ -128,16 +139,27 @@ def _trsm_b(at, bt, p, q, nt, uplo, op, diag, la, on_pan=None, on_step=None):
             pan = on_pan(k, pan)
         return dtile, pan
 
+    nb, ncols = at.shape[2], bt.shape[1] * bt.shape[2]
+
     def consume(s, panels, b_loc):
+        # under the flight recorder: the solve and its row broadcast are the
+        # step's ``panel`` row, the update its ``bulk`` row (slate_tpu's
+        # flight phases; its schedule tags them both ``bulk``)
         k = s if forward else nt - 1 - s
         dtile, pan = panels
-        xrow = _solve_row(b_loc, dtile, k, p, eff_lower, unit)
-        b_loc -= torch.matmul(pan.unsqueeze(-3), xrow.unsqueeze(-4))
-        if on_step is not None:
-            on_step(k, b_loc)
+        with flight_row("panel", s, root_k=k):
+            if flying():
+                note_flops(float(nb) * nb * ncols)
+            xrow = _solve_row(b_loc, dtile, k, p, eff_lower, unit)
+        with flight_row("bulk", s):
+            if flying():
+                note_flops(2.0 * nb * nb * ncols * (nt - 1 - s))
+            b_loc -= torch.matmul(pan.unsqueeze(-3), xrow.unsqueeze(-4))
+            if on_step is not None:
+                on_step(k, b_loc)
         return b_loc
 
-    prefetch_bcast(nt, la, fetch, consume, b_loc)
+    prefetch_bcast(nt, la, fetch, consume, b_loc, root_of=lambda s: s if forward else nt - 1 - s)
 
 
 def _trsm_a(at, bt, p, q, nt, uplo, op, diag, la):
@@ -184,6 +206,7 @@ def _trsm_a(at, bt, p, q, nt, uplo, op, diag, la):
     prefetch_bcast(nt, la, fetch, consume, b_loc)
 
 
+@instrument("trsm_dist_right")
 def trsm_dist_right(
     a: DistMatrix,
     b: DistMatrix,

@@ -33,8 +33,9 @@ the tile stack (O(n w) gathers); ``chase_apply_dist`` streams the bulge
 chase's sweep blocks from their owners by the two-hop rooted broadcast and
 applies them to Z's column shards, which on one card are all of Z.
 ``num_monitor="on"`` (the he2hb orthogonality gauge) raises until the
-observability slice; the flight recorder's per-step dispatch is not ported
-(as ``comm.phase_scope``).
+numerics half of the observability slice.  ``_he2hb_step`` tags its phases
+(``bcast``: the fetch, ``panel``, ``bulk``) for the schedule capture and
+the flight recorder (``obs.flight``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..obs.span import instrument
 from ..linalg.eig import _chase_sweep_apply, _he2hb_panel_count, _ht
 from ..linalg.qr import _panel_qr_offset_t
 from ..ops.matmul import _tf32_scope, matmul
@@ -55,6 +57,9 @@ from .comm import (
     bcast_from_col,
     bcast_from_row,
     bcast_impl_scope,
+    flying,
+    note_flops,
+    phase_scope,
     psum_a,
     resolve_bcast_impl,
 )
@@ -121,6 +126,7 @@ def _sub_outer(a_flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 
+@instrument("he2hb_dist")
 def he2hb_dist(a: DistMatrix, bcast_impl: Optional[str] = None,
                num_monitor: Optional[str] = None) -> DistTwoStage:
     """Reduce the full Hermitian DistMatrix (both triangles stored) to a
@@ -137,7 +143,10 @@ def he2hb_dist(a: DistMatrix, bcast_impl: Optional[str] = None,
     mfl = flat.shape[2]
     vqs = torch.zeros((max(nsteps, 1), p * mfl, nb), dtype=a.dtype, device=flat.device)
     tqs = torch.zeros((max(nsteps, 1), nb, nb), dtype=a.dtype, device=flat.device)
-    with bcast_impl_scope(resolve_bcast_impl(bcast_impl)):
+    from ..obs import flight as _flight
+
+    bi = resolve_bcast_impl(bcast_impl)
+    with bcast_impl_scope(bi), _flight.fly("he2hb", (p, q), nt=nsteps, depth=0, impl=bi):
         for k in range(nsteps):
             _he2hb_step(k, (flat, vqs, tqs), p, q, a.n, nb)
     bt = torch.empty_like(a.tiles)
@@ -205,10 +214,21 @@ def _he2hb_update(k: int, carry, gpan: torch.Tensor, pan, p: int, q: int, n_true
 
 def _he2hb_step(k: int, carry, p: int, q: int, n_true: int, nb: int) -> None:
     """One he2hb panel + two-sided trailing update, in place on the carry
-    (flat local matrices, vq stack, tq stack)."""
-    gpan = _he2hb_fetch(k, carry[0], p, q, nb)
-    pan = _he2hb_panel(k, gpan, n_true, nb)
-    _he2hb_update(k, carry, gpan, pan, p, q, n_true, nb)
+    (flat local matrices, vq stack, tq stack), its phases tagged as
+    ``slate_tpu``'s (``bcast``: the fetch, ``panel``, ``bulk``).  A
+    recording flight counts the panel's Householder flops, 2 m nb^2 -
+    2 nb^3 / 3, and the two-sided update's 4 m^2 nb, m = n - (k + 1) nb."""
+    mk = n_true - (k + 1) * nb
+    with phase_scope("bcast", k):
+        gpan = _he2hb_fetch(k, carry[0], p, q, nb)
+    with phase_scope("panel", k):
+        if flying():
+            note_flops(2.0 * mk * nb * nb - 2.0 * nb ** 3 / 3)
+        pan = _he2hb_panel(k, gpan, n_true, nb)
+    with phase_scope("bulk", k):
+        if flying():
+            note_flops(4.0 * mk * mk * nb)
+        _he2hb_update(k, carry, gpan, pan, p, q, n_true, nb)
 
 
 def _apply_row_panels(vqs: torch.Tensor, tqs: torch.Tensor, z: DistMatrix, p: int, q: int,
@@ -229,6 +249,7 @@ def _apply_row_panels(vqs: torch.Tensor, tqs: torch.Tensor, z: DistMatrix, p: in
     return DistMatrix(tiles=out, m=z.m, n=z.n, nb=z.nb, mesh=z.mesh)
 
 
+@instrument("unmtr_he2hb_dist")
 def unmtr_he2hb_dist(f: DistTwoStage, z: DistMatrix, adjoint: bool = False) -> DistMatrix:
     """Z <- Q Z (or Q^H Z) for the distributed stage-1 Q
     (src/unmtr_he2hb.cc)."""
@@ -243,6 +264,7 @@ def unmtr_he2hb_dist(f: DistTwoStage, z: DistMatrix, adjoint: bool = False) -> D
 # ---------------------------------------------------------------------------
 
 
+@instrument("ge2tb_dist")
 def ge2tb_dist(a: DistMatrix) -> DistTwoStage:
     """Reduce a general (m >= n) DistMatrix to an upper triangular band of
     bandwidth nb by alternating distributed QR/LQ panels; U-side
@@ -307,6 +329,7 @@ def ge2tb_dist(a: DistMatrix) -> DistTwoStage:
     return DistTwoStage(band, vqs, tqs, vls, tls)
 
 
+@instrument("unmbr_ge2tb_u_dist")
 def unmbr_ge2tb_u_dist(f: DistTwoStage, z: DistMatrix, adjoint: bool = False) -> DistMatrix:
     """Z <- Q Z for the stage-1 U factor (src/unmbr_ge2tb.cc U side): the
     panel apply of ``unmtr_he2hb_dist``."""
@@ -316,6 +339,7 @@ def unmbr_ge2tb_u_dist(f: DistTwoStage, z: DistMatrix, adjoint: bool = False) ->
     return _apply_row_panels(f.vq, f.tq, z, p, q, adjoint)
 
 
+@instrument("unmbr_ge2tb_v_dist")
 def unmbr_ge2tb_v_dist(f: DistTwoStage, z: DistMatrix) -> DistMatrix:
     """Z <- P Z for the stage-1 V factor: the reflectors live in A's column
     space (sharded over 'q') while Z's rows are sharded over 'p', so each
@@ -370,6 +394,7 @@ def gather_diagband(band: DistMatrix, w: int) -> torch.Tensor:
     return torch.where(ok, vals, 0)
 
 
+@instrument("chase_apply_dist")
 def chase_apply_dist(vs: torch.Tensor, taus: torch.Tensor, z: torch.Tensor, n: int, w: int, mesh,
                      bcast_impl: Optional[str] = None) -> torch.Tensor:
     """Z <- U Z for a bulge-chase reflector basis with Z column-sharded

@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..obs.span import instrument
 from ..types import Diag, Op, Option, Options, Side, Uplo, get_option
 from .dist import DistMatrix, from_dense, to_dense
 from .dist_chol import potrf_dist
@@ -140,6 +141,7 @@ def _no_ckpt(every: Optional[int], who: str) -> None:
             "(ft/ckpt.py checkpoints potrf, getrf_nopiv, getrf_pp, geqrf and he2hb)")
 
 
+@instrument("gemm_mesh")
 def gemm_mesh(
     alpha, a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0, c=None,
     opts: Optional[Options] = None,
@@ -159,6 +161,7 @@ def gemm_mesh(
                                bcast_impl=_bi(opts), update_impl=_ui(opts)))
 
 
+@instrument("potrf_mesh")
 def potrf_mesh(
     a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[DistMatrix, torch.Tensor]:
@@ -197,6 +200,7 @@ def _posv_mesh_plain(
     return to_dense(x), info
 
 
+@instrument("posv_mesh")
 def posv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,6 +229,7 @@ def _solve(lu: DistMatrix, b, mesh: VirtualMesh, nb: int, perm, opts) -> torch.T
     return to_dense(x)
 
 
+@instrument("getrf_nopiv_mesh")
 def getrf_nopiv_mesh(
     a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[DistMatrix, torch.Tensor]:
@@ -250,6 +255,7 @@ def getrf_nopiv_mesh(
     )
 
 
+@instrument("gesv_nopiv_mesh")
 def gesv_nopiv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -261,6 +267,7 @@ def gesv_nopiv_mesh(
     return _solve(lu, b, mesh, nb, None, opts), info
 
 
+@instrument("getrf_tntpiv_mesh")
 def getrf_tntpiv_mesh(
     a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
@@ -276,6 +283,7 @@ def getrf_tntpiv_mesh(
     )
 
 
+@instrument("gesv_tntpiv_mesh")
 def gesv_tntpiv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -285,6 +293,7 @@ def gesv_tntpiv_mesh(
     return _solve(lu, b, mesh, nb, perm, opts), info
 
 
+@instrument("getrf_mesh")
 def getrf_mesh(
     a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[DistMatrix, torch.Tensor, torch.Tensor]:
@@ -315,6 +324,7 @@ def _gesv_mesh_plain(
     return _solve(lu, b, mesh, nb, perm, opts), info
 
 
+@instrument("gesv_mesh")
 def gesv_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -331,6 +341,7 @@ def gesv_mesh(
     return _gesv_mesh_plain(a, b, mesh, nb, opts)
 
 
+@instrument("geqrf_mesh")
 def geqrf_mesh(
     a, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> DistQR:
@@ -349,6 +360,7 @@ def geqrf_mesh(
                       num_monitor=_nm(opts), overwrite_a=True)
 
 
+@instrument("gels_mesh")
 def gels_mesh(
     a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -369,6 +381,7 @@ def gels_mesh(
     return to_dense(xd), info
 
 
+@instrument("her2k_mesh")
 def her2k_mesh(
     alpha, a, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0, c=None, conj: bool = True,
     opts: Optional[Options] = None,
@@ -397,6 +410,7 @@ def _eye_like(a, mesh: VirtualMesh) -> torch.Tensor:
     return torch.eye(a.shape[0], dtype=a.dtype, device=mesh.device)
 
 
+@instrument("getri_mesh")
 def getri_mesh(a, mesh: VirtualMesh, nb: int = _DEFAULT_NB) -> Tuple[torch.Tensor, torch.Tensor]:
     """Distributed inverse (src/getri.cc): the partial-pivot factor, then
     A X = I solved on the mesh (the pivoted sweeps on the identity: the
@@ -410,6 +424,7 @@ def getri_mesh(a, mesh: VirtualMesh, nb: int = _DEFAULT_NB) -> Tuple[torch.Tenso
     return to_dense(x), info
 
 
+@instrument("potri_mesh")
 def potri_mesh(a, mesh: VirtualMesh, nb: int = _DEFAULT_NB) -> Tuple[torch.Tensor, torch.Tensor]:
     """Distributed SPD inverse (src/potri.cc): the Cholesky factor, then
     A^-1 = L^-H L^-1 by the two mesh sweeps on the identity.  Returns
@@ -421,6 +436,7 @@ def potri_mesh(a, mesh: VirtualMesh, nb: int = _DEFAULT_NB) -> Tuple[torch.Tenso
     return to_dense(x), info
 
 
+@instrument("gbmm_mesh")
 def gbmm_mesh(
     alpha, a, kl: int, ku: int, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0, c=None,
     opts: Optional[Options] = None,
@@ -433,6 +449,7 @@ def gbmm_mesh(
                      mesh, nb, beta, c, opts)
 
 
+@instrument("hbmm_mesh")
 def hbmm_mesh(
     side: Side, alpha, a, kd: int, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, beta=0.0,
     c=None, uplo: Uplo = Uplo.Lower, opts: Optional[Options] = None,
@@ -450,6 +467,7 @@ def hbmm_mesh(
                                bcast_impl=_bi(opts)))
 
 
+@instrument("heev_mesh")
 def heev_mesh(
     a, mesh: VirtualMesh, nb: int = 64, want_vectors: bool = True,
     distributed_solver: bool = True, opts: Optional[Options] = None,
@@ -496,6 +514,7 @@ def heev_mesh(
     return w, to_dense(zd)
 
 
+@instrument("svd_mesh")
 def svd_mesh(a, mesh: VirtualMesh, nb: int = 64, want_vectors: bool = True):
     """Distributed SVD (src/svd.cc with a grid): ``ge2tb_dist`` and both
     stage-1 back-transforms on the mesh, the band as O(n nb) diagonals, the
@@ -535,6 +554,7 @@ def svd_mesh(a, mesh: VirtualMesh, nb: int = 64, want_vectors: bool = True):
     return to_dense(ud), s, to_dense(vd).conj().T.resolve_conj()
 
 
+@instrument("tbsm_mesh")
 def tbsm_mesh(
     a, kd: int, b, mesh: VirtualMesh, nb: int = _DEFAULT_NB, uplo: Uplo = Uplo.Lower,
     diag: Diag = Diag.NonUnit, perm=None,
@@ -564,6 +584,7 @@ def _band_opts(opts: Optional[Options], who: str) -> None:
     _check_num_monitor(_nm(opts), who)
 
 
+@instrument("pbsv_mesh")
 def pbsv_mesh(
     a, b, kd: int, mesh: VirtualMesh, nb: int = _DEFAULT_NB, opts: Optional[Options] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -589,6 +610,7 @@ def pbsv_mesh(
     return to_dense(x), info
 
 
+@instrument("gbsv_mesh")
 def gbsv_mesh(
     a, b, kl: int, ku: int, mesh: VirtualMesh, nb: int = _DEFAULT_NB,
     opts: Optional[Options] = None,

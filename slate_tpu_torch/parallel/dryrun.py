@@ -1,4 +1,4 @@
-"""The port's mesh dryrun: six of ``slate_tpu``'s dryrun phases on a
+"""The port's mesh dryrun: seven of ``slate_tpu``'s eight dryrun phases on a
 virtual 2 x 4 mesh.
 
     python -m slate_tpu_torch.parallel.dryrun [--device cpu|cuda]
@@ -18,11 +18,17 @@ and with its seeded operands (n = 64, nb = 8, 16 right-hand sides):
   back-transforms) on (G + G^T) / 2 in f32, max|A Z - Z diag(w)| /
   (max|A| n) and max|Z^T Z - I| each under 100 n eps32;
 - ``panel_pallas``: the LU half, ``getrf_nopiv_dist`` under PanelImpl
-  pallas, its reconstruction residual under 100 n eps32.
+  pallas, its reconstruction residual under 100 n eps32;
+- ``flight_timeline``: ``obs.flight.run_flight("potrf", n=64, nb=8,
+  depth=1)`` on the same mesh: its residual under 100 n eps32, the
+  overlap efficiency exactly 0 at depth 0 and in (0, 1] at depth 1, and
+  the critical path, exposed and total ``bcast`` seconds and the modeled
+  bytes (on one card the ``bcast`` rows are indexing: their seconds are
+  fence and host overhead, not wire time).
 
 Prints one JSON line (``{"n_devices": 8, "phases": {...}, "ok": ...}``) and
-exits non-zero if a phase failed.  The other phases (``flight_timeline``,
-``mem``) come with their slices.
+exits non-zero if a phase failed.  The eighth phase (``mem``) comes with
+the memory slice.
 """
 
 from __future__ import annotations
@@ -186,8 +192,23 @@ def dryrun(device: str = "cuda") -> dict:
             raise RuntimeError(f"getrf_nopiv_dist[pallas] info={int(info)} resid={r_lu}")
         return {"resid_lu": r_lu}
 
+    def flight_timeline():
+        from ..obs import flight
+
+        rep = flight.run_flight("potrf", n=N, nb=NB, depth=1, mesh=mesh)
+        s = rep["sched"]
+        if not rep["values"]["resid"] <= gate:
+            raise RuntimeError(f"flight potrf resid {rep['values']['resid']}")
+        if not (s["overlap_eff_la0"] == 0.0 and 0.0 < s["overlap_eff"] <= 1.0):
+            raise RuntimeError(f"flight overlap_eff {s['overlap_eff']} (la0 "
+                               f"{s['overlap_eff_la0']}): lookahead overlap not visible")
+        return {"overlap_eff": s["overlap_eff"], "overlap_eff_la0": s["overlap_eff_la0"],
+                "critical_path_s": s["critical_path_s"], "exposed_comm_s": s["exposed_comm_s"],
+                "total_comm_s": s["total_comm_s"], "model_bytes": rep["model"]["total_bytes"]}
+
     for name, fn in (("posv_chain", posv), ("gesv_pp", pp), ("hemm_summa", hemm),
-                     ("stedc_dist", stedc), ("heev_chain", eig_chain), ("panel_pallas", panel)):
+                     ("stedc_dist", stedc), ("heev_chain", eig_chain), ("panel_pallas", panel),
+                     ("flight_timeline", flight_timeline)):
         t0 = time.time()
         try:
             result["phases"][name] = dict(fn(), seconds=round(time.time() - t0, 3))

@@ -12,13 +12,14 @@ and one SPD f64 system on a virtual 2 x 4 mesh through the DEFAULT drivers
 - the Ozaki int8 residual (``Option.ResidualImpl=ozaki``) meets the same
   gate;
 - the GMRES-IR tier converges on its own tolerance;
-- the ``ir.*`` counters move (the RunReport check comes with the
-  observability slice).
+- the ``ir.*`` counters move, and the RunReport (``mixed_report.json``)
+  is valid, its ``ir`` section carries the solves and ``obs.report
+  --check`` of it against itself passes.
 
 It reads ``SLATE_TPU_BCAST_IMPL`` / ``SLATE_TPU_PANEL_IMPL`` like every mesh
 kernel.  Usage::
 
-    python -m slate_tpu_torch.parallel.mixed_smoke [--device cpu] [--n 96] [--nb 16]
+    python -m slate_tpu_torch.parallel.mixed_smoke [--device cpu] [--n 96] [--nb 16] [--out DIR]
 
 On the card by default; prints one JSON line and exits 0 when every check
 passes.
@@ -31,13 +32,16 @@ import json
 import sys
 
 
-def run_smoke(device: str = "cuda", n: int = 96, nb: int = 16) -> dict:
+def run_smoke(device: str = "cuda", n: int = 96, nb: int = 16, out_dir=None) -> dict:
     """The checks above on ``device``; returns {"ok", "failures", "values",
-    "ir"}."""
+    "ir"}.  ``out_dir`` None keeps the RunReport in a temporary directory."""
+    import os
+
     import numpy as np
     import torch
 
     from ..linalg.refine import ir_counter_values
+    from ..obs.report import write_checked_report
     from ..ops import kernels
     from ..types import Option
     from ..utils.testing import refine_gate_ok
@@ -108,6 +112,16 @@ def run_smoke(device: str = "cuda", n: int = 96, nb: int = 16) -> dict:
     ir = {k: ir1[k] - ir0[k] for k in ir1}
     check("ir-counters", ir["solves"] >= 3 and ir["converged"] >= 3 and ir["gmres_solves"] >= 1,
           f"ir deltas {ir}")
+    doc, errs, rc = write_checked_report(
+        out_dir, "mixed_report.json", "mixed_smoke",
+        config={"n": n, "nb": nb, "grid": "2x4",
+                "bcast_impl": os.environ.get("SLATE_TPU_BCAST_IMPL", "auto"),
+                "panel_impl": os.environ.get("SLATE_TPU_PANEL_IMPL", "auto")},
+        values=vals)
+    check("report", not errs and rc == 0, f"schema {errs}, --check exit {rc}")
+    rir = doc.get("ir", {})
+    check("report-ir", rir.get("solves", 0) >= 3 and rir.get("converged", 0) >= 3
+          and rir.get("gmres_solves", 0) >= 1, f"RunReport ir section {rir}")
     return {"ok": not failures, "failures": failures, "values": vals, "ir": ir, "device": device}
 
 
@@ -116,8 +130,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=96)
     ap.add_argument("--nb", type=int, default=16)
+    ap.add_argument("--out", default=None, help="the RunReport's directory (default: temporary)")
     args = ap.parse_args(argv)
-    res = run_smoke(args.device, args.n, args.nb)
+    res = run_smoke(args.device, args.n, args.nb, args.out)
     print(json.dumps(res))
     return 0 if res["ok"] else 1
 

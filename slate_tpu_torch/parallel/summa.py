@@ -8,7 +8,8 @@ its local C tiles -- on one card, one :func:`ops.kernels.summa_update`
 launch over the whole grid per step (the hand-written tile-GEMM under
 ``Option.UpdateImpl`` pallas/auto, the batched-matmul form under xla).
 Steps are prefetched ``Option.Lookahead`` deep through
-``comm.prefetch_bcast``.  GemmA keeps A's tiles in place, replicates the
+``comm.prefetch_bcast`` (under the flight recorder, each fetch is a
+``bcast`` row and each update a ``bulk`` row).  GemmA keeps A's tiles in place, replicates the
 thin B and reduces the partial C over the k mesh axis: no k-loop, no
 kernel.
 
@@ -27,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..obs.span import instrument
 from ..ops.kernels import (
     resolve_update_impl,
     summa_update,
@@ -42,7 +44,10 @@ from .comm import (
     bcast_from_col,
     bcast_from_row,
     bcast_impl_scope,
+    flight_row,
+    flying,
     la_depth,
+    note_flops,
     prefetch_bcast,
     psum_a,
     resolve_bcast_impl,
@@ -60,6 +65,7 @@ def _finish(prod: torch.Tensor, alpha, beta, c: Optional[DistMatrix]) -> torch.T
     return prod
 
 
+@instrument("gemm_summa")
 def gemm_summa(
     alpha,
     a: DistMatrix,
@@ -94,9 +100,12 @@ def gemm_summa(
     if method == MethodGemm.GemmA:
         prod = _summa_a(a, b, p, q)
     else:
-        with bcast_impl_scope(resolve_bcast_impl(bcast_impl)), \
-                update_impl_scope(resolve_update_impl(update_impl)):
-            prod = _summa_c(a, b, p, q, kt, la_depth(lookahead, kt))
+        from ..obs import flight as _flight
+
+        la, bi = la_depth(lookahead, kt), resolve_bcast_impl(bcast_impl)
+        with bcast_impl_scope(bi), update_impl_scope(resolve_update_impl(update_impl)), \
+                _flight.fly("summa", (p, q), nt=kt, depth=la, impl=bi):
+            prod = _summa_c(a, b, p, q, kt, la)
     return DistMatrix(tiles=_finish(prod, alpha, beta, c), m=a.m, n=b.n, nb=a.nb, mesh=a.mesh)
 
 
@@ -117,9 +126,12 @@ def _summa_c(a: DistMatrix, b: DistMatrix, p: int, q: int, kt: int, la: int) -> 
 
     def consume(k, panels, acc):
         acol, brow = panels
-        if fused:  # Option.UpdateImpl: one tile-GEMM launch over the grid
-            return summa_update(acc, acol, brow)
-        return summa_update_plain(acc, acol, brow)
+        with flight_row("bulk", k):
+            if flying():  # the rank-w update of step k, w its true width
+                note_flops(2.0 * a.m * b.n * max(0, min(a.nb, a.n - k * a.nb)))
+            if fused:  # Option.UpdateImpl: one tile-GEMM launch over the grid
+                return summa_update(acc, acol, brow)
+            return summa_update_plain(acc, acol, brow)
 
     prefetch_bcast(kt, la, fetch, consume, acc)
     return out
@@ -256,6 +268,7 @@ def _plane_view(planes: torch.Tensor, p: int, q: int) -> torch.Tensor:
     return planes.view(s_, p, mt // p, q, nt // q, nb, nb2).permute(1, 3, 0, 2, 4, 5, 6)
 
 
+@instrument("gemm_summa_ozaki")
 def gemm_summa_ozaki(
     alpha,
     a: DistMatrix,

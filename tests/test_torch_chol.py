@@ -451,7 +451,9 @@ def test_port_imports_no_jax():
                 "parallel/dist_blas3.py", "linalg/tridiag.py", "linalg/eig.py", "linalg/svd.py",
                 "parallel/dist_twostage.py", "parallel/dist_stedc.py", "linalg/band.py",
                 "linalg/indefinite.py", "linalg/rbt.py", "core/grid.py", "parallel/mesh.py",
-                "parallel/dist.py", "ft/ckpt.py", "ft/elastic.py", "ft/ckpt_smoke.py"):
+                "parallel/dist.py", "ft/ckpt.py", "ft/elastic.py", "ft/ckpt_smoke.py",
+                "obs/context.py", "obs/span.py", "obs/report.py", "obs/perfetto.py",
+                "obs/schedule.py", "obs/flight.py", "obs/comm_audit.py", "obs/smoke.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

@@ -279,4 +279,5 @@ def test_dryrun_eig_phases():
     assert r_eig < gate and orth < gate
     res = tdry.dryrun("cpu")
     assert res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa",
-                                                 "stedc_dist", "heev_chain", "panel_pallas"]
+                                                 "stedc_dist", "heev_chain", "panel_pallas",
+                                                 "flight_timeline"]

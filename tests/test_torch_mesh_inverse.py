@@ -291,7 +291,7 @@ def test_dryrun_runs_four_phases_on_the_cpu():
     res = tdry.dryrun("cpu")
     assert res["ok"], res
     assert list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa", "stedc_dist",
-                                   "heev_chain", "panel_pallas"]
+                                   "heev_chain", "panel_pallas", "flight_timeline"]
     assert res["phases"]["hemm_summa"]["resid"] < 1e-4
 
 
