@@ -310,10 +310,35 @@ printing one JSON line before the next starts (any failure exits non-zero):
    slice10a_seconds: the phase's seconds by part beside the 20 s budget,
    with the card line.  On one card a bcast row is indexing: its seconds
    are fence and host overhead, not wire time;
-51. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
-   stedc_dist, heev_chain, the LU panel_pallas half, flight_timeline;
+51. obs_num_mem (2 x 4, nb = 256): Option.NumMonitor and the memory
+   layer.  posv_mesh f32 16384 off, on and off again: X bitwise, the
+   audited bytes equal, the monitored launches derived by
+   expected_potrf_launches, the margin finite and > 0, seconds on and off;
+   getrf_nopiv_mesh f32 8192 on at lookahead 0 and 1, the gauges bitwise
+   each other and the factor bitwise the off run's, and three off / on
+   pairs at lookahead 1 timed; potrf_dist 16384 alone off, on, off (the
+   posv's difference less the exit read's); gels_mesh 8192 x 4096
+   and he2hb_dist 4096 in f64 monitored, the orthogonality gauges under
+   ORTH_THRESHOLD (an f64 bound); the Wilkinson matrix (n = 64, nb = 8)
+   through getrf_mesh, growth exactly 2^63, and through the monitored
+   getrf_nopiv_ckpt every 2, its GrowthAbort at the boundary the gauge
+   predicts (wilkinson_abort_step); a monitored potrf_ckpt f32 4096 killed
+   at step 8 and resumed, its gauges bitwise the unbroken chain's; the f64
+   gesv_mesh at n = 1024, cond 1e8, two GMRES restarts: routed to GMRES
+   (num.routed_gmres 1, no IR solve), omega under the ladder's gate
+   (GESV_LADDER_OMEGA 10 sqrt(n) eps); memwatch potrf f32 16384 on the
+   card, the MemoryModel within 10% of the traced temp, the allocator's
+   peak beside the traced out + temp, the traced tally at n = 64 the same
+   on the host and the card, a memory-sampled potrf flight's Gantt with
+   its memory counter tracks valid; the RunReport's mem and num sections
+   valid and non-empty; one OOM (potrf_dist on a stack of 0.6 of the card,
+   whose copy the model puts past it): torch.cuda.OutOfMemoryError with
+   exactly one forensics report; then slice10b_seconds: the phase's
+   seconds by part beside the 10 s budget, with the card line;
+52. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+   stedc_dist, heev_chain, the LU panel_pallas half, flight_timeline, mem;
    n = 64, nb = 8, 2 x 4);
-52. total: the script's seconds; then kernels: the line of every ported
+53. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
@@ -327,7 +352,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
    ``at_he2hb_panel``, phase 41's readings; the f32 rows of the kernels
    phase 49 reaches add its chains' launches under ``<op>_ckpt``, and
    those phase 50 reaches its flights' under ``flight_<op>`` (every driver
-   run of the flight) and the obs-on posv's under ``obs_posv``), then the card line and, last,
+   run of the flight) and the obs-on posv's under ``obs_posv``; the rows
+   phase 51's paths reach, at their dtype, those paths' launches under
+   ``num_<op>`` and ``mem_<op>``), then the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -5168,13 +5195,338 @@ def obs_phase(kernels, mp, bucket_plan, smi_line, torch):
     return launches, posv_counts
 
 
+# ---------------------------------------------------------------------------
+# slice 10b: numerics and memory observability
+# ---------------------------------------------------------------------------
+
+# Option.NumMonitor on the card: posv_mesh f32 off then on, getrf_nopiv at
+# lookahead 0 and 1, gels_mesh and he2hb_dist monitored (f64), the Wilkinson
+# growth through getrf_mesh and the checkpointed nopiv chain's abort, a
+# monitored potrf_ckpt kill -> resume, the health-routed f64 gesv_mesh;
+# then memwatch potrf, a memory-sampled flight, the RunReport's sections
+# and one OOM.  The phase's seconds are held to NUMMEM_BUDGET_S.
+NUM_POSV_N = 16384
+NUM_NOPIV_N = 8192
+NUM_GELS_MN = (8192, 4096)
+NUM_HE2HB_N = 4096
+NUM_WILK_N, NUM_WILK_NB, NUM_WILK_EVERY = 64, 8, 2
+NUM_CKPT_N, NUM_CKPT_EVERY, NUM_CKPT_KILL = 4096, 4, 8
+# the routed gesv at 1024 with two GMRES restarts (Option.MaxIterations):
+# its GMRES tier does not converge at cond 1e8 and the f64 fallback solves,
+# as in slate_tpu, and each restart is 31 preconditioned residuals of eager
+# mesh sweeps; at 2048 with the default 30 restarts it took 14.7 s on the
+# chip machine, at 1024 8.7 s (n = 1024 pads to the same 4 tiles as any
+# smaller n), over the phase's whole budget.  The route and the ir.*
+# counters do not depend on the restart count
+NUM_GESV_N, NUM_GESV_COND, NUM_GESV_RESTARTS = 1024, 1e8, 2
+MEM_POTRF_N = 16384
+MEM_FLIGHT_N = 2048
+NUMMEM_SEED = 300
+NUMMEM_BUDGET_S = 10.0
+
+
+def wilkinson_abort_step(n, nb, every, threshold):
+    """The segment boundary at which the monitored no-pivot chain must abort
+    on the Wilkinson matrix: its running growth at step k's panel entry is
+    2^(k nb) (the last column doubles each column; max|A| = 1), so the first
+    step whose entry crosses ``threshold`` is the least k with 2^(k nb) >
+    threshold, and the chain reads the gauge at the end of that step's
+    segment."""
+    nt = -(-n // nb)
+    k = next(k for k in range(nt) if 2.0 ** (k * nb) > threshold)
+    return min(-(-(k + 1) // every) * every, nt)
+
+
+def obs_num_mem_phase(kernels, mp, smi_line, torch):
+    """Slice 10b on the card (see the constants above).  Returns the
+    launches of each monitored or traced path as [(path, dtype, {kernel:
+    launches})], its paths named num_<op> / mem_<op> (the routed gesv's
+    f32 factor under num_gesv too, at its own dtype)."""
+    import numpy as np
+
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.ft import ckpt, inject
+    from slate_tpu_torch.linalg import refine
+    from slate_tpu_torch.obs import memmodel, memory, memwatch, numerics, perfetto, report
+    from slate_tpu_torch.parallel import comm
+    from slate_tpu_torch.parallel.comm import bucket_plan
+    from slate_tpu_torch.types import Option
+    from slate_tpu_torch.utils.testing import generate
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    on = {Option.NumMonitor: "on"}
+    secs, paths, out = {}, {}, {"phase": "obs_num_mem", "card": smi_line}
+    obs.reset()
+    t_phase = time.perf_counter()
+
+    def counted(path, dtype, fn):
+        reset_counts(kernels)
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = (dtype, {k: v for k, v in read_counts(kernels).items() if v})
+        return res
+
+    # 1. posv_mesh off, then on: X bitwise, the same audited bytes, the
+    # monitored launches derived from the loop, the margin, the monitor's cost
+    t0 = time.perf_counter()
+    n = NUM_POSV_N
+    a = dominant_spd(n, f32, NUMMEM_SEED, torch)
+    b = randn((n, NRHS), f32, NUMMEM_SEED + 1, torch)
+    # off (its bits, and the allocator's first blocks at this size), on, then
+    # off again: the monitor's cost reads against the second off run
+    runs = {}
+    for mode in ("off", "on", "off2"):
+        torch.cuda.synchronize()
+        with comm.comm_audit() as recs:
+            t1 = time.perf_counter()
+            x, info = counted("num_posv" if mode == "on" else "posv_" + mode, f32,
+                              lambda: mp.posv_mesh(a, b, mesh, NB,
+                                                   opts={Option.NumMonitor: mode[:3]}))
+            runs[mode] = (x, int(info), time.perf_counter() - t1,
+                          sum(nb * m for _, nb, m in recs))
+        if mode == "on":
+            g = numerics.last_gauges("potrf")
+    # potrf_dist alone, off and on: the posv's difference less the exit
+    # read's (the one host read ends the host's run-ahead into the sweeps)
+    ad = mp.from_dense(a, mesh, NB, diag_pad_one=True)
+    alone = {}
+    for mode in ("off", "on", "off"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mp.potrf_dist(ad, num_monitor=mode)
+        torch.cuda.synchronize()
+        alone[mode] = time.perf_counter() - t1
+    del ad
+    nt = -(-n // NB)
+    want = expected_potrf_launches(nt, 1, bucket_plan)
+    out["posv"] = {"n": n, "seconds_off": runs["off2"][2], "seconds_on": runs["on"][2],
+                   "seconds_first_off": runs["off"][2], "potrf_alone_seconds": alone,
+                   "audited_bytes": [runs["off"][3], runs["on"][3]], "gauges": g,
+                   "launches": paths["num_posv"][1], "derived": want}
+    check(runs["on"][1] == runs["off"][1] == 0, f"num posv: info {runs['on'][1]}")
+    check(torch.equal(runs["on"][0], runs["off"][0]), "num posv: X differs with NumMonitor on")
+    check(runs["on"][3] == runs["off"][3], f"num posv: audited bytes {out['posv']['audited_bytes']}")
+    check(paths["num_posv"][1] == want, f"num posv: launches {paths['num_posv'][1]}, derived {want}")
+    check(math.isfinite(g.get("margin", math.nan)) and g["margin"] > 0, f"num posv: margin {g}")
+    del a, b, runs, x
+    secs["posv"] = time.perf_counter() - t0
+
+    # 2. getrf_nopiv_mesh on at lookahead 0 and 1: the gauges bitwise each
+    # other, the factor bitwise the off run's
+    t0 = time.perf_counter()
+    n = NUM_NOPIV_N
+    a = lu_matrix("nopiv", n, f32, NUMMEM_SEED + 2, torch)
+    lu_off, _ = mp.getrf_nopiv_mesh(a, mesh, NB)  # its bits, and the warm-up
+    gz, secs_nopiv = {}, {"off": [], "on": []}
+    for la in (0, 1, 1, 1):
+        if la:  # lookahead 1: an unmonitored run beside each monitored one
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mp.getrf_nopiv_mesh(a, mesh, NB)
+            torch.cuda.synchronize()
+            secs_nopiv["off"].append(time.perf_counter() - t1)
+        opts = {Option.NumMonitor: "on", Option.Lookahead: la}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lu_on, info = counted("num_getrf_nopiv" if la else "nopiv_la0", f32,
+                              lambda: mp.getrf_nopiv_mesh(a, mesh, NB, opts=opts))
+        if la:
+            secs_nopiv["on"].append(time.perf_counter() - t1)
+        gz[la] = numerics.last_gauges("getrf_nopiv")
+        check(int(info) == 0 and torch.equal(lu_on.tiles, lu_off.tiles),
+              f"num nopiv: la {la} factor differs from the unmonitored one")
+    out["nopiv"] = {"n": n, "gauges": gz[1], "launches": paths["num_getrf_nopiv"][1],
+                    "seconds_off": secs_nopiv["off"], "seconds_on": secs_nopiv["on"]}
+    check(gz[0] == gz[1] and gz[1]["growth"] > 0, f"num nopiv: gauges {gz}")
+    del a, lu_off, lu_on
+    secs["nopiv"] = time.perf_counter() - t0
+
+    # 3. gels_mesh and he2hb_dist in f64: the orthogonality gauges under
+    # ORTH_THRESHOLD (1e-8, an f64 bound: an f32 panel's gauge reads ~1e-5
+    # at m = 8192, its own eps class, and would always alarm)
+    t0 = time.perf_counter()
+    m, n = NUM_GELS_MN
+    a = randn((m, n), f64, NUMMEM_SEED + 3, torch)
+    b = randn((m, NRHS), f64, NUMMEM_SEED + 4, torch)
+    counted("num_gels", f64, lambda: mp.gels_mesh(a, b, mesh, NB, opts=on))
+    qr_loss = numerics.last_gauges("geqrf").get("qr_orth_loss")
+    h = dominant_spd(NUM_HE2HB_N, f64, NUMMEM_SEED + 5, torch)
+    counted("num_he2hb", f64, lambda: mp.he2hb_dist(mp.from_dense(h, mesh, NB), num_monitor="on"))
+    he_loss = numerics.last_gauges("he2hb").get("he2hb_orth_loss")
+    out["orth"] = {"gels_mn": [m, n], "qr_orth_loss": qr_loss, "he2hb_n": NUM_HE2HB_N,
+                   "he2hb_orth_loss": he_loss, "threshold": numerics.ORTH_THRESHOLD}
+    check(qr_loss is not None and 0 <= qr_loss < numerics.ORTH_THRESHOLD, f"num gels: {qr_loss}")
+    check(he_loss is not None and 0 <= he_loss < numerics.ORTH_THRESHOLD, f"num he2hb: {he_loss}")
+    del a, b, h
+    secs["orth"] = time.perf_counter() - t0
+
+    # 4. the Wilkinson growth: exactly 2^(n-1) through getrf_mesh, and the
+    # monitored nopiv chain's GrowthAbort at the boundary the gauge predicts;
+    # then a monitored potrf_ckpt kill -> resume, gauges bitwise the chain's
+    t0 = time.perf_counter()
+    n, nbw = NUM_WILK_N, NUM_WILK_NB
+    w = torch.from_numpy(generate("wilkinson", n, dtype=np.float32)).cuda()
+    counted("num_getrf", f32, lambda: mp.getrf_mesh(w, mesh, nbw, opts=on))
+    growth = numerics.last_gauges("getrf_pp").get("growth")
+    want_step = wilkinson_abort_step(n, nbw, NUM_WILK_EVERY, numerics.GROWTH_THRESHOLD)
+    abort = None
+    try:
+        ckpt.getrf_nopiv_ckpt(mp.from_dense(w, mesh, nbw, diag_pad_one=True),
+                              every=NUM_WILK_EVERY, num_monitor="on")
+    except numerics.GrowthAbort as e:
+        abort = (e.step, e.growth)
+    out["wilkinson"] = {"n": n, "nb": nbw, "growth": growth, "abort": abort,
+                        "abort_step_predicted": want_step}
+    check(growth == 2.0 ** (n - 1), f"num wilkinson: growth {growth} != 2^{n - 1}")
+    check(abort is not None and abort[0] == want_step,
+          f"num wilkinson: GrowthAbort {abort}, predicted step {want_step}")
+    n = NUM_CKPT_N
+    d = mp.from_dense(dominant_spd(n, f32, NUMMEM_SEED + 6, torch), mesh, NB, diag_pad_one=True)
+    counted("num_potrf_ckpt", f32,
+            lambda: ckpt.potrf_ckpt(d, every=NUM_CKPT_EVERY, num_monitor="on"))
+    chain = numerics.last_gauges("potrf")
+    try:
+        with inject.fault_scope(inject.FaultPlan([inject.KillFault("potrf", NUM_CKPT_KILL)])):
+            ckpt.potrf_ckpt(d, every=NUM_CKPT_EVERY, num_monitor="on")
+        snap = None
+    except ckpt.Preempted as e:
+        snap = e.checkpoint
+    numerics.clear_last("potrf")
+    from slate_tpu_torch.ft import elastic
+
+    elastic.resume(snap, mesh)
+    resumed = numerics.last_gauges("potrf")
+    out["ckpt_resume"] = {"n": n, "every": NUM_CKPT_EVERY, "kill": NUM_CKPT_KILL,
+                          "chain": chain, "resumed": resumed}
+    check(snap is not None and snap.num_monitor and resumed == chain,
+          f"num potrf_ckpt: resumed gauges {resumed} != the chain's {chain}")
+    del w, d, snap
+    secs["wilkinson_ckpt"] = time.perf_counter() - t0
+
+    # 5. the health-routed f64 gesv_mesh at cond 1e8: routed to GMRES-IR
+    # (num.routed_gmres 1, no IR solve), omega under the ladder's gate
+    t0 = time.perf_counter()
+    n = NUM_GESV_N
+    rng = np.random.default_rng(NUMMEM_SEED + 7)
+    q1 = torch.linalg.qr(torch.from_numpy(rng.standard_normal((n, n))).cuda())[0]
+    q2 = torch.linalg.qr(torch.from_numpy(rng.standard_normal((n, n))).cuda())[0]
+    a = (q1 * torch.logspace(0, -math.log10(NUM_GESV_COND), n, dtype=f64, device="cuda")) @ q2
+    b = torch.from_numpy(rng.standard_normal((n, 1))).cuda()
+    del q1, q2
+    ir0, num0 = refine.ir_counter_values(), numerics.num_counter_values()
+    t1 = time.perf_counter()
+    # the ladder launches lu_rowsolve_tiles in f32 (its factor) and in f64
+    # (the fallback): split by dtype at the call site
+    from slate_tpu_torch.parallel import dist_lu
+
+    with Capture(dist_lu, "lu_rowsolve_tiles", f32) as cap:
+        x, info = counted("num_gesv", f64, lambda: mp.gesv_mesh(
+            a, b, mesh, NB, opts={**on, Option.MaxIterations: NUM_GESV_RESTARTS}))
+    secs["gesv_solve"] = time.perf_counter() - t1
+    both = paths.pop("num_gesv")[1]
+    split = {dt: {k: v for k, v in c.items() if v} for dt, c in (
+        (f64, {**both, "lu_rowsolve_tiles": cap.calls.get("float64", 0)}),
+        (f32, {"lu_rowsolve_tiles": cap.calls.get("float32", 0)}))}
+    paths["num_gesv"], paths["num_gesv_factor"] = (f64, split[f64]), (f32, split[f32])
+    check(sum(cap.calls.values()) == both.get("lu_rowsolve_tiles", 0),
+          f"num gesv: lu_rowsolve_tiles calls {cap.calls}, launches {both}")
+    ird = _ir_deltas(ir0, refine.ir_counter_values())
+    routed = numerics.num_counter_values()["routed_gmres"] - num0["routed_gmres"]
+    w_gate = GESV_LADDER_OMEGA * omega_gate(n, f64, torch)
+    out["gesv"] = {"n": n, "cond": NUM_GESV_COND, "restarts": NUM_GESV_RESTARTS, "info": int(info),
+                   "routed_gmres": routed,
+                   "ir_deltas": ird, "condest": numerics.last_gauges("gesv").get("cond"),
+                   "launches": paths["num_gesv"][1], "factor_launches": paths["num_gesv_factor"][1],
+                   "omega": omega(a, x, b, torch), "omega_gate": w_gate}
+    check(int(info) == 0 and routed == 1 and not ird.get("solves"),
+          f"num gesv: routed {routed}, ir deltas {ird}")
+    check(out["gesv"]["omega"] < w_gate, f"num gesv: omega {out['gesv']['omega']} >= {w_gate}")
+    del a, b, x
+    torch.cuda.empty_cache()
+    secs["gesv_routed"] = time.perf_counter() - t0
+
+    # 6. memwatch potrf on the card: the model within MODEL_TOL of the traced
+    # temp, the traced bytes beside the allocator's peak, the tally the same
+    # on the host and the card at n = 64, a memory-sampled flight Gantt
+    t0 = time.perf_counter()
+    n = MEM_POTRF_N
+    rep = counted("mem_potrf", f32, lambda: memwatch.run_memwatch("potrf", n=n, nb=NB, depth=1,
+                                                                 mesh=mesh))
+    v = rep["values"]
+    traced = v["mem.out_bytes"] + v["mem.temp_bytes"]
+    alloc = v["mem.potrf_runtime_alloc_peak_bytes"]
+    secs["memwatch_potrf"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    small = {dev: memwatch.run_memwatch("potrf", n=64, nb=8, depth=1, with_runtime=False,
+                                        mesh=mp.make_mesh(P, Q, device=dev))["values"]
+             for dev in ("cpu", "cuda")}
+    tally_keys = ("mem.arg_bytes", "mem.out_bytes", "mem.temp_bytes", "mem.alias_bytes")
+    secs["memwatch_small"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tr = memwatch.flight_memory_trace(mesh, n=MEM_FLIGHT_N, nb=NB, gen="torch", cols=OBS_COLS)
+    secs["memwatch_flight"] = time.perf_counter() - t1
+    terrs = perfetto.validate_chrome_trace(tr)
+    mem_tracks = sorted({e["name"] for e in tr["traceEvents"]
+                         if e.get("ph") == "C" and e["name"].startswith("mem.")})
+    out["memwatch"] = {"n": n, **{k.split(".", 1)[1]: v[k] for k in v},
+                       "traced_out_plus_temp": traced, "alloc_over_traced": alloc / traced,
+                       "small_cpu": [small["cpu"][k] for k in tally_keys],
+                       "small_cuda": [small["cuda"][k] for k in tally_keys],
+                       "flight_mem_tracks": mem_tracks}
+    check(v["mem.model_err_frac"] <= memwatch.MODEL_TOL,
+          f"memwatch potrf: model off by {v['mem.model_err_frac']:.1%}")
+    check(all(small["cpu"][k] == small["cuda"][k] for k in tally_keys),
+          f"memwatch: the tally differs between the host and the card: {out['memwatch']}")
+    check(not terrs and mem_tracks, f"memwatch flight trace: {terrs[:3]} tracks {mem_tracks}")
+
+    # 7. the RunReport's mem and num sections, then one OOM: potrf_dist on a
+    # stack of 0.6 of the card, whose copy the model puts past the card
+    t0 = time.perf_counter()
+    rep = report.make_report("slice10b", values={"x_seconds": 1.0})
+    rerrs = report.validate_report(json.loads(json.dumps(rep)))
+    out["report"] = {"mem": rep["mem"], "num": rep["num"], "problems": rerrs}
+    check(not rerrs and rep["num"]["monitored"] > 0 and rep["mem"]["samples"] > 0,
+          f"report sections: {out['report']}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    step = NB * math.lcm(P, Q)
+    n_oom = int(math.sqrt(0.6 * total / 4) // step) * step
+    model = memmodel.MemoryModel("potrf", n_oom, NB, (P, Q))
+    tiles = torch.empty((n_oom // NB, n_oom // NB, NB, NB), dtype=f32, device="cuda")
+    d = mp.DistMatrix(tiles=tiles, m=n_oom, n=n_oom, nb=NB, mesh=mesh, diag_pad=True)
+    n_reports = len(memory.OOM_REPORTS)
+    raised = None
+    try:
+        mp.potrf_dist(d)
+    except torch.cuda.OutOfMemoryError as e:
+        raised = type(e).__name__
+    reports = memory.OOM_REPORTS[n_reports:]
+    del d, tiles
+    torch.cuda.empty_cache()
+    out["oom"] = {"n": n_oom, "model_virtual_peak_bytes": model.virtual_peak_bytes,
+                  "card_bytes": total, "raised": raised, "reports": len(reports),
+                  "report_head": reports[0].splitlines()[:3] if reports else []}
+    check(model.virtual_peak_bytes > total, f"oom: the model's peak fits the card: {out['oom']}")
+    check(raised == "OutOfMemoryError" and len(reports) == 1, f"oom: {out['oom']}")
+    secs["report_oom"] = time.perf_counter() - t0
+    obs.reset()
+
+    emit(out)
+    phase_total = time.perf_counter() - t_phase
+    emit({"phase": "slice10b_seconds", **secs, "sum": phase_total, "budget": NUMMEM_BUDGET_S,
+          "within_budget": phase_total <= NUMMEM_BUDGET_S, "card": smi_line})
+    return [(k.replace("num_gesv_factor", "num_gesv"), dt, counts)
+            for k, (dt, counts) in paths.items() if k.startswith(("num_", "mem_"))]
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
     res = dryrun.dryrun("cuda")
     emit({"phase": "dryrun", **res})
     check(res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa", "stedc_dist",
-                                                "heev_chain", "panel_pallas", "flight_timeline"],
+                                                "heev_chain", "panel_pallas", "flight_timeline",
+                                                "mem"],
           f"dryrun failed: {res['phases']}")
 
 
@@ -5441,10 +5793,24 @@ def main():
             row.setdefault("launches_by_path", {main_path[name]: row["launches"]})[path] = got
             check(got, f"{row['name']}: no launch on {path}")
 
-    # 51. the dryrun
+    # 51. slice 10b: numerics and memory observability.  Each monitored or
+    # traced path's launches join the rows of the kernels it reaches (by
+    # dtype) under num_<op> / mem_<op>
+    by_label = {r["name"]: r for r in rows}
+    main_path["summa_update[float64]"] = "mixed_posv"
+    for path, dt, counts in obs_num_mem_phase(kernels, mp, smi_line, torch):
+        for name, got in counts.items():
+            row = by_label.get(f"{name}[{dname(dt)}]")
+            if row is None:  # no row of this kernel at this dtype
+                continue
+            first = main_path.get(row["name"], main_path.get(name))
+            row.setdefault("launches_by_path", {first: row["launches"]})[path] = got
+            check(got, f"{row['name']}: no launch on {path}")
+
+    # 52. the dryrun
     dryrun_phase()
 
-    # 52. the script's seconds, kernels line, card line, result
+    # 53. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

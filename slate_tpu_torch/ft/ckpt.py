@@ -53,10 +53,16 @@ are functional and its snapshots keep the buffers they were handed).  So:
 routes the mesh drivers here; off calls the plain drivers untouched.  The
 injector's ``KillFault`` is consulted between segments: an armed kill
 raises ``Preempted`` carrying the last snapshot.  Recovery costs land in
-the ``ft.ckpt_*`` counters (``ft.policy``).  ``num_monitor="on"`` raises
-until the observability slice, as in every port driver; the snapshot
-format keeps ``gauges`` and ``growth_abort`` for it.  numpy has no
-bfloat16, so a bf16 carry cannot be snapshotted and raises.
+the ``ft.ckpt_*`` counters (``ft.policy``).  ``num_monitor="on"``
+(Option.NumMonitor) carries the plain drivers' gauges through the chain
+(potrf's margin, the LU growth pair, the QR / he2hb orthogonality loss):
+every snapshot holds them in ``Checkpoint.gauges`` (``slate_tpu``'s
+layout), a resume continues them, and the finished chain records what the
+unbroken monitored driver records, bitwise.  The monitored no-pivot LU
+checks its growth at every segment boundary and raises
+``obs.numerics.GrowthAbort`` once it crosses ``GROWTH_THRESHOLD``
+(``growth_abort``).  numpy has no bfloat16, so a bf16 carry cannot be
+snapshotted and raises.
 """
 
 from __future__ import annotations
@@ -70,19 +76,30 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.numerics import GROWTH_THRESHOLD, GrowthAbort, record_growth_abort
 from ..obs.span import instrument
 from ..core.tiling import cyclic_perm, inv_perm
 from ..linalg.eig import _he2hb_panel_count
 from ..ops.kernels import panel_impl_scope, resolve_panel_impl, resolve_update_impl, update_impl_scope
 from ..parallel.comm import bcast_impl_scope, resolve_bcast_impl
 from ..parallel.dist import DistMatrix
-from ..parallel.dist_chol import _check_num_monitor, _chol_info_dist, _potrf_tiles, potrf_dist
+from ..parallel.dist_chol import (
+    _chol_info_dist,
+    _potrf_tiles,
+    chol_exit_gauges,
+    margin_init,
+    monitored,
+    num_gauge_dtype,
+    potrf_dist,
+)
 from ..parallel.dist_lu import (
     _getrf_nopiv_tiles,
     _lu_info_dist,
     _pp_strict_steps,
+    _record_growth,
     getrf_nopiv_dist,
     getrf_pp_dist,
+    growth_init,
 )
 from ..parallel.dist_qr import DistQR, _from_flat, _qr_pad_identity, _qr_panel_step, _to_flat, geqrf_dist
 from ..parallel.dist_twostage import DistTwoStage, _he2hb_step, he2hb_dist
@@ -148,8 +165,8 @@ class Checkpoint:
     for a different mesh lcm.  ``rowperm`` (pp only) covers the padded row
     space; all swap activity lives below the true extent, so re-basing
     onto a different padded length copies a prefix of fixed points and
-    data swaps exactly.  ``gauges`` are the NumMonitor carry scalars
-    (empty until the observability slice: ``num_monitor`` on raises).
+    data swaps exactly.  ``gauges`` are the NumMonitor carry scalars of a
+    monitored run (``g``, and ``amax0`` for the LU forms), 0-d arrays.
 
     ``arrays`` holds the multi-array ops' auxiliary carries
     (``_MULTI_KEYS``): the geqrf T_loc / tree stacks, the he2hb reflector
@@ -175,7 +192,7 @@ class Checkpoint:
     gauges: Dict[str, np.ndarray] = field(default_factory=dict)
     arrays: Dict[str, np.ndarray] = field(default_factory=dict)
     # whether the interrupted run had the mid-loop growth-abort gate
-    # armed (monitored no-pivot LU); kept for the observability slice
+    # armed (monitored no-pivot LU): a resume keeps policing it
     growth_abort: bool = False
     # whether the interrupted run snapshotted asynchronously: resume
     # keeps the caller's overlap preference (results are bitwise either way)
@@ -278,12 +295,39 @@ def _steps(op: str, d: DistMatrix) -> int:
     return _he2hb_panel_count(d.n, d.nb) if op == "he2hb" else d.nt
 
 
-def _carry_init(op: str, d: DistMatrix, rowperm=None, arrays=None, owned: bool = False) -> dict:
+def _gauge_init(op: str, d: DistMatrix, st: dict, gauges=None) -> None:
+    """The monitored carry's gauges: a snapshot's (``gauges``), else the
+    plain drivers' start values -- potrf's +inf margin, the LU forms'
+    max|A| pair, a zero orthogonality loss."""
+    dev = d.tiles.device
+    if gauges:
+        for k, v in gauges.items():
+            st[f"gauge_{k}"] = torch.from_numpy(np.array(v)).to(dev)
+        return
+    if op == "potrf":
+        st["gauge_g"] = margin_init(d.dtype, dev)
+    elif op in _MULTI_KEYS:
+        st["gauge_g"] = torch.zeros((), dtype=num_gauge_dtype(d.dtype), device=dev)
+    else:
+        p, q = mesh_shape(d.mesh)
+        st["gauge_amax0"] = growth_init(st["tiles"], p, q, d.m)
+        st["gauge_g"] = st["gauge_amax0"]
+
+
+def _carry_init(op: str, d: DistMatrix, rowperm=None, arrays=None, owned: bool = False,
+                nm: bool = False, gauges=None) -> dict:
     """The loop carry of ``op`` over ``d``: a copy of its tiles (``owned``:
     ``d``'s own stack, a fresh one), or for the multi-array ops its flat
     local matrices (always a copy) with the auxiliary stacks, from
     ``arrays`` (a snapshot's, copied) or zeros as the plain drivers make
-    them."""
+    them; monitored (``nm``), the gauges under ``gauge_*`` keys."""
+    st = _carry_tensors(op, d, rowperm, arrays, owned)
+    if nm:
+        _gauge_init(op, d, st, gauges)
+    return st
+
+
+def _carry_tensors(op: str, d: DistMatrix, rowperm, arrays, owned: bool) -> dict:
     p, q = mesh_shape(d.mesh)
     nb, dtype, dev = d.nb, d.dtype, d.tiles.device
     if op not in _MULTI_KEYS:
@@ -312,24 +356,33 @@ def _carry_init(op: str, d: DistMatrix, rowperm=None, arrays=None, owned: bool =
 
 
 def _seg_dispatch(op: str, st: dict, d: DistMatrix, k0: int, k1: int) -> None:
-    """Steps [k0, k1) of ``op``'s loop, in place on the carry ``st``."""
+    """Steps [k0, k1) of ``op``'s loop, in place on the carry ``st``; a
+    monitored carry's gauge ``gauge_g`` is carried through them."""
     p, q = mesh_shape(d.mesh)
+    g = st.get("gauge_g")
+    nm = g is not None
     if op == "potrf":
-        _potrf_tiles(st["tiles"], p, q, d.nt, 0, k0, k1)
+        g = _potrf_tiles(st["tiles"], p, q, d.nt, 0, k0, k1, margin=g, n_true=d.n)
     elif op == "getrf_nopiv":
-        _getrf_nopiv_tiles(st["tiles"], p, q, d.nt, 0, k0, k1)
+        g = _getrf_nopiv_tiles(st["tiles"], p, q, d.nt, 0, k0, k1, growth=g, m_true=d.m)
     elif op == "getrf_pp":
-        _pp_strict_steps(st["tiles"], st["rowperm"], p, q, d.nt, d.m, k0, k1)
+        g = _pp_strict_steps(st["tiles"], st["rowperm"], p, q, d.nt, d.m, k0, k1, g)
     elif op == "geqrf":
         carry = (st["flat"], st["tls"], st["tvs"], st["tts"])
         for k in range(k0, k1):
-            _qr_panel_step(k, carry, p, q, d.nb, d.m)
+            loss = _qr_panel_step(k, carry, p, q, d.nb, d.m, nm)
+            if nm:
+                g = torch.maximum(g, loss)
     elif op == "he2hb":
         carry = (st["flat"], st["vqs"], st["tqs"])
         for k in range(k0, k1):
-            _he2hb_step(k, carry, p, q, d.n, d.nb)
+            loss = _he2hb_step(k, carry, p, q, d.n, d.nb, nm)
+            if nm:
+                g = torch.maximum(g, loss)
     else:
         raise ValueError(f"no checkpointed driver for op {op!r}; expected one of {CKPT_OPS}")
+    if nm:
+        st["gauge_g"] = g
 
 
 def _fresh(x: torch.Tensor) -> torch.Tensor:
@@ -346,15 +399,20 @@ def _carry_parts(op: str, st: dict, d: DistMatrix) -> Dict[str, torch.Tensor]:
     mtl, ntl = mt // p, nt // q
     if op not in _MULTI_KEYS:
         loc = st["tiles"].view(p, mtl, q, ntl, nb, nb).permute(1, 0, 3, 2, 4, 5)
-        return {"tiles": _fresh(loc).view(mt, nt, nb, nb)}
+        return {"tiles": _fresh(loc).view(mt, nt, nb, nb), **_gauge_parts(st)}
     # flat[r, c, a nb + i, b nb + j] is logical tile (a p + r, b q + c)'s (i, j)
     flat = st["flat"].view(p, q, mtl, nb, ntl, nb).permute(2, 0, 4, 1, 3, 5)
-    parts = {"tiles": _fresh(flat).view(mt, nt, nb, nb)}
+    parts = {"tiles": _fresh(flat).view(mt, nt, nb, nb), **_gauge_parts(st)}
     for kk in _MULTI_KEYS[op]:
         parts[kk] = _fresh(st[kk])
     if op == "geqrf":
         parts["tls"] = parts["tls"].view(p * nt, nb, nb)
     return parts
+
+
+def _gauge_parts(st: dict) -> Dict[str, torch.Tensor]:
+    """Copies of a monitored carry's gauges (``gauge_*``)."""
+    return {kk: _fresh(v) for kk, v in st.items() if kk.startswith("gauge_")}
 
 
 _SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
@@ -393,7 +451,7 @@ class _PendingSnapshot:
     lives on the host and is copied at once."""
 
     def __init__(self, op, d: DistMatrix, st, k, every, bi, pi, ga=False, asnap=False):
-        self._meta = (op, d, int(k), int(every), bi, pi, ga, asnap)
+        self._meta = (op, d, int(k), int(every), bi, pi, ga, asnap, "gauge_g" in st)
         self._rowperm = st["rowperm"].copy() if "rowperm" in st else None
         self._dev = _carry_parts(op, st, d)
         self._host, self._done = _issue_host_copy(self._dev)
@@ -404,13 +462,14 @@ class _PendingSnapshot:
         if self._done is not None:
             self._done.synchronize()
         self._dev = None
-        op, d, k, every, bi, pi, ga, asnap = self._meta
+        op, d, k, every, bi, pi, ga, asnap, nm = self._meta
         p, q = mesh_shape(d.mesh)
         host = {kk: v.numpy() for kk, v in self._host.items()}
         ck = Checkpoint(
             op=op, step=k, every=every, m=d.m, n=d.n, nb=d.nb, grid=(p, q),
-            bcast_impl=bi, panel_impl=pi, num_monitor=False, tiles=host["tiles"],
+            bcast_impl=bi, panel_impl=pi, num_monitor=nm, tiles=host["tiles"],
             rowperm=self._rowperm, arrays={kk: host[kk] for kk in _MULTI_KEYS.get(op, ())},
+            gauges={kk[len("gauge_"):]: v for kk, v in host.items() if kk.startswith("gauge_")},
             growth_abort=ga, async_snapshots=asnap,
         )
         count("ft.ckpt_snapshots", op)
@@ -430,31 +489,43 @@ def _snapshot(op, d: DistMatrix, st, k, every, bi, pi, ga: bool = False) -> Chec
 
 
 def _finish(op: str, d: DistMatrix, st: dict):
-    """The plain drivers' exit computations on the finished carry, and
-    their return forms."""
+    """The plain drivers' exit computations on the finished carry, their
+    gauge records when monitored, and their return forms."""
+    from ..obs import numerics as _num
+
     p, q = mesh_shape(d.mesh)
+    g = st.get("gauge_g")
     if op in _MULTI_KEYS:
         tiles = torch.empty_like(d.tiles)
         _from_flat(st["flat"], tiles, p, q)
         if op == "he2hb":
+            if g is not None:
+                _num.record_he2hb_orth("he2hb", g)
             band = DistMatrix(tiles=tiles, m=d.m, n=d.n, nb=d.nb, mesh=d.mesh)
             return DistTwoStage(band, st["vqs"], st["tqs"], st["vqs"][:0], st["tqs"][:0])
+        if g is not None:
+            _num.record_qr_orth("geqrf", g)
         _qr_pad_identity(tiles, p, q, d.n)
         fd = DistMatrix(tiles=tiles, m=d.m, n=d.n, nb=d.nb, mesh=d.mesh, diag_pad=True)
         return DistQR(fd, st["tls"].reshape(p * d.nt, d.nb, d.nb), st["tvs"], st["tts"])
     t = st["tiles"]
     out = DistMatrix(tiles=t, m=d.m, n=d.n, nb=d.nb, mesh=d.mesh, diag_pad=True)
     if op == "potrf":
-        return out, _chol_info_dist(t, p, q, d.nb)
+        info = _chol_info_dist(t, p, q, d.nb)
+        if g is not None:
+            _num.record_chol_gauges("potrf", *chol_exit_gauges(t, p, q, d.nb, d.n, g))
+        return out, info
     info = _lu_info_dist(t, p, q, d.nb)
+    if g is not None:
+        _record_growth(op, t, p, q, d.m, st["gauge_amax0"], g)
     if op == "getrf_pp":
         return out, torch.from_numpy(st["rowperm"]).to(t.device), info
     return out, info
 
 
-def _run(op: str, d: DistMatrix, k_from: int, every: int, bi: str, pi: str, rowperm=None,
-         ckpt0: Optional[Checkpoint] = None, arrays=None, async_snap: bool = False,
-         growth_abort: bool = False, owned: bool = False):
+def _run(op: str, d: DistMatrix, k_from: int, every: int, bi: str, pi: str, nm: bool = False,
+         rowperm=None, gauges=None, ckpt0: Optional[Checkpoint] = None, arrays=None,
+         async_snap: bool = False, growth_abort: bool = False, owned: bool = False):
     """Run the k-loop of ``op`` over [k_from, nsteps) as segments of
     ``every`` steps: snapshot the carry at every boundary (async when
     ``async_snap``: the copy overlaps the next segment and fences at the
@@ -463,12 +534,16 @@ def _run(op: str, d: DistMatrix, k_from: int, every: int, bi: str, pi: str, rowp
     the partial segment up to the kill step: real work, then lost).
     Either way the work since the last snapshot is exactly what the
     resume re-executes (``ft.ckpt_lost_steps``).  ``owned``: ``d``'s tiles
-    are a fresh stack the run may write (a resume's)."""
+    are a fresh stack the run may write (a resume's).  ``nm`` carries the
+    gauges (from ``gauges``, a snapshot's, on a resume); with
+    ``growth_abort`` the monitored no-pivot LU reads its growth at every
+    segment boundary (one host read) and raises ``GrowthAbort`` past
+    ``GROWTH_THRESHOLD``."""
     if d.dtype == torch.bfloat16:
         raise ValueError(f"{op}_ckpt: numpy has no bfloat16, so a bf16 carry cannot be "
                          "snapshotted; factor in f32 or run without Option.Checkpoint")
     nt = _steps(op, d)
-    st = _carry_init(op, d, rowperm, arrays, owned)
+    st = _carry_init(op, d, rowperm, arrays, owned, nm, gauges)
     ui = "xla" if op == "getrf_pp" else resolve_update_impl()  # pp pins its update, as its driver
     last = ckpt0
     pending: Optional[_PendingSnapshot] = None
@@ -500,6 +575,13 @@ def _run(op: str, d: DistMatrix, k_from: int, every: int, bi: str, pi: str, rowp
                 fence()  # an in-flight host copy survives the preemption
                 raise Preempted(op, kill.k, last)
             _seg_dispatch(op, st, d, k, k2)
+            if growth_abort and "gauge_amax0" in st:
+                a0, gmax = torch.stack([st["gauge_amax0"], st["gauge_g"]]).tolist()
+                growth = gmax / a0 if a0 > 0 else 0.0
+                if growth > GROWTH_THRESHOLD:
+                    record_growth_abort(op, growth)
+                    fence()
+                    raise GrowthAbort(op, growth, k2, GROWTH_THRESHOLD)
             k = k2
             if k < nt:
                 if async_snap:
@@ -517,11 +599,11 @@ def _run(op: str, d: DistMatrix, k_from: int, every: int, bi: str, pi: str, rowp
 # ---------------------------------------------------------------------------
 
 
-def _check_square(a: DistMatrix, who: str, num_monitor) -> None:
+def _check_square(a: DistMatrix, who: str) -> None:
     if a.mt != a.nt:
         raise ValueError(f"{who} needs a square tile grid")
     a.require_diag_pad(who)
-    _check_num_monitor(num_monitor, who)
+
 
 
 @instrument("potrf_ckpt")
@@ -538,9 +620,10 @@ def potrf_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
     if ev is None:
         return potrf_dist(a, bcast_impl=bcast_impl, panel_impl=panel_impl,
                           num_monitor=num_monitor)
-    _check_square(a, "potrf_ckpt", num_monitor)
+    _check_square(a, "potrf_ckpt")
     return _run("potrf", a, 0, ev, resolve_bcast_impl(bcast_impl),
-                resolve_panel_impl(panel_impl), async_snap=resolve_ckpt_async(async_snapshots))
+                resolve_panel_impl(panel_impl), monitored(num_monitor),
+                async_snap=resolve_ckpt_async(async_snapshots))
 
 
 @instrument("getrf_nopiv_ckpt")
@@ -548,18 +631,20 @@ def getrf_nopiv_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None
                      panel_impl: Optional[str] = None, num_monitor: Optional[str] = None,
                      async_snapshots=None, growth_abort: bool = True):
     """Checkpointed mesh LU without pivoting (``getrf_nopiv_dist``,
-    bitwise).  Returns (LU DistMatrix, info).  ``growth_abort`` is
-    ``slate_tpu``'s mid-loop growth gate of the monitored run; it is
-    recorded in every snapshot and acts with ``num_monitor="on"``, which
-    raises until the observability slice."""
+    bitwise).  Returns (LU DistMatrix, info).  Monitored
+    (Option.NumMonitor=on), the running growth gauge is read at every
+    segment boundary: past ``GROWTH_THRESHOLD`` the chain stops and raises
+    ``obs.numerics.GrowthAbort`` instead of finishing a garbage factor
+    (the caller retries with a pivoted method); ``growth_abort=False``
+    opts out.  The gate is recorded in every snapshot."""
     ev = resolve_checkpoint(every)
     if ev is None:
         return getrf_nopiv_dist(a, bcast_impl=bcast_impl, panel_impl=panel_impl,
                                 num_monitor=num_monitor)
-    _check_square(a, "getrf_nopiv_ckpt", num_monitor)
+    _check_square(a, "getrf_nopiv_ckpt")
     return _run("getrf_nopiv", a, 0, ev, resolve_bcast_impl(bcast_impl),
-                resolve_panel_impl(panel_impl), async_snap=resolve_ckpt_async(async_snapshots),
-                growth_abort=growth_abort)
+                resolve_panel_impl(panel_impl), monitored(num_monitor),
+                async_snap=resolve_ckpt_async(async_snapshots), growth_abort=growth_abort)
 
 
 @instrument("getrf_pp_ckpt")
@@ -572,9 +657,9 @@ def getrf_pp_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
     ev = resolve_checkpoint(every)
     if ev is None:
         return getrf_pp_dist(a, bcast_impl=bcast_impl, num_monitor=num_monitor)
-    _check_square(a, "getrf_pp_ckpt", num_monitor)
+    _check_square(a, "getrf_pp_ckpt")
     return _run("getrf_pp", a, 0, ev, resolve_bcast_impl(bcast_impl), resolve_panel_impl(),
-                async_snap=resolve_ckpt_async(async_snapshots))
+                monitored(num_monitor), async_snap=resolve_ckpt_async(async_snapshots))
 
 
 @instrument("geqrf_ckpt")
@@ -591,9 +676,8 @@ def geqrf_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
         return geqrf_dist(a, bcast_impl=bcast_impl, num_monitor=num_monitor)
     if a.m < a.n:
         raise ValueError(f"geqrf_ckpt requires m >= n, got {a.m}x{a.n}")
-    _check_num_monitor(num_monitor, "geqrf_ckpt")
     return _run("geqrf", a, 0, ev, resolve_bcast_impl(bcast_impl), resolve_panel_impl(),
-                async_snap=resolve_ckpt_async(async_snapshots))
+                monitored(num_monitor), async_snap=resolve_ckpt_async(async_snapshots))
 
 
 @instrument("he2hb_ckpt")
@@ -610,6 +694,5 @@ def he2hb_ckpt(a: DistMatrix, every=None, bcast_impl: Optional[str] = None,
         raise ValueError("he2hb_ckpt needs a square matrix")
     if ev is None or _he2hb_panel_count(a.n, a.nb) == 0:
         return he2hb_dist(a, bcast_impl=bcast_impl, num_monitor=num_monitor)
-    _check_num_monitor(num_monitor, "he2hb_ckpt")
     return _run("he2hb", a, 0, ev, resolve_bcast_impl(bcast_impl), resolve_panel_impl(),
-                async_snap=resolve_ckpt_async(async_snapshots))
+                monitored(num_monitor), async_snap=resolve_ckpt_async(async_snapshots))

@@ -127,14 +127,12 @@ def resume(ck: Checkpoint, mesh: VirtualMesh, bcast_impl: Optional[str] = None,
     same grid and, for the tile-stack ops, on a reshaped grid.  The
     multi-array ops carry grid-locked arrays (a mesh row's local panel QR
     factors exactly the rows that row owns), so a reshaped-grid resume
-    raises; a same-shape grid over other device ids resumes.  Raises
-    ``Preempted`` again if a persistent kill fault is still armed."""
+    raises; a same-shape grid over other device ids resumes.  A monitored
+    snapshot resumes monitored, its gauges continued, and its growth gate
+    still policed.  Raises ``Preempted`` again if a persistent kill fault
+    is still armed."""
     if not resumable(ck):
         raise SlateError("elastic.resume: checkpoint is missing or names an unknown op")
-    if ck.num_monitor:
-        raise NotImplementedError(
-            f"elastic.resume: the {ck.op} snapshot carries NumMonitor gauges; "
-            "num_monitor='on' comes with the observability slice (slice 10)")
     t0 = time.perf_counter()
     p2, q2 = mesh_shape(mesh)
     if ck.op in _ckpt._MULTI_KEYS and (p2, q2) != tuple(ck.grid):
@@ -154,7 +152,10 @@ def resume(ck: Checkpoint, mesh: VirtualMesh, bcast_impl: Optional[str] = None,
         ck.op, d, ck.step, ck.every,
         bcast_impl if bcast_impl is not None else ck.bcast_impl,
         panel_impl if panel_impl is not None else ck.panel_impl,
-        rowperm=rowperm, ckpt0=ck, arrays=(ck.arrays or None),
+        # a monitored snapshot continues its gauges (max / min folds are
+        # exact, so the finished chain records the unbroken run's)
+        ck.num_monitor, rowperm=rowperm, gauges=(ck.gauges or None), ckpt0=ck,
+        arrays=(ck.arrays or None),
         # keep the interrupted run's async preference (persisted in the
         # snapshot) unless the environment re-arms it
         async_snap=(ck.async_snapshots or _ckpt.resolve_ckpt_async(None)),

@@ -18,9 +18,9 @@ type, report and ``ft.*`` counter keys, counted in the port's own
   recompute, then ``FtError`` if still dirty.
 
 Detections / corrections land in the obs metrics registry as ``ft.*``
-counters (tagged with the op name); the port prints them in
-``python -m slate_tpu_torch.ft.smoke``'s JSON line (RunReports come with
-the observability slice).
+counters (tagged with the op name) and the RunReport's ``ft`` section;
+``python -m slate_tpu_torch.ft.smoke`` prints them in its JSON line and
+writes its RunReport.
 """
 
 from __future__ import annotations

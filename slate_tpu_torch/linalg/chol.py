@@ -8,9 +8,15 @@ Counterpart of the potrf/potrs/posv/potri and pb* parts of
   :func:`_potrf_scan` — nb = 256 panel steps whose diagonal block is
   factored with its inverse by ``ops.kernels.chol_diag_inv`` (the hand-
   written CUDA kernel on the card);
-- f64 with n >= ``_POTRF_LL_MIN_N`` runs :func:`_potrf_left_looking`, whose
-  diagonal blocks recurse through :func:`_potrf_and_inv` down to 256-wide
-  leaves that call the same kernel;
+- f64 / c128 with n >= ``_POTRF_LL_MIN_N`` takes ``slate_tpu``'s
+  memory-routed left-looking form (``_potrf_f64_form`` ->
+  ``obs.memmodel.potrf_f64_form``): ``ozaki`` runs :func:`_potrf_ll_ozaki`
+  (a persistent int8 digit cache of the factored panels, ``ops.ozaki``),
+  ``staged`` and ``fused`` both run :func:`potrf_left_looking_staged`, the
+  in-place panel loop; its diagonal blocks recurse through
+  :func:`_potrf_and_inv` down to 256-wide leaves that call the same kernel.
+  On the card the f64 Ozaki gate answers False (``ops.matmul``), so the
+  route is the panel loop there;
 - everything else runs the recursive :func:`_potrf_lower` with a
   ``torch.linalg`` cholesky leaf;
 - a lower band with 4 kd <= n runs the windowed ``linalg.band.pbtrf_band``;
@@ -26,6 +32,7 @@ matters.
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 from typing import Optional, Tuple, Union
 
@@ -215,8 +222,8 @@ def _potrf_inv_base_f64(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return le, _tri_inv(le)
 
 
-def _potrf_left_looking(a: torch.Tensor, nb: Optional[int] = None,
-                        overwrite_a: bool = False) -> torch.Tensor:
+def potrf_left_looking_staged(a: torch.Tensor, nb: Optional[int] = None,
+                              donate: bool = False) -> torch.Tensor:
     """Left-looking blocked lower Cholesky: every panel subtracts the
     factored history as one large-k gemm, factors its diagonal block with
     its inverse (:func:`_potrf_and_inv`) and solves the rows below as a gemm.
@@ -225,17 +232,90 @@ def _potrf_left_looking(a: torch.Tensor, nb: Optional[int] = None,
     one donated program per panel ("staged"), and picks by modelled HBM
     peak because XLA keeps several live copies of the matrix across the
     unrolled chain.  Eager PyTorch has no such copies: both forms are the
-    same in-place panel loop, which is this function."""
+    same in-place panel loop, which is this function, with its peak one
+    matrix plus a panel step's transients
+    (``obs.memmodel.potrf_staged_peak``).  ``donate=True`` factors ``a``
+    in place (``slate_tpu``'s donation: the caller must not reuse ``a``);
+    the default works on a copy."""
     n = a.shape[0]
     if nb is None:
         nb = 4096 if n >= 16384 else 2048
     if n <= nb:
         return _potrf_lower(a)
     nsteps = -(-n // nb)
-    ap = _potrf_ll_pad(a, nsteps, nb, overwrite_a)
+    ap = _potrf_ll_pad(a, nsteps, nb, donate)
     for j in range(nsteps):
         _potrf_ll_panel_step(ap, j * nb, nb)
     return ap[:n, :n].tril_()  # ap is this function's own: project in place
+
+
+def _potrf_ll_ozaki(a: torch.Tensor, nb: Optional[int] = None,
+                    n_slices: Optional[int] = None, overwrite_a: bool = False) -> torch.Tensor:
+    """Left-looking f64 lower Cholesky with a persistent Ozaki digit cache
+    (``slate_tpu``'s ``_potrf_ll_ozaki``).  Cholesky bounds every factor row
+    a priori, |L[i, j]| <= sqrt(A[i, i]), so each row's digit grid is fixed
+    at 2^e[i] > sqrt(A[i, i]) before factoring: every factored panel is
+    split ONCE into the (S, n, n) int8 cache (``ops.ozaki.split_rows``) and
+    each panel's update is one plane-level product over the whole history
+    (``ops.ozaki.matmul_planes``), no per-use splits.  S = 9, or 10 above
+    n = 8192, where the bound's slack can exceed one 6-bit plane.  Peak:
+    the S n^2 cache beside ~4 f64 matrices
+    (``obs.memmodel.potrf_ozaki_cache_peak``); ``potrf_array`` routes here
+    only where ``memmodel.potrf_f64_form`` says that fits."""
+    from ..ops.ozaki import _row_exp, matmul_planes, split_rows
+
+    n = a.shape[0]
+    if n_slices is None:
+        n_slices = 10 if n > 8192 else 9
+    if nb is None:
+        nb = 4096 if n >= 16384 else 2048
+    if n <= nb:
+        return _potrf_lower(a)
+    nsteps = -(-n // nb)
+    np_ = nsteps * nb
+    ap = _potrf_ll_pad(a, nsteps, nb, overwrite_a)
+    root = ap.diagonal().real.clamp(min=0).sqrt().to(torch.float32)
+    e = _row_exp(root)[:, None]
+    q = torch.zeros((n_slices, np_, np_), dtype=torch.int8, device=ap.device)
+    for j in range(nsteps):
+        r0 = j * nb
+        panel = ap[r0:, r0:r0 + nb]
+        if j:
+            panel = panel - matmul_planes(q[:, r0:, :r0], e[r0:], q[:, r0:r0 + nb, :r0],
+                                          e[r0:r0 + nb])
+        dblk, linv = _potrf_and_inv(panel[:nb].contiguous())
+        dblk = dblk.tril()
+        if panel.shape[0] > nb:
+            below = matmul(panel[nb:], linv.T).to(ap.dtype)
+            cpanel = torch.cat([dblk, below], dim=0)
+        else:
+            cpanel = dblk
+        if j + 1 < nsteps:  # the last panel is never read back
+            q[:, r0:, r0:r0 + nb] = split_rows(cpanel, n_slices, e[r0:])[0]
+        ap[r0:, r0:r0 + nb] = cpanel
+    return ap[:n, :n].tril_()
+
+
+def _route_budget(device) -> int:
+    """The device-memory budget of the f64 route: ``SLATE_TPU_HBM_BYTES``,
+    else the card's memory, else (a CPU operand) the host's memory, passed
+    to the model explicitly."""
+    from ..obs import memmodel
+
+    try:
+        return memmodel.hbm_budget(device)
+    except ValueError:
+        return int(os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+
+
+def _potrf_f64_form(n: int, ozaki_dispatch: bool, itemsize: int = 8, device=None) -> str:
+    """ozaki | staged | fused for one big f64 / c128 factorization, by
+    modelled peak against the device's budget (``obs.memmodel.potrf_f64_form``,
+    ``slate_tpu``'s rules; every port call is concrete)."""
+    from ..obs import memmodel
+
+    return memmodel.potrf_f64_form(n, True, ozaki_dispatch, budget=_route_budget(device),
+                                   itemsize=itemsize)
 
 
 def _potrf_ll_pad(a: torch.Tensor, nsteps: int, nb: int, overwrite_a: bool) -> torch.Tensor:
@@ -281,7 +361,14 @@ def potrf_array(a: torch.Tensor, uplo: Uplo = Uplo.Lower) -> Tuple[torch.Tensor,
     n = a.shape[0]
     full = symmetrize(a, uplo, conj=a.is_complex())  # owned here: factored in place
     if a.dtype in (torch.float64, torch.complex128) and n >= _POTRF_LL_MIN_N:
-        l = _potrf_left_looking(full, overwrite_a=True)
+        from ..ops.matmul import _F64_DISPATCH, _tpu_is_default
+
+        ozaki_ok = a.dtype == torch.float64 and _F64_DISPATCH["ozaki"] and _tpu_is_default()
+        form = _potrf_f64_form(n, ozaki_ok, a.element_size(), a.device)
+        if form == "ozaki":
+            l = _potrf_ll_ozaki(full, overwrite_a=True)
+        else:  # staged and fused: the in-place panel loop on the symmetrized copy
+            l = potrf_left_looking_staged(full, donate=True)
     elif n > _POTRF_SCAN_MIN_N:
         l = _potrf_scan(full, overwrite_a=True)
     else:

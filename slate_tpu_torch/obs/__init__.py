@@ -1,8 +1,8 @@
-"""Observability of the port: metrics, spans, RunReports, Perfetto export
-and the step-level flight recorder.
+"""Observability of the port: metrics, spans, RunReports, Perfetto export,
+the step-level flight recorder, and the memory and numerics layers.
 
-Counterpart of ``slate_tpu/obs`` (its core; the memory and numerics
-layers come with their slice):
+Counterpart of ``slate_tpu/obs`` (all but its live telemetry bus,
+``obs.live``, which needs the service layer):
 
 - ``enable()`` / ``SLATE_TPU_OBS=1`` lights up every instrumented driver
   (``instrument``): nested spans with wall seconds (the card fenced at both
@@ -16,6 +16,12 @@ layers come with their slice):
 - ``flight`` is the step-level flight recorder over the six mesh k-loops
   (``flight_scope`` / ``SLATE_TPU_OBS_DEEP=1``), ``schedule`` its static
   model and critical-path analyses;
+- ``numerics`` is Option.NumMonitor's gauge surface (``num.*``: growth,
+  margins, orthogonality, condition estimates, the mixed ladder's health
+  routing) and ``numwatch`` its artifact CLI;
+- ``memory`` samples device memory at span exits and flight rows, traces
+  one call's allocations and writes the OOM forensics; ``memmodel`` is the
+  analytic model beside it and ``memwatch`` their artifact CLI;
 - ``python -m slate_tpu_torch.obs.smoke`` is the acceptance run.
 """
 

@@ -104,6 +104,9 @@ class FlightRecorder:
         self.events: List[StepEvent] = []
         self.hop_events: List[dict] = []  # {op, k, phase, root_k, t0, t1, hops}
         self.runs: List[dict] = []
+        # obs.memory samples taken at each row's close while memory
+        # sampling is active: the memory counter track beside the Gantt
+        self.mem_samples: List[dict] = []
 
     def record_phase(self, op, k, phase, t0, t1, nbytes, flops, coords,
                      hops=None, root_k=None) -> None:
@@ -135,6 +138,7 @@ class FlightRecorder:
         self.events.clear()
         self.hop_events.clear()
         self.runs.clear()
+        self.mem_samples.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +251,17 @@ class _Run:
         t1 = time.perf_counter()
         self.pending = [o[0], o[1], o[2], o[3], t1, o[4], len(self.sched), o[5]]
         self.open = None
+        self._sample(o[0], o[1])
+
+    def _sample(self, phase: str, k: int) -> None:
+        """A memory sample after the row's fence, while sampling is active
+        (``obs.memory``; the sampling switch is read only with obs on)."""
+        from . import memory as _memory
+
+        rec = self.rec
+        if _memory.sampling_active() and len(rec.mem_samples) < _memory._SAMPLE_CAP:
+            s = _memory.sample(f"flight:{self.op}:{phase}")
+            rec.mem_samples.append(dict(s, k=int(k), phase=phase, op=self.op))
 
     def _flush(self) -> None:
         p = self.pending
@@ -609,6 +624,12 @@ def run_flight(op: str, n: int = 96, nb: int = 8, depth: Optional[int] = None,
          "t0_s": h["t0"] - base, "t1_s": h["t1"] - base, "hops": h["hops"]}
         for h in rec.hop_events
     ]
+    mem_samples = [
+        {"t_s": s["t"] - base, "k": s.get("k", 0), "phase": s.get("phase", ""),
+         "live_bytes": s.get("live_bytes", 0.0), "live_per_device": s.get("live_per_device") or {},
+         "bytes_in_use": s.get("bytes_in_use") or {}}
+        for s in rec.mem_samples
+    ]
     values = {
         "sched.critical_path_s": sched["critical_path_s"],
         "sched.overlap_eff": sched["overlap_eff"],
@@ -635,8 +656,9 @@ def run_flight(op: str, n: int = 96, nb: int = 8, depth: Optional[int] = None,
         "config": config,
         "events": events,
         "hop_events": hop_events,
-        # the memory samples beside the Gantt come with the memory slice
-        "mem_samples": [],
+        # the memory counter track's data: present (non-empty) when memory
+        # sampling was active during the flight
+        "mem_samples": mem_samples,
         "model": {
             "calibration": cal,
             "phase_bytes": dict(model.phase_bytes),

@@ -7,8 +7,11 @@ flight timeline (one track
 per mesh coordinate, one complete event per row, flow arrows from each
 broadcast's owner to its hop destinations).  The output loads in
 ui.perfetto.dev or chrome://tracing; ``validate_chrome_trace`` checks the
-subset of the format written here.  The memory counter tracks and the
-serving tracks come with their slices.
+subset of the format written here.  The ``obs.memory`` samples render as
+counter tracks (``memory_counter_events``) beside both the span Gantt and a
+flight Gantt, and a refinement trajectory as the ``num.ir_rnorm`` /
+``num.ir_xnorm`` counter tracks (``numerics_counter_events``).  The
+serving tracks come with the service layer.
 
 On one card the hop events are the audited schedule of a real p x q mesh:
 the virtual-mesh broadcast itself is indexing.
@@ -95,6 +98,15 @@ def chrome_trace_events(spans: Optional[Iterable[dict]] = None,
                     "args": {"bytes": link_total},
                 }
             )
+    # the obs.memory samples taken at top-level span exits, as counter
+    # tracks beside the span Gantt (a sys.modules probe: a run that never
+    # sampled never imports the memory layer)
+    import sys as _sys
+
+    _mem = _sys.modules.get(__package__ + ".memory")
+    if _mem is not None and _mem.SAMPLES:
+        mbase = base if spans else min(s["t"] for s in _mem.SAMPLES)
+        evs.extend(memory_counter_events(_mem.SAMPLES, mbase))
     return evs
 
 
@@ -112,9 +124,54 @@ def write_chrome_trace(path: str, spans: Optional[Iterable[dict]] = None) -> str
     return path
 
 
+def memory_counter_events(samples: Iterable[dict], base: float = 0.0,
+                          tid: int = 0, time_key: str = "t") -> List[dict]:
+    """Counter events (``ph: "C"``) from obs.memory samples: one
+    ``mem.live_bytes`` series plus one ``mem.bytes_in_use[<device>]``
+    series per device that reports allocator stats and one
+    ``mem.live_bytes[<device>]`` per device of the live walk.
+    ``time_key`` selects absolute perf_counter stamps (``"t"``, rebased by
+    ``base``) or already-relative seconds (``"t_s"``, flight reports)."""
+    evs: List[dict] = []
+    for s in samples:
+        t = s.get(time_key)
+        if t is None:
+            continue
+        ts = max(0.0, (float(t) - (base if time_key == "t" else 0.0))) * _US
+        attr = {k: s[k] for k in ("trace_id", "tenant") if s.get(k)}
+        evs.append({"name": "mem.live_bytes", "cat": "mem", "ph": "C", "pid": PID, "tid": tid,
+                    "ts": ts, "args": {"bytes": s.get("live_bytes", 0.0), **attr}})
+        for dev, b in sorted((s.get("bytes_in_use") or {}).items()):
+            evs.append({"name": f"mem.bytes_in_use[{dev}]", "cat": "mem", "ph": "C", "pid": PID,
+                        "tid": tid, "ts": ts, "args": {"bytes": b, **attr}})
+        for dev, b in sorted((s.get("live_per_device") or {}).items()):
+            evs.append({"name": f"mem.live_bytes[{dev}]", "cat": "mem", "ph": "C", "pid": PID,
+                        "tid": tid, "ts": ts, "args": {"bytes": b, **attr}})
+    return evs
+
+
+def numerics_counter_events(history, op: str = "", tid: int = 0,
+                            t0: float = 0.0, dt: float = 1e-3) -> List[dict]:
+    """Counter events (``ph: "C"``) of a refinement trajectory
+    (``obs.numerics.last_history``): one ``num.ir_rnorm[op]`` and one
+    ``num.ir_xnorm[op]`` series, one sample per iteration, ``dt`` seconds
+    apart from ``t0`` (the trajectory is ordinal, the spacing
+    presentational)."""
+    evs: List[dict] = []
+    suffix = f"[{op}]" if op else ""
+    for i, (rn, xn) in enumerate(history):
+        ts = (t0 + i * dt) * _US
+        evs.append({"name": f"num.ir_rnorm{suffix}", "cat": "num", "ph": "C", "pid": PID,
+                    "tid": tid, "ts": ts, "args": {"rnorm": rn}})
+        evs.append({"name": f"num.ir_xnorm{suffix}", "cat": "num", "ph": "C", "pid": PID,
+                    "tid": tid, "ts": ts, "args": {"xnorm": xn}})
+    return evs
+
+
 def flight_trace_events(events: Iterable[dict],
                         hop_events: Optional[Iterable[dict]] = None,
-                        grid: Optional[tuple] = None) -> List[dict]:
+                        grid: Optional[tuple] = None,
+                        mem_samples: Optional[Iterable[dict]] = None) -> List[dict]:
     """Per-device Gantt of a flight timeline (obs.flight): one track per
     mesh coordinate, one complete event per fenced phase dispatch, and
     flow arrows (``ph: s``/``f``) from the broadcast owner to each hop
@@ -190,12 +247,16 @@ def flight_trace_events(events: Iterable[dict],
                                           "k": he["k"]}))
                     evs.append(dict(common, ph="f", bp="e", tid=tid(*d_rc),
                                     ts=te, args={}))
+    # the memory counter track beside the Gantt: the flight's samples carry
+    # report-relative t_s stamps
+    if mem_samples:
+        evs.extend(memory_counter_events(mem_samples, tid=199, time_key="t_s"))
     return evs
 
 
-def flight_chrome_trace(events, hop_events=None, grid=None) -> dict:
+def flight_chrome_trace(events, hop_events=None, grid=None, mem_samples=None) -> dict:
     return {
-        "traceEvents": flight_trace_events(events, hop_events, grid),
+        "traceEvents": flight_trace_events(events, hop_events, grid, mem_samples),
         "displayTimeUnit": "ms",
         "otherData": {"producer": "slate_tpu.obs.flight"},
     }

@@ -3,9 +3,10 @@
 Counterpart of ``slate_tpu/obs/report.py``, with its schema
 (``slate_tpu.obs.run_report`` v1) unchanged: a report from either package
 passes the other's ``validate_report``, and ``--check`` decides the same
-on the same pair of reports.  The port fills the ``ft``, ``ir`` and
-``serve`` sections (its flat serve counters); ``mem`` and ``num`` come
-with the memory and numerics slice, and every section is optional.
+on the same pair of reports.  The port fills the ``ft``, ``ir``, ``mem``
+(``obs.memory``), ``num`` (``obs.numerics``) and ``serve`` (its flat serve
+counters) sections; every section is optional, and an all-zero one stays
+out of ``--check``.
 
 CLI::
 
@@ -132,6 +133,8 @@ def make_report(
     from ..ft.policy import ft_counter_values
     from ..linalg.refine import ir_counter_values
     from .context import current as _ctx_current
+    from .memory import mem_counter_values
+    from .numerics import num_counter_values
 
     cfg = dict(config or {})
     # a report written under a TraceContext is joinable against its spans
@@ -151,6 +154,13 @@ def make_report(
         "ft": ft_counter_values(),
         # mixed-precision refinement totals (ir.* counters)
         "ir": ir_counter_values(),
+        # memory totals (obs.memory): live / allocator byte maxima sampled
+        # at top-level span exits and flight rows, and the OOM events
+        "mem": mem_counter_values(),
+        # numerics totals (obs.numerics): monitored runs, the worst growth,
+        # condition estimate, margin and orthogonality loss, the alarms and
+        # the health-routed GMRES entries
+        "num": num_counter_values(),
         # the flat serve counters (the Ozaki plane cache, the condest memo)
         "serve": serve_counts(),
         "metrics": REGISTRY.snapshot(),

@@ -27,8 +27,12 @@ Two differences from ``slate_tpu`` follow from eager execution:
   XLA cost analysis has no counterpart).  Its span counts one call's
   bytes: the cold call's records stay in its own phase span.
 
-The memory sampling at span boundaries and the OOM forensics of
-``slate_tpu``'s spans come with the memory slice.
+A top-level span samples device memory at its exit (``obs.memory``: the
+live bytes and the allocator's counters, into the span's metrics and the
+Perfetto memory tracks) while observability is on; disabled, the memory
+layer is never consulted.  ``instrument`` also routes an exception through
+``obs.memory.handle_driver_exception`` (enabled or not), which writes one
+OOM forensics report per out-of-memory failure and lets it propagate.
 """
 
 from __future__ import annotations
@@ -83,12 +87,20 @@ def force_enabled(value: bool = True):
 
 
 def reset() -> None:
-    """Drop the finished spans, the metrics and the flat serve counters (a
-    fresh run boundary)."""
+    """Drop the finished spans, the metrics, the flat serve counters, the
+    memory samples and the numerics gauges (a fresh run boundary).  The
+    memory and numerics layers are reset only if something imported them
+    (``sys.modules`` probes)."""
+    import sys as _sys
+
     with _finished_lock:
         FINISHED.clear()
     REGISTRY.reset()
     serve_reset()
+    for layer in ("memory", "numerics"):
+        mod = _sys.modules.get(f"{__package__}.{layer}")
+        if mod is not None:
+            mod.reset()
 
 
 def _stack() -> List["Span"]:
@@ -243,6 +255,12 @@ def _finish(span: Span, name: str, tags: dict, ctx, records, sched_records) -> N
     # (slate_tpu's in-loop records carry step None and the root-0 pairs)
     hops = [{"op": op, "bytes": float(nbytes), "mult": mult, "step": step, "pairs": pairs}
             for op, nbytes, mult, _ph, step, pairs in sched_records if pairs][:64]
+    # device memory at a top-level span's exit (obs.memory); reached only
+    # with observability on, so a disabled run makes no scan or stats call
+    if span.depth == 0:
+        from . import memory as _memory
+
+        _memory.sample_span(span)
     record = {
         "name": name,
         "tags": {k: str(v) for k, v in tags.items()},
@@ -271,22 +289,39 @@ def _default_tags(args) -> Dict[str, Any]:
     return {}
 
 
+def _oom_note(name: str, exc: BaseException, args) -> None:
+    """OOM forensics at the drivers' dispatch layer: hand the exception to
+    ``obs.memory.handle_driver_exception`` (which acts only on an
+    out-of-memory failure).  Never masks the original exception."""
+    try:
+        from . import memory as _memory
+
+        _memory.handle_driver_exception(name, exc, args)
+    except Exception:
+        pass
+
+
 def instrument(name: Optional[str] = None, **static_tags) -> Callable:
     """Decorator wiring a driver into the observability layer.  Disabled,
-    the wrapper calls the function straight through; enabled, the call
-    runs inside ``driver_span(name, **shape_tags)``."""
+    the wrapper calls the function straight through (an exception still
+    passes the OOM forensics hook on its way out); enabled, the call runs
+    inside ``driver_span(name, **shape_tags)``."""
 
     def deco(fn: Callable) -> Callable:
         span_name = name or fn.__name__
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            if not _enabled:
-                return fn(*args, **kwargs)
-            tags = dict(static_tags)
-            tags.update(_default_tags(args))
-            with driver_span(span_name, **tags):
-                return fn(*args, **kwargs)
+            try:
+                if not _enabled:
+                    return fn(*args, **kwargs)
+                tags = dict(static_tags)
+                tags.update(_default_tags(args))
+                with driver_span(span_name, **tags):
+                    return fn(*args, **kwargs)
+            except Exception as exc:
+                _oom_note(span_name, exc, args)
+                raise
 
         wrapper.__wrapped__ = fn
         wrapper._obs_span = span_name

@@ -63,7 +63,9 @@ wrappers work in place, where ``slate_tpu``'s return a new array.
   ``ops.matmul.matmul_pallas`` is the public entry.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; a CPU
-call (the twin) does not count.  With ``matmul_pallas`` every Pallas kernel
+call (the twin) does not count.  A traced call (``obs.memory.traced_memory``)
+tallies each wrapper as one op (``opaque_call``): what it returns, not its
+twin's or its launch's temporaries, so the tally is the same on both.  With ``matmul_pallas`` every Pallas kernel
 of ``slate_tpu`` has its counterpart here.
 """
 
@@ -76,6 +78,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..obs.memory import opaque_call
 from . import _build
 from .matmul import _tf32, matmul
 
@@ -244,6 +247,7 @@ def _chol_diag_inv_fn(dtype: torch.dtype):
     return fn
 
 
+@opaque_call
 def chol_diag_inv(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(L, L^-1) of one nb x nb SPD block (lower triangle read).
 
@@ -369,6 +373,7 @@ def summa_update_plain(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor)
     return acc.add_(torch.matmul(pan.unsqueeze(-3), urow.unsqueeze(-4)))
 
 
+@opaque_call
 def summa_update(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor) -> torch.Tensor:
     """One SUMMA accumulation step over the virtual mesh, in place:
     ``acc[r,q,i,j] += pan[r,q,i] @ urow[r,q,j]`` with ``acc`` (R, Q, I, J,
@@ -394,6 +399,7 @@ def chol_trailing_update_plain(view: torch.Tensor, pan: torch.Tensor, pan_t: tor
                                                                                device=upd.device)))
 
 
+@opaque_call
 def chol_trailing_update(view: torch.Tensor, pan: torch.Tensor, pan_t: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
     """The potrf trailing herk over the virtual mesh, in place:
@@ -433,6 +439,7 @@ def chol_panel_tiles_plain(dtile: torch.Tensor, tiles: torch.Tensor
     return l, torch.matmul(tiles, x.T)
 
 
+@opaque_call
 def chol_panel_tiles(dtile: torch.Tensor, tiles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The potrf panel phase: (tril L_kk, the tile stack solved against
     L_kk^T, i.e. ``tiles[...] @ L_kk^-T``).  ``dtile`` is the nb x nb
@@ -545,6 +552,7 @@ def lu_panel_tiles_plain(dtile: torch.Tensor, tiles: torch.Tensor
     return lu, torch.matmul(tiles, x)
 
 
+@opaque_call
 def lu_panel_tiles(dtile: torch.Tensor, tiles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The getrf-nopiv panel-column phase: (packed L\\U of the diagonal
     tile, ``tiles[...] @ U^-1``).  ``tiles`` is (..., nb, nb) with up to
@@ -579,6 +587,7 @@ def lu_rowsolve_tiles_plain(luk: torch.Tensor, tiles: torch.Tensor) -> torch.Ten
     return torch.matmul(unit_linv_plain(luk), tiles)
 
 
+@opaque_call
 def lu_rowsolve_tiles(luk: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
     """The getrf-nopiv panel-row phase: ``unit-L^-1 @ tiles[...]`` for the
     packed L\\U ``luk``.  ``tiles`` is (..., nb, nb) with up to three
@@ -616,6 +625,7 @@ def lu_trailing_update_plain(view: torch.Tensor, pan: torch.Tensor, urow: torch.
                                  torch.zeros((), dtype=upd.dtype, device=upd.device)))
 
 
+@opaque_call
 def lu_trailing_update(view: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
     """The LU trailing update over the virtual mesh, in place:
@@ -887,6 +897,7 @@ def qr_panel_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.T
     return vr, tau, _larft(vr, tau)
 
 
+@opaque_call
 def qr_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Unblocked Householder QR of an (m, w) panel with its compact-WY T:
     (packed VR, tau, T), Q = I - V T V^T; ``a`` may carry a leading batch
@@ -917,6 +928,7 @@ def qr_panel_offset_plain(a: torch.Tensor, row0
     return r, v, tau, _larft_v(v, tau)
 
 
+@opaque_call
 def qr_panel_offset(a: torch.Tensor, row0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The offset-pivot panel: the pivot of column j is row ``row0 + j``
@@ -967,6 +979,7 @@ def ft_summa_update_plain(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tens
     return acc, part
 
 
+@opaque_call
 def ft_summa_update(acc: torch.Tensor, pan: torch.Tensor, urow: torch.Tensor,
                     w1: torch.Tensor, w2: torch.Tensor, part: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1146,6 +1159,7 @@ def transpose_tiles_plain(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-1, -2).contiguous()
 
 
+@opaque_call
 def transpose_tiles(a: torch.Tensor) -> torch.Tensor:
     """Batched tile transpose (``transpose_pallas``): (k, mb, nb) ->
     (k, nb, mb).  A CPU tensor takes :func:`transpose_tiles_plain`; a CUDA
@@ -1182,6 +1196,7 @@ def geadd_tiles_plain(alpha, a: torch.Tensor, beta, b: torch.Tensor) -> torch.Te
     return (al * a.to(wide) + be * b.to(wide)).to(a.dtype)
 
 
+@opaque_call
 def geadd_tiles(alpha, a: torch.Tensor, beta, b: torch.Tensor) -> torch.Tensor:
     """``alpha A + beta B`` over a (k, mb, nb) tile stack (``geadd_pallas``),
     a new tensor.  A CPU tensor takes :func:`geadd_tiles_plain`; a CUDA
@@ -1207,6 +1222,7 @@ def genorm_max_tiles_plain(a: torch.Tensor) -> torch.Tensor:
     return a.abs().amax(dim=-2).amax(dim=-1)
 
 
+@opaque_call
 def genorm_max_tiles(a: torch.Tensor) -> torch.Tensor:
     """Per-tile max |a| of a (k, mb, nb) stack, (k,) in ``a.dtype``
     (``genorm_max_pallas``); a tile holding a NaN gives NaN.  A CPU tensor
@@ -1369,6 +1385,7 @@ def matmul_pack(t: torch.Tensor, which: str) -> torch.Tensor:
 matmul_pack.launches = 0
 
 
+@opaque_call
 def matmul_pallas(a: torch.Tensor, b: torch.Tensor, bm: int = 512, bn: int = 512,
                   bk: int = 512) -> torch.Tensor:
     """C = A @ B, products summed in f32, C in ``a.dtype`` (the port of

@@ -588,6 +588,19 @@ def pipelined_factor_loop(k0, k1, depth, panel, narrow, bulk, state, zero_payloa
         return bulk(None, state, pl)
 
 
+def la_live_buffers(depth: int, factor_loop: bool = False) -> int:
+    """Panel-broadcast payloads the lookahead schedule pins live at once on
+    a device of a real mesh (``slate_tpu``'s single source for the depth
+    term of ``obs.memmodel.MemoryModel``): ``prefetch_bcast`` keeps the
+    d-deep FIFO plus the in-flight head, 1 + d; ``pipelined_factor_loop``
+    carries the deferred step-(k-1) payload beside the fresh step-k one,
+    its depth capped at 1: 1 + 2 min(d, 1) payload pairs."""
+    d = max(0, int(depth))
+    if factor_loop:
+        return 1 + 2 * min(d, 1)
+    return 1 + d
+
+
 def bucket_plan(nt: int, p: int, q: int, nbuckets: int = BUCKETS):
     """Static trailing-update segmentation of the bucketed factorizations:
     (k0, k1, s0r, s0c) per bucket, s0r/s0c the local row/col slot cuts

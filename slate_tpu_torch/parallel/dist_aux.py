@@ -19,8 +19,9 @@ Counterpart of ``slate_tpu/parallel/dist_aux.py`` (the reference's
   between the two solves), audited once at that multiplicity; the port
   runs it on the host and records as the reference traces: the first trip
   of each solve at the loop's multiplicity, later trips at 0.  The
-  estimate is memoized on the factor (see the memo note).  The
-  ``num.condest`` gauge comes with the observability slice.
+  estimate is memoized on the factor (see the memo note).  Every
+  estimate, computed or from the memo, lands as the ``num.condest`` gauge
+  (``obs.numerics.record_condest``: the condition number, one host read).
 """
 
 from __future__ import annotations
@@ -248,9 +249,12 @@ def gecondest_dist(lud: DistMatrix, perm, anorm, norm: Norm = Norm.One, lookahea
     from .dist_lu import permute_rows_dist
     from .dist_trsm import trsm_dist
 
+    from ..obs import numerics as _num
+
     key = _condest_memo_key("ge", norm, lookahead, bcast_impl, iters, anorm)
     cached = _condest_memo_get(lud, key)
     if cached is not None:
+        _num.record_condest("gesv", cached)
         return cached
     la = 0 if lookahead is None else lookahead
     bi = resolve_bcast_impl(bcast_impl)
@@ -275,6 +279,7 @@ def gecondest_dist(lud: DistMatrix, perm, anorm, norm: Norm = Norm.One, lookahea
     ainv = _norm1est_dist(measure, transfer, lud.m, lud.dtype, dev, iters)
     rcond = _recondest(torch.as_tensor(anorm, device=dev).to(torch.float64), ainv)
     _condest_memo_put(lud, key, rcond)
+    _num.record_condest("gesv", rcond)
     return rcond
 
 
@@ -288,9 +293,12 @@ def pocondest_dist(ld: DistMatrix, anorm, lookahead=None, bcast_impl=None,
     from ..linalg.norms import _recondest
     from .dist_trsm import trsm_dist
 
+    from ..obs import numerics as _num
+
     key = _condest_memo_key("po", Norm.One, lookahead, bcast_impl, iters, anorm)
     cached = _condest_memo_get(ld, key)
     if cached is not None:
+        _num.record_condest("posv", cached)
         return cached
     la = 0 if lookahead is None else lookahead
     bi = resolve_bcast_impl(bcast_impl)
@@ -304,4 +312,5 @@ def pocondest_dist(ld: DistMatrix, anorm, lookahead=None, bcast_impl=None,
     ainv = _norm1est_dist(solve, solve, ld.m, ld.dtype, dev, iters, same_verb=True)
     rcond = _recondest(torch.as_tensor(anorm, device=dev).to(torch.float64), ainv)
     _condest_memo_put(ld, key, rcond)
+    _num.record_condest("posv", rcond)
     return rcond

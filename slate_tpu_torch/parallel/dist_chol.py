@@ -27,11 +27,18 @@ torch ops, as ``slate_tpu`` computes them outside Pallas.
 
 The port factors the tile stack in place (``overwrite_a=True``) or in a
 copy (the default: ``slate_tpu``'s functional semantics, one more copy of
-the matrix).  ``num_monitor="on"`` (the in-carry numerics gauges) comes
-with the numerics slice.  Under the flight recorder (``obs.flight``) the
-same loop records one row per phase: the panel (diagonal broadcast, factor
-and solves), its broadcast (the column broadcast and the transposed
-gather, tagged ``bcast``) and the deferred updates.
+the matrix).  ``num_monitor="on"`` (Option.NumMonitor, ``obs.numerics``)
+carries the near-breakdown margin through the loop: the smallest
+Schur-complement diagonal entry of the true extent, each pivot tile's
+diagonal read at its own panel's entry (a strict-schedule value at every
+lookahead depth, so the gauge is depth-invariant), and at exit the final
+factor's diagonal min / max, read back once as ``num.chol_*``.  It reads
+one tile's diagonal per step and makes no audited transfer; the factor
+and the launches are the unmonitored run's.  Under the flight recorder
+(``obs.flight``) the same loop records one row per phase: the panel
+(diagonal broadcast, factor and solves), its broadcast (the column
+broadcast and the transposed gather, tagged ``bcast``) and the deferred
+updates; a flown run records no gauge, as in ``slate_tpu``.
 """
 
 from __future__ import annotations
@@ -74,14 +81,41 @@ from .dist import DistMatrix, local_view
 from .mesh import mesh_shape
 
 
-def _check_num_monitor(num_monitor: Optional[str], who: str = "potrf_dist") -> None:
-    if num_monitor in (None, "off", "auto"):  # auto is off while obs is not ported
-        return
-    if num_monitor == "on":
-        raise NotImplementedError(
-            f"{who}: num_monitor='on' (the in-carry numerics gauges) is not "
-            "ported yet; it comes with the observability slice")
-    raise ValueError(f"unknown num_monitor {num_monitor!r}")
+def monitored(num_monitor: Optional[str]) -> bool:
+    """Whether a driver runs monitored: Option.NumMonitor resolved by
+    ``obs.numerics.resolve_num_monitor`` (a ValueError for an unknown
+    mode), and off under the flight recorder's step dispatch, whose rows
+    carry no gauge (``slate_tpu``'s per-phase programs carry none)."""
+    from ..obs import flight as _flight
+    from ..obs.numerics import resolve_num_monitor
+
+    return resolve_num_monitor(num_monitor) == "on" and not _flight.step_dispatch_active()
+
+
+def num_gauge_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The gauges' dtype: real, and at least f32 so bf16 / f16 runs do not
+    saturate the running extrema (``slate_tpu``'s ``num_gauge_dtype``)."""
+    rdt = torch.empty((), dtype=dtype).real.dtype
+    return torch.float32 if rdt in (torch.bfloat16, torch.float16) else rdt
+
+
+def margin_init(dtype: torch.dtype, device) -> torch.Tensor:
+    """The margin gauge before any step: +inf."""
+    return torch.full((), float("inf"), dtype=num_gauge_dtype(dtype), device=device)
+
+
+def chol_exit_gauges(t: torch.Tensor, p: int, q: int, nb: int, n_true: int,
+                     margin: torch.Tensor) -> torch.Tensor:
+    """(margin, min, max of the final factor's diagonal over the true
+    extent), stacked on the device for one host read."""
+    mt, nt = t.shape[0], t.shape[1]
+    g = torch.arange(nt, device=t.device)
+    dtiles = t[(g % p) * (mt // p) + g // p, (g % q) * (nt // q) + g // q]
+    dvals = torch.diagonal(dtiles, dim1=-2, dim2=-1).real.to(margin.dtype)
+    ok = (g[:, None] * nb + torch.arange(nb, device=t.device)[None, :]) < n_true
+    lmin = torch.where(ok, dvals, float("inf")).min()
+    lmax = torch.where(ok, dvals, float("-inf")).max()
+    return torch.stack([margin, lmin, lmax])
 
 
 @instrument("potrf_dist")
@@ -98,22 +132,29 @@ def potrf_dist(
     ``lookahead`` (Option.Lookahead; None = 1), ``bcast_impl``
     (Option.BcastImpl), ``panel_impl`` (Option.PanelImpl) and
     ``update_impl`` (Option.UpdateImpl) as in ``slate_tpu``.
+    ``num_monitor`` (Option.NumMonitor): ``on`` records the margin and
+    diagonal gauges (module doc); the factor is the same bits.
     ``overwrite_a`` factors ``a``'s tile stack in place instead of a copy."""
     p, q = mesh_shape(a.mesh)
     if a.mt != a.nt:
         raise ValueError("potrf_dist needs a square tile grid")
     a.require_diag_pad("potrf_dist")
-    _check_num_monitor(num_monitor)
+    nm = monitored(num_monitor)
     from ..obs import flight as _flight
 
     t = a.tiles if overwrite_a else a.tiles.clone()
     la, bi = la_depth(lookahead, a.nt), resolve_bcast_impl(bcast_impl)
+    margin = margin_init(t.dtype, t.device) if nm else None
     with bcast_impl_scope(bi), \
             panel_impl_scope(resolve_panel_impl(panel_impl)), \
             update_impl_scope(resolve_update_impl(update_impl)), \
             _flight.fly("potrf", (p, q), nt=a.nt, depth=min(la, 1), impl=bi):
-        _potrf_tiles(t, p, q, a.nt, la)
+        margin = _potrf_tiles(t, p, q, a.nt, la, margin=margin, n_true=a.n)
     info = _chol_info_dist(t, p, q, a.nb)
+    if nm:
+        from ..obs import numerics as _num
+
+        _num.record_chol_gauges("potrf", *chol_exit_gauges(t, p, q, a.nb, a.n, margin))
     return DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True), info
 
 
@@ -242,22 +283,49 @@ def potrf_flops(nt: int, nb: int):
 
 
 def _potrf_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
-                 k1: Optional[int] = None) -> None:
+                 k1: Optional[int] = None, margin: Optional[torch.Tensor] = None,
+                 n_true: int = 0) -> Optional[torch.Tensor]:
     """The bucketed, pipelined k-loop of ``slate_tpu``'s ``_potrf_jit``, in
     place on the cyclic tile stack ``t``; steps [k0, k1) of it (the
     checkpointed chain's segments, ``ft.ckpt``), each on the window of the
-    bucket that holds it."""
+    bucket that holds it.  With a ``margin`` gauge (monitored), each step's
+    panel first folds in its pivot tile's diagonal over the true extent
+    ``n_true``; returns the gauge.
+
+    The pivot tile's own diagonal is the whole of ``slate_tpu``'s probe
+    (the minimum over every not-yet-factored diagonal): a Schur-complement
+    diagonal only decreases from step to step (each update subtracts a sum
+    of squares), so every tile's smallest value is the one its own panel
+    reads."""
     loc = local_view(t, p, q)  # (p, q, mtl, ntl, nb, nb)
     mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
     cplx = t.is_complex()
+    gauge = [margin]
     for ka, kb, s0r, s0c in bucket_spans(nt, p, q, k0, k1):
         view = loc[:, :, s0r:, s0c:]
         _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device, s0r, s0c)
         panel, narrow, bulk = _phases(p, q, i_log, j_log, s0r, s0c, cplx)
+        if margin is not None:
+            panel = _margin_probe(panel, gauge, p, q, nb, s0r, s0c, n_true)
         zero_pl = (torch.zeros((1, 1, mtl - s0r, nb, nb), dtype=t.dtype, device=t.device),
                    torch.zeros((1, 1, ntl - s0c, nb, nb), dtype=t.dtype, device=t.device))
         pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, zero_pl,
                               potrf_flops(nt, nb))
+    return gauge[0]
+
+
+def _margin_probe(panel, gauge: list, p: int, q: int, nb: int, s0r: int, s0c: int, n_true: int):
+    """``panel`` with the margin gauge ``gauge[0]`` folded in at its entry:
+    the true-extent diagonal of pivot tile (k, k), a local reduction."""
+
+    def probed(k, view):
+        cnt = min(nb, n_true - k * nb)
+        if cnt > 0:
+            d = torch.diagonal(view[k % p, k % q, k // p - s0r, k // q - s0c])[:cnt]
+            gauge[0] = torch.minimum(gauge[0], d.real.to(gauge[0].dtype).min())
+        return panel(k, view)
+
+    return probed
 
 
 # ---------------------------------------------------------------------------

@@ -41,10 +41,18 @@ panel and swaps on windows that slide with k (``_pp_panel_factor`` /
 height and width), then the windowed row solve and trailing update, in
 the strict schedule at every lookahead depth.
 
-``num_monitor="on"`` (the in-carry growth gauges) comes with the numerics
-half of the observability slice.  Under the flight recorder
-(``obs.flight``) the no-pivot loop records one row per phase: the panel,
-its broadcasts (tagged ``bcast``) and the deferred updates.
+``num_monitor="on"`` (Option.NumMonitor, ``obs.numerics``) carries the
+element-growth gauge through each form: max|A| of the input's true
+extent, then the running max of the working array's |a| at each panel's
+entry (on the bucket's window for the no-pivot loop, over the stack for
+the pivoted ones, at ``slate_tpu``'s sampling points) and over the
+finished factor, read back once as ``num.lu_growth``.  Its reductions are
+local and no transfer is audited; the factor and the launches are the
+unmonitored run's, and the no-pivot gauge is the same at every lookahead
+depth (every value the strict schedule reaches is sampled at some step).
+Under the flight recorder (``obs.flight``) the no-pivot loop records one
+row per phase: the panel, its broadcasts (tagged ``bcast``) and the
+deferred updates; a flown run records no gauge.
 """
 
 from __future__ import annotations
@@ -86,10 +94,11 @@ from .comm import (
 from .dist import DistMatrix, local_view
 from .dist_chol import (
     _BandWindows,
-    _check_num_monitor,
     _tile_products,
     _window_index,
     bucket_spans,
+    monitored,
+    num_gauge_dtype,
 )
 from .mesh import mesh_shape
 
@@ -269,13 +278,63 @@ def _lu_info_dist(t: torch.Tensor, p: int, q: int, nb: int) -> torch.Tensor:
     return torch.where(info >= big, 0, info).to(torch.int32)
 
 
-def _check_square(a: DistMatrix, who: str, num_monitor) -> Tuple[int, int]:
+def _check_square(a: DistMatrix, who: str, num_monitor) -> Tuple[int, int, bool]:
+    """(p, q, monitored) of a square, identity-padded operand."""
     p, q = mesh_shape(a.mesh)
     if a.mt != a.nt:
         raise ValueError(f"{who} needs a square tile grid")
     a.require_diag_pad(who)
-    _check_num_monitor(num_monitor, who)
-    return p, q
+    return p, q, monitored(num_monitor)
+
+
+class _Growth:
+    """The element-growth probe over a local view (p, q, I, J, nb, nb)
+    whose logical tiles are ``i_log`` (p, 1, I) / ``j_log`` (1, q, J): the
+    max |a| over the true extent ``m_true`` (``slate_tpu``'s
+    ``_wabs_max``), one reduction; the pad rows and columns are masked only
+    when the stack has any (``nt nb > m_true``: every window reaches the
+    stack's last tile)."""
+
+    def __init__(self, i_log: torch.Tensor, j_log: torch.Tensor, nb: int, m_true: int, nt: int):
+        self.mask = None
+        if nt * nb > m_true:
+            ar = torch.arange(nb, device=i_log.device)
+            rows = (i_log[..., None] * nb + ar) < m_true  # (p, 1, I, nb)
+            cols = (j_log[..., None] * nb + ar) < m_true  # (1, q, J, nb)
+            self.mask = rows[:, :, :, None, :, None] & cols[:, :, None, :, None, :]
+
+    def __call__(self, view: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.mask is None:
+            return torch.linalg.vector_norm(view, float("inf")).to(dtype)
+        return torch.where(self.mask, view.abs(), 0).amax().to(dtype)
+
+
+def _growth_of(t: torch.Tensor, p: int, q: int, m_true: int) -> Tuple["_Growth", torch.Tensor]:
+    """(the growth probe of the whole local view, that view)."""
+    loc = local_view(t, p, q)
+    _, _, i_log, j_log = local_indices(p, q, loc.shape[2], loc.shape[3], t.device)
+    return _Growth(i_log, j_log, loc.shape[4], m_true, t.shape[1]), loc
+
+
+def growth_init(t: torch.Tensor, p: int, q: int, m_true: int) -> torch.Tensor:
+    """max|A| over the true extent of the input stack (the gauge pair's
+    first half, and the running max's start)."""
+    probe, loc = _growth_of(t, p, q, m_true)
+    return probe(loc, num_gauge_dtype(t.dtype))
+
+
+def growth_exit(t: torch.Tensor, p: int, q: int, m_true: int, amax0: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    """(max|A|, the running max with the finished factor folded in),
+    stacked for one host read (``slate_tpu``'s ``_lu_growth_out``)."""
+    probe, loc = _growth_of(t, p, q, m_true)
+    return torch.stack([amax0, torch.maximum(g, probe(loc, g.dtype))])
+
+
+def _record_growth(op: str, t: torch.Tensor, p: int, q: int, m_true: int, amax0, g) -> None:
+    from ..obs import numerics as _num
+
+    _num.record_lu_growth(op, *growth_exit(t, p, q, m_true, amax0, g))
 
 
 # ---------------------------------------------------------------------------
@@ -297,19 +356,23 @@ def getrf_nopiv_dist(
     ``lookahead`` (Option.Lookahead; None = 1), ``bcast_impl``
     (Option.BcastImpl), ``panel_impl`` (Option.PanelImpl) and
     ``update_impl`` (Option.UpdateImpl) as in ``slate_tpu``; results are
-    bitwise the same at every depth and lowering.  ``overwrite_a`` factors
-    ``a``'s tile stack in place instead of a copy."""
-    p, q = _check_square(a, "getrf_nopiv_dist", num_monitor)
+    bitwise the same at every depth and lowering.  ``num_monitor``
+    (Option.NumMonitor) ``on`` records the growth gauge (module doc).
+    ``overwrite_a`` factors ``a``'s tile stack in place instead of a copy."""
+    p, q, nm = _check_square(a, "getrf_nopiv_dist", num_monitor)
     from ..obs import flight as _flight
 
     t = a.tiles if overwrite_a else a.tiles.clone()
     la, bi = la_depth(lookahead, a.nt), resolve_bcast_impl(bcast_impl)
+    amax0 = growth_init(t, p, q, a.m) if nm else None
     with bcast_impl_scope(bi), \
             panel_impl_scope(resolve_panel_impl(panel_impl)), \
             update_impl_scope(resolve_update_impl(update_impl)), \
             _flight.fly("getrf_nopiv", (p, q), nt=a.nt, depth=min(la, 1), impl=bi):
-        _getrf_nopiv_tiles(t, p, q, a.nt, la)
+        g = _getrf_nopiv_tiles(t, p, q, a.nt, la, growth=amax0, m_true=a.m)
     info = _lu_info_dist(t, p, q, a.nb)
+    if nm:
+        _record_growth("getrf_nopiv", t, p, q, a.m, amax0, g)
     return DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True), info
 
 
@@ -336,18 +399,26 @@ def nopiv_flops(nt: int, nb: int):
 
 
 def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: int = 0,
-                       k1: Optional[int] = None) -> None:
+                       k1: Optional[int] = None, growth: Optional[torch.Tensor] = None,
+                       m_true: int = 0) -> Optional[torch.Tensor]:
     """The bucketed, pipelined k-loop of ``slate_tpu``'s ``_lu_jit``, in
     place on the cyclic tile stack ``t``: each bucket runs on a statically
     smaller trailing window, and the deferred update drains at the bucket's
-    end.  Steps [k0, k1) of it for the checkpointed chain (``ft.ckpt``)."""
+    end.  Steps [k0, k1) of it for the checkpointed chain (``ft.ckpt``).
+    With a ``growth`` gauge (monitored), each panel first folds in the
+    max |a| of its bucket's window over the true extent ``m_true``; returns
+    the gauge."""
     loc = local_view(t, p, q)
     mtl, ntl = loc.shape[2], loc.shape[3]
+    gauge = [growth]
     for ka, kb, s0r, s0c in bucket_spans(nt, p, q, k0, k1):
         view = loc[:, :, s0r:, s0c:]
         _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device, s0r, s0c)
+        probe = _Growth(i_log, j_log, loc.shape[4], m_true, nt) if growth is not None else None
 
-        def panel(k, v, i_log=i_log, j_log=j_log, s0r=s0r, s0c=s0c):
+        def panel(k, v, i_log=i_log, j_log=j_log, s0r=s0r, s0c=s0c, probe=probe):
+            if probe is not None:
+                gauge[0] = torch.maximum(gauge[0], probe(v, gauge[0].dtype))
             return _nopiv_panel(v, k, p, q, i_log, j_log, s0r, s0c)
 
         def narrow(k, v, upd, s0r=s0r, s0c=s0c):
@@ -360,6 +431,7 @@ def _getrf_nopiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, la: int, k0: in
 
         pipelined_factor_loop(ka, kb, la, panel, narrow, bulk, view, None,
                               nopiv_flops(nt, loc.shape[4]))
+    return gauge[0]
 
 
 # ---------------------------------------------------------------------------
@@ -432,20 +504,33 @@ def getrf_tntpiv_dist(
     the ``torch.matmul`` form, as ``slate_tpu`` pins it to xla).
     ``lookahead`` >= 1 defers each step's update past the next tournament;
     bitwise the same at every depth."""
-    p, q = _check_square(a, "getrf_tntpiv_dist", num_monitor)
+    p, q, nm = _check_square(a, "getrf_tntpiv_dist", num_monitor)
     t = a.tiles if overwrite_a else a.tiles.clone()
+    amax0 = growth_init(t, p, q, a.m) if nm else None
     with bcast_impl_scope(resolve_bcast_impl(bcast_impl)), \
             panel_impl_scope(resolve_panel_impl(panel_impl)), update_impl_scope("xla"):
-        perm = _tntpiv_tiles(t, p, q, a.nt, a.m, la_depth(lookahead, a.nt))
+        perm, g = _tntpiv_tiles(t, p, q, a.nt, a.m, la_depth(lookahead, a.nt), amax0)
     info = _lu_info_dist(t, p, q, a.nb)
+    if nm:
+        _record_growth("getrf_tntpiv", t, p, q, a.m, amax0, g)
     return (DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True),
             torch.from_numpy(perm).to(t.device), info)
 
 
-def _tntpiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) -> np.ndarray:
+def _tntpiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int,
+                  growth: Optional[torch.Tensor] = None):
+    """The tournament loop in place on ``t``; returns (the row permutation,
+    the growth gauge: with ``growth`` given, the running max of |a| over
+    the stack at each step's entry, ``slate_tpu``'s sampling point)."""
     loc = local_view(t, p, q)
     mtl, ntl, nb = loc.shape[2], loc.shape[3], loc.shape[4]
     _, _, i_log, j_log = local_indices(p, q, mtl, ntl, t.device)
+    gauge = [growth]
+    wabs = _Growth(i_log, j_log, nb, m_true, nt) if growth is not None else None
+
+    def probe():
+        if wabs is not None:
+            gauge[0] = torch.maximum(gauge[0], wabs(loc, gauge[0].dtype))
     mglob = nt * nb
     sent = mglob  # tournament sentinel: sorts last, marks dead slots
     gids = _flat_gids(i_log, nb)
@@ -492,21 +577,23 @@ def _tntpiv_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int
     rowperm = np.arange(mglob)
     if la <= 0:
         for k in range(nt):
+            probe()
             apply_swaps(k, tournament(k), rowperm)
             _nopiv_step(loc, k, p, q, i_log, j_log)
-        return rowperm
+        return rowperm, gauge[0]
     # lookahead: refresh the panel column, run the tournament, land the rest
     # of the deferred update (the swaps move full rows), swap and factor,
     # deferring this step's own update
     upd = None
     for k in range(nt):
+        probe()
         _nopiv_narrow(loc, upd, k, p, q, with_row=False)
         win = tournament(k)
         _nopiv_bulk(loc, upd, excl_kc=k // q)
         apply_swaps(k, win, rowperm)
         _, upd = _nopiv_panel(loc, k, p, q, i_log, j_log)
     _nopiv_bulk(loc, upd)
-    return rowperm
+    return rowperm, gauge[0]
 
 
 # ---------------------------------------------------------------------------
@@ -531,12 +618,15 @@ def getrf_pp_dist(
     (pinned to the ``torch.matmul`` form).  Returns (LU, perm over the
     padded row space, info), as :func:`getrf_tntpiv_dist`; bitwise the same
     at every lookahead depth."""
-    p, q = _check_square(a, "getrf_pp_dist", num_monitor)
+    p, q, nm = _check_square(a, "getrf_pp_dist", num_monitor)
     t = a.tiles if overwrite_a else a.tiles.clone()
+    amax0 = growth_init(t, p, q, a.m) if nm else None
     with bcast_impl_scope(resolve_bcast_impl(bcast_impl)), \
             panel_impl_scope(resolve_panel_impl(panel_impl)), update_impl_scope("xla"):
-        perm = _pp_tiles(t, p, q, a.nt, a.m, la_depth(lookahead, a.nt))
+        perm, g = _pp_tiles(t, p, q, a.nt, a.m, la_depth(lookahead, a.nt), amax0)
     info = _lu_info_dist(t, p, q, a.nb)
+    if nm:
+        _record_growth("getrf_pp", t, p, q, a.m, amax0, g)
     return (DistMatrix(tiles=t, m=a.m, n=a.n, nb=a.nb, mesh=a.mesh, diag_pad=True),
             torch.from_numpy(perm).to(t.device), info)
 
@@ -650,39 +740,51 @@ class _PPGeometry:
 
 
 def _pp_strict_steps(t: torch.Tensor, rowperm: np.ndarray, p: int, q: int, nt: int, m_true: int,
-                     k0: int, k1: int) -> None:
+                     k0: int, k1: int, growth: Optional[torch.Tensor] = None
+                     ) -> Optional[torch.Tensor]:
     """Steps [k0, k1) of the partial-pivot loop in the strict schedule, in
     place on the cyclic tile stack and the host ``rowperm``: the lookahead-0
     form of :func:`_pp_tiles` and the checkpointed chain's segments
-    (``ft.ckpt``)."""
+    (``ft.ckpt``).  With a ``growth`` gauge, each step's entry folds in the
+    stack's max |a| over the true extent; returns the gauge."""
     loc = local_view(t, p, q)
     g = _PPGeometry(loc, p, q, nt)
+    wabs = _Growth(g.i_log, g.j_log, loc.shape[4], m_true, nt) if growth is not None else None
     for k in range(k0, k1):
+        if wabs is not None:
+            growth = torch.maximum(growth, wabs(loc, growth.dtype))
         flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, g.gids, g.win)
         _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, g.rows, g.cols)
         _nopiv_step(loc, k, p, q, g.i_log, g.j_log, panel_done=True)
+    return growth
 
 
-def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int) -> np.ndarray:
+def _pp_tiles(t: torch.Tensor, p: int, q: int, nt: int, m_true: int, la: int,
+              growth: Optional[torch.Tensor] = None):
+    """The partial-pivot loop in place on ``t``; returns (the row
+    permutation, the growth gauge as :func:`_pp_strict_steps`)."""
     nb = t.shape[-1]
     rowperm = np.arange(nt * nb)
     if la <= 0:
-        _pp_strict_steps(t, rowperm, p, q, nt, m_true, 0, nt)
-        return rowperm
+        growth = _pp_strict_steps(t, rowperm, p, q, nt, m_true, 0, nt, growth)
+        return rowperm, growth
     loc = local_view(t, p, q)
     g = _PPGeometry(loc, p, q, nt)
+    wabs = _Growth(g.i_log, g.j_log, nb, m_true, nt) if growth is not None else None
     # lookahead (getrf.cc's panel/update overlap): refresh the panel column,
     # factor it with pivoting, land the rest of the deferred update, then
     # swap full rows, solve the panel row and defer this step's update
     upd = None
     for k in range(nt):
+        if wabs is not None:
+            growth = torch.maximum(growth, wabs(loc, growth.dtype))
         _nopiv_narrow(loc, upd, k, p, q, with_row=False)
         flat, piv_pos = _pp_panel_factor(loc, k, p, q, nt, m_true, g.gids, g.win)
         _nopiv_bulk(loc, upd, excl_kc=k // q)
         _pp_apply_swaps(loc, rowperm, flat, piv_pos.cpu().numpy(), k, p, q, nt, g.rows, g.cols)
         _, upd = _nopiv_panel(loc, k, p, q, g.i_log, g.j_log, panel_done=True)
     _nopiv_bulk(loc, upd)
-    return rowperm
+    return rowperm, growth
 
 
 # ---------------------------------------------------------------------------

@@ -37,8 +37,8 @@ blocks and the gather of the full-width R-row slices per step.
 Factor storage mirrors ``slate_tpu``: V packed below the R slots inside the
 tiles, the per-(mesh row, panel) T_loc stack, and the replicated tree
 factors.  ``unmqr_dist`` replays them against a conformal B.
-``num_monitor="on"`` (the ``_qr_orth_loss`` gauge) comes with the numerics
-half of the observability slice.  :func:`_qr_panel_step` tags its phases
+``num_monitor="on"`` carries the ``_qr_orth_loss`` gauge (``obs.numerics``).
+:func:`_qr_panel_step` tags its phases
 (``panel``, ``bcast``, ``bulk``) for the schedule capture and the flight
 recorder (``obs.flight``).  The checkpointed chain
 (``ft.ckpt.geqrf_ckpt``) runs :func:`_qr_panel_step` over a step range on
@@ -54,8 +54,8 @@ import torch
 from ..obs.span import instrument
 from ..linalg.qr import _panel_qr_offset_t, _panel_qr_t, _v_of
 from ..ops.kernels import panel_impl_scope, resolve_panel_impl
-from ..ops.matmul import matmul
-from ..types import Op
+from ..ops.matmul import _tf32_scope, matmul
+from ..types import Op, Precision
 from .comm import (
     ROW_AXIS,
     all_gather_a,
@@ -67,7 +67,7 @@ from .comm import (
     resolve_bcast_impl,
 )
 from .dist import DistMatrix, local_view
-from .dist_chol import _check_num_monitor
+from .dist_chol import monitored, num_gauge_dtype
 from .mesh import mesh_shape
 
 
@@ -281,13 +281,35 @@ def _qr_panel_update(k: int, carry, pan, p: int, q: int, nb: int, m_true: int):
     tts[k] = tt
 
 
-def _qr_panel_step(k: int, carry, p: int, q: int, nb: int, m_true: int) -> None:
+def _qr_orth_loss(v: torch.Tensor, tl: torch.Tensor, rdt: torch.dtype) -> torch.Tensor:
+    """The panel's reflector / T consistency margin, ``slate_tpu``'s
+    orthogonality-loss proxy: for an exact compact-WY pair T (V^H V) T^H =
+    T + T^H, so max|T (V^H V) T^H - T - T^H| / max|T| is ~eps for a
+    healthy panel and grows as cancellation degrades the implicit Q.  No
+    factorization and no transfer: V spans only its mesh row's rows and T
+    was built from it.  ``v`` (..., m, w) and ``tl`` (..., w, w) batch the
+    mesh rows; returns the max over them (``slate_tpu``'s pmax) in ``rdt``."""
+    vh = v.conj().transpose(-1, -2)
+    with _tf32_scope(v, Precision.Highest):
+        s = torch.matmul(vh, v)
+        e = torch.matmul(torch.matmul(tl, s), tl.conj().transpose(-1, -2))
+    e = e - tl - tl.conj().transpose(-1, -2)
+    tiny = torch.finfo(rdt).tiny
+    emax = e.abs().flatten(-2).amax(-1).to(rdt)
+    denom = tl.abs().flatten(-2).amax(-1).to(rdt).clamp(min=tiny)
+    return (emax / denom).max()
+
+
+def _qr_panel_step(k: int, carry, p: int, q: int, nb: int, m_true: int,
+                   nm: bool = False) -> Optional[torch.Tensor]:
     """One CAQR panel step of the strict schedule, in place on the carry
     (flat local matrices, T_loc stack, tree-V stack, tree-T stack), its
     phases tagged as ``slate_tpu``'s (``panel``, ``bcast``, ``bulk``).  A
     recording flight counts the panel's Householder flops, 2 m w^2 -
     2 w^3 / 3, and the update's compact-WY ones, 4 m w n' - 2 w^2 n', on
-    the padded trailing m x n'."""
+    the padded trailing m x n'.  ``nm`` (monitored) returns the step's
+    :func:`_qr_orth_loss`, computed after the step from the factors it
+    already holds."""
     if flying():
         mk = p * carry[0].shape[2] - k * nb
         nk = max(0, q * carry[0].shape[3] - (k + 1) * nb)
@@ -301,6 +323,9 @@ def _qr_panel_step(k: int, carry, p: int, q: int, nb: int, m_true: int) -> None:
         if flying():
             note_flops(4.0 * mk * nb * nk - 2.0 * nb * nb * nk)
         _qr_panel_update(k, carry, pan, p, q, nb, m_true)
+    if nm:
+        return _qr_orth_loss(pan_own[1], pan_own[2], num_gauge_dtype(carry[0].dtype))
+    return None
 
 
 def _qr_pad_identity(tiles: torch.Tensor, p: int, q: int, n_true: int) -> None:
@@ -322,12 +347,14 @@ def geqrf_dist(a: DistMatrix, bcast_impl: Optional[str] = None, panel_impl: Opti
     (Option.BcastImpl) picks the audited panel-broadcast lowering (bitwise
     the same results), ``panel_impl`` (Option.PanelImpl) the panel
     lowering: the kernel wrappers (``pallas``/``auto``) or the plain pairs
-    (``xla``).  ``overwrite_a`` writes the factor into ``a``'s tile stack
-    instead of a new one."""
+    (``xla``).  ``num_monitor`` (Option.NumMonitor) ``on`` carries the
+    per-panel :func:`_qr_orth_loss` as a running max and records it as the
+    ``num.qr_orth_margin`` gauge, the factor the same bits.  ``overwrite_a``
+    writes the factor into ``a``'s tile stack instead of a new one."""
     p, q = mesh_shape(a.mesh)
     if a.m < a.n:
         raise ValueError(f"geqrf_dist requires m >= n, got {a.m}x{a.n}")
-    _check_num_monitor(num_monitor, "geqrf_dist")
+    nm = monitored(num_monitor)
     nt, nb, dtype, dev = a.nt, a.nb, a.dtype, a.tiles.device
     nmerge = max(1, p)
     flat = _to_flat(a.tiles, p, q)
@@ -339,8 +366,15 @@ def geqrf_dist(a: DistMatrix, bcast_impl: Optional[str] = None, panel_impl: Opti
     bi = resolve_bcast_impl(bcast_impl)
     with bcast_impl_scope(bi), panel_impl_scope(resolve_panel_impl(panel_impl)), \
             _flight.fly("geqrf", (p, q), nt=nt, depth=0, impl=bi):
+        gauge = torch.zeros((), dtype=num_gauge_dtype(dtype), device=dev) if nm else None
         for k in range(nt):
-            _qr_panel_step(k, (flat, tls, tvs, tts), p, q, nb, a.m)
+            loss = _qr_panel_step(k, (flat, tls, tvs, tts), p, q, nb, a.m, nm)
+            if nm:
+                gauge = torch.maximum(gauge, loss)
+    if nm:
+        from ..obs import numerics as _num
+
+        _num.record_qr_orth("geqrf", gauge)
     tiles = a.tiles if overwrite_a else torch.empty_like(a.tiles)
     _from_flat(flat, tiles, p, q)
     del flat

@@ -41,9 +41,12 @@ solve ``correct`` and its residual ``residual`` for the schedule capture,
 and the flight recorder records the factor but not the refinement loops
 (``obs.flight.no_flight``), as in ``slate_tpu``.
 
-Not here yet: the NumMonitor health tier (``_route_health`` and the
-convergence history; ``NumMonitor=on`` raises), which comes with the
-numerics slice.
+Under ``Option.NumMonitor=on`` (auto: on iff observability is on) the
+refinement keeps its (||r||, ||x||) trajectory, read back once at the end
+(``ir.residual_history``), and ``MixedPrecision=auto`` takes the health
+tier (``_route_health``, a ``health`` phase of the span): the f32 factor's
+growth / margin gauges and a distributed condition estimate decide whether
+the solve enters at GMRES-IR instead of IR (``num.routed_gmres``).
 """
 
 from __future__ import annotations
@@ -197,14 +200,17 @@ def _inf_norm_pair(rt: torch.Tensor, xt: torch.Tensor, mesh: VirtualMesh, m_true
 
 
 def _ir_common(ad: DistMatrix, bd: DistMatrix, lo_solve, info, max_iter: int, la, bi: str,
-               ri: str, split: Optional[OzakiSplit] = None):
+               ri: str, split: Optional[OzakiSplit] = None, nm: bool = False):
     """The refinement loop over a factored low-precision solve.
 
     ``lo_solve(rd) -> DistMatrix`` applies the f32 factor and returns the
-    f64 upcast.  Returns (x_tiles, iters, converged, rnorm, xnorm).
+    f64 upcast.  Returns (x_tiles, iters, converged, rnorm, xnorm, history).
     A failed factor (info != 0) skips the loop and NaN-fills x.  The first
     trip is the initial solve (x = 0, r = b, it = -1), so ``iters`` counts
-    the correction steps after it, as in ``slate_tpu``."""
+    the correction steps after it, as in ``slate_tpu``.  ``nm``
+    (monitored) keeps each trip's (||r||, ||x||) on the device: ``history``
+    is the (max_iter + 1, 2) trajectory, NaN past the last trip, as
+    ``slate_tpu``'s carried buffer (None unmonitored)."""
     n = ad.m
     anorm = norm_dist(Norm.Inf, ad)
     cte = gate_cte(anorm, n, ad.tiles.dtype)
@@ -226,6 +232,7 @@ def _ir_common(ad: DistMatrix, bd: DistMatrix, lo_solve, info, max_iter: int, la
     rn = torch.tensor(math.inf, dtype=rdt, device=bd.tiles.device)
     xn = torch.zeros((), dtype=rdt, device=bd.tiles.device)
     it, done = -1, False
+    trips = []
     while ok and not done and it < max_iter:
         # slate_tpu audits the loop body once at max_iter + 1 trips; the
         # flight recorder does not descend into it (slate_tpu's fused loop
@@ -237,11 +244,18 @@ def _ir_common(ad: DistMatrix, bd: DistMatrix, lo_solve, info, max_iter: int, la
             with phase_scope("residual"):
                 r_t = residual(x_t)
             rn, xn = _inf_norm_pair(r_t, x_t, ad.mesh, bd.m, bd.n)
+        if nm:
+            trips.append(torch.stack([rn, xn]))
         it += 1
         done = bool(rn <= xn * cte)  # the one host read per trip
     if not ok:
         x_t = torch.full_like(x_t, math.nan)
-    return x_t, it, done and ok, rn, xn
+    hist = None
+    if nm:
+        hist = torch.full((max_iter + 1, 2), math.nan, dtype=rdt, device=bd.tiles.device)
+        if trips:
+            hist[:len(trips)] = torch.stack(trips)
+    return x_t, it, done and ok, rn, xn, hist
 
 
 def _posv_lo_solve(ld: DistMatrix, la, bi: str):
@@ -359,7 +373,8 @@ def _prefactor_cached(kind: str, a, mesh: VirtualMesh, nb: int, opts):
 
 def _mixed_ir_solve(kind: str, a, b, mesh: VirtualMesh, nb: int, max_iter, opts, pre=None):
     """Factor + refinement; (x dense, iters, converged, rnorm, xnorm, info,
-    residual bytes per trip)."""
+    residual bytes per trip, the trajectory under Option.NumMonitor=on or
+    None)."""
     p, q = mesh_shape(mesh)
     la = _la(opts)
     bi = resolve_bcast_impl(get_option(opts, Option.BcastImpl))
@@ -372,17 +387,23 @@ def _mixed_ir_solve(kind: str, a, b, mesh: VirtualMesh, nb: int, max_iter, opts,
         lo_solve = _posv_lo_solve(fact, la, bi)
     else:
         lo_solve = _gesv_lo_solve(fact, perm, la, bi)
-    x_t, iters, conv, rn, xn = _ir_common(ad, bd, lo_solve, info, mi, la, bi, ri, split)
+    from ..obs import numerics as _num
+
+    nm = _num.resolve_num_monitor(_num.monitor_from_opts(opts)) == "on"
+    x_t, iters, conv, rn, xn, hist = _ir_common(ad, bd, lo_solve, info, mi, la, bi, ri, split,
+                                                nm)
     xd = DistMatrix(tiles=x_t, m=bd.m, n=bd.n, nb=nb, mesh=mesh)
     per_iter = float(residual_comm_bytes(ad.tiles.shape[0], bd.tiles.shape[1], ad.nt, nb, p, q,
                                          bi, ri))
-    return to_dense(xd), iters, conv, rn, xn, info, per_iter
+    return to_dense(xd), iters, conv, rn, xn, info, per_iter, hist
 
 
-def _record_ir(kind: str, iters: int, raw_iters: int, rnorm, xnorm, per_iter) -> None:
+def _record_ir(kind: str, iters: int, raw_iters: int, rnorm, xnorm, per_iter,
+               hist=None) -> None:
     """The ir.* counters and gauges of one refined solve; ``raw_iters`` is
     the trip counter before convergence masking (the loop ran raw + 1
-    residual SUMMAs; -1: a failed factor, no trip)."""
+    residual SUMMAs; -1: a failed factor, no trip).  A monitored solve's
+    trajectory ``hist`` lands as the ``ir.residual_history`` series."""
     ir_count("ir.solves", kind)
     ir_gauge("ir.iters", max(iters, 0), kind)
     ir_gauge("ir.rnorm", float(rnorm), kind)
@@ -391,14 +412,18 @@ def _record_ir(kind: str, iters: int, raw_iters: int, rnorm, xnorm, per_iter) ->
     ir_count("ir.residual_gemm_bytes", kind, per_iter * (raw_iters + 1))
     if iters >= 0:
         ir_count("ir.converged", kind)
+    if hist is not None:
+        from ..obs import numerics as _num
+
+        _num.record_ir_history(kind, hist, raw_iters)
 
 
 def _mixed_driver(kind: str, a, b, mesh, nb, max_iter, opts, pre):
     _require_f64(a, f"{kind}_mixed_mesh")
-    x, raw_iters, conv, rn, xn, info, per_iter = _mixed_ir_solve(
+    x, raw_iters, conv, rn, xn, info, per_iter, hist = _mixed_ir_solve(
         kind, a, b, mesh, nb, max_iter, opts, pre)
     iters = raw_iters if conv else -1
-    _record_ir(kind, iters, raw_iters, rn, xn, per_iter)
+    _record_ir(kind, iters, raw_iters, rn, xn, per_iter, hist)
     dev = x.device
     return (x, torch.tensor(iters, dtype=torch.int32, device=dev),
             torch.as_tensor(info, device=dev).to(torch.int32))
@@ -597,6 +622,34 @@ def gesv_mixed_gmres_mesh(
 # ---------------------------------------------------------------------------
 
 
+def _route_health(kind: str, pre, opts) -> bool:
+    """The measured-health entry tier of ``MixedPrecision=auto`` under
+    Option.NumMonitor=on: the monitored f32 factor's gauges (already
+    recorded by its k-loop) and a distributed Hager-Higham estimate over
+    the factored tiles (``dist_aux.gecondest_dist`` / ``pocondest_dist``:
+    a handful of single-column mesh trsm pairs) decide, by
+    ``obs.numerics.route_entry_tier``, whether the input sits where IR on
+    an f32 factor cannot converge; then the solve enters at GMRES-IR."""
+    from ..obs import numerics as _num
+    from .dist_aux import gecondest_dist, pocondest_dist
+
+    fact, perm, info, ad = pre
+    if int(info) != 0:
+        return False  # a failed factor: the NaN / fallback path
+    la = _la(opts)
+    bi = get_option(opts, Option.BcastImpl)
+    gauges = _num.last_gauges("potrf" if kind == "posv" else "getrf_pp")
+    anorm = norm_dist(Norm.One, ad)
+    if kind == "posv":
+        rcond = pocondest_dist(fact, anorm, lookahead=la, bcast_impl=bi)
+    else:
+        rcond = gecondest_dist(fact, perm, anorm, lookahead=la, bcast_impl=bi)
+    if _num.route_entry_tier(kind, gauges, float(rcond)):
+        _num.record_routed_gmres(kind)
+        return True
+    return False
+
+
 def mixed_mesh_route(kind: str, a, b, mesh: VirtualMesh, nb: int, opts, plain_fn):
     """Route an f64 ``gesv_mesh`` / ``posv_mesh`` call through the ladder of
     the resolved Option.MixedPrecision.  Returns (x, info), or None when the
@@ -609,26 +662,44 @@ def mixed_mesh_route(kind: str, a, b, mesh: VirtualMesh, nb: int, opts, plain_fn
     direct solve ``plain_fn`` (``ir.fallback``), unless
     Option.UseFallbackSolver is False, which returns the best mixed-tier
     result.  Each decision is one host read between tiers.
-    ``Option.NumMonitor=on`` (the health-routed entry tier of
-    ``slate_tpu``) raises until the observability slice."""
+
+    Under Option.NumMonitor=on (auto: on iff observability is on) the f32
+    factor runs monitored, and ``auto`` first takes the health tier
+    (``_route_health``, the span's ``health`` phase): a pathological input
+    (growth above ``numerics.GROWTH_THRESHOLD``, cond(A) above
+    ``numerics.CONDEST_THRESHOLD``, or a vanishing Cholesky margin) skips
+    IR and enters at GMRES-IR (``num.routed_gmres``: a route, not an
+    escalation, so no ``ir.escalated_gmres``)."""
     mode = resolve_mixed(opts)
     if mode == "off" or not _is_f64(a) or getattr(b, "ndim", 0) != 2:
         return None
-    if get_option(opts, Option.NumMonitor) == "on":
-        raise NotImplementedError(
-            "Option.NumMonitor='on' routes the mixed ladder by the factor's measured health "
-            "(condition estimate and growth gauges); that tier comes with the "
-            "observability slice")
+    from ..obs import numerics as _num
+
+    nm_on = _num.resolve_num_monitor(_num.monitor_from_opts(opts)) == "on"
+    if nm_on:
+        # pin the resolved mode into the opts every tier reads, so the f32
+        # factor's k-loop records the gauges the health tier reads
+        opts = dict(opts or {})
+        opts[Option.NumMonitor] = "on"
     drv = posv_mixed_mesh if kind == "posv" else gesv_mixed_mesh
     with driver_span(f"{kind}_mixed", mode=mode) as sp:
+        # the health tier reads only THIS factor's gauges: a factor path
+        # that records none (the ABFT kernels, a memo hit) leaves the
+        # condition estimate alone to decide
+        if nm_on:
+            _num.clear_last("potrf" if kind == "posv" else "getrf_pp")
         pre = _prefactor_cached(kind, a, mesh, nb, opts)
-        if mode in ("ir", "auto"):
+        skip_ir = False
+        if nm_on and mode == "auto":
+            with sp.phase("health"):
+                skip_ir = _route_health(kind, pre, opts)
+        if mode in ("ir", "auto") and not skip_ir:
             with sp.phase("ir"):
                 x, iters, info = drv(a, b, mesh, nb, opts=opts, pre=pre)
             if int(info) == 0 and int(iters) >= 0:
                 return x, info
         if mode in ("gmres", "auto"):
-            if mode == "auto":
+            if mode == "auto" and not skip_ir:
                 ir_count("ir.escalated_gmres", kind)
             with sp.phase("gmres"):
                 x, _rnorm, conv, info = _mixed_gmres_solve(kind, a, b, mesh, nb, opts,

@@ -32,8 +32,9 @@ records their collectives, so the audited bytes stay equal.
 the tile stack (O(n w) gathers); ``chase_apply_dist`` streams the bulge
 chase's sweep blocks from their owners by the two-hop rooted broadcast and
 applies them to Z's column shards, which on one card are all of Z.
-``num_monitor="on"`` (the he2hb orthogonality gauge) raises until the
-numerics half of the observability slice.  ``_he2hb_step`` tags its phases
+``num_monitor="on"`` carries the panels' orthogonality-loss proxy
+(``dist_qr._qr_orth_loss`` on the replicated panel factors: no transfer)
+as a running max, recorded as ``num.he2hb_orth_margin``.  ``_he2hb_step`` tags its phases
 (``bcast``: the fetch, ``panel``, ``bulk``) for the schedule capture and
 the flight recorder (``obs.flight``).
 """
@@ -64,7 +65,8 @@ from .comm import (
     resolve_bcast_impl,
 )
 from .dist import DistMatrix
-from .dist_chol import _check_num_monitor
+from .dist_chol import monitored, num_gauge_dtype
+from .dist_qr import _qr_orth_loss
 from .dist_qr import _from_flat, _to_flat
 from .mesh import mesh_shape
 
@@ -132,11 +134,12 @@ def he2hb_dist(a: DistMatrix, bcast_impl: Optional[str] = None,
     """Reduce the full Hermitian DistMatrix (both triangles stored) to a
     Hermitian band of bandwidth nb; Q panels sharded over mesh rows.
     ``bcast_impl`` (Option.BcastImpl) picks the audited panel-broadcast
-    lowering (bitwise the same results)."""
+    lowering (bitwise the same results); ``num_monitor`` (Option.NumMonitor)
+    ``on`` records the orthogonality gauge (module doc)."""
     p, q = mesh_shape(a.mesh)
     if a.m != a.n:
         raise ValueError("he2hb_dist needs a square matrix")
-    _check_num_monitor(num_monitor, "he2hb_dist")
+    nm = monitored(num_monitor)
     nsteps = _he2hb_panel_count(a.n, a.nb)
     nb = a.nb
     flat = _to_flat(a.tiles, p, q)
@@ -147,8 +150,15 @@ def he2hb_dist(a: DistMatrix, bcast_impl: Optional[str] = None,
 
     bi = resolve_bcast_impl(bcast_impl)
     with bcast_impl_scope(bi), _flight.fly("he2hb", (p, q), nt=nsteps, depth=0, impl=bi):
+        gauge = torch.zeros((), dtype=num_gauge_dtype(a.dtype), device=flat.device) if nm else None
         for k in range(nsteps):
-            _he2hb_step(k, (flat, vqs, tqs), p, q, a.n, nb)
+            loss = _he2hb_step(k, (flat, vqs, tqs), p, q, a.n, nb, nm)
+            if nm:
+                gauge = torch.maximum(gauge, loss)
+    if nm:
+        from ..obs import numerics as _num
+
+        _num.record_he2hb_orth("he2hb", gauge)
     bt = torch.empty_like(a.tiles)
     _from_flat(flat, bt, p, q)
     band = DistMatrix(tiles=bt, m=a.m, n=a.n, nb=nb, mesh=a.mesh)
@@ -212,7 +222,8 @@ def _he2hb_update(k: int, carry, gpan: torch.Tensor, pan, p: int, q: int, n_true
     tqs[k] = t
 
 
-def _he2hb_step(k: int, carry, p: int, q: int, n_true: int, nb: int) -> None:
+def _he2hb_step(k: int, carry, p: int, q: int, n_true: int, nb: int,
+                nm: bool = False) -> Optional[torch.Tensor]:
     """One he2hb panel + two-sided trailing update, in place on the carry
     (flat local matrices, vq stack, tq stack), its phases tagged as
     ``slate_tpu``'s (``bcast``: the fetch, ``panel``, ``bulk``).  A
@@ -229,6 +240,9 @@ def _he2hb_step(k: int, carry, p: int, q: int, n_true: int, nb: int) -> None:
         if flying():
             note_flops(4.0 * mk * mk * nb)
         _he2hb_update(k, carry, gpan, pan, p, q, n_true, nb)
+    if nm:
+        return _qr_orth_loss(pan[1], pan[2], num_gauge_dtype(carry[0].dtype))
+    return None
 
 
 def _apply_row_panels(vqs: torch.Tensor, tqs: torch.Tensor, z: DistMatrix, p: int, q: int,

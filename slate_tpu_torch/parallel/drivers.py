@@ -98,7 +98,8 @@ def _ui(opts: Optional[Options]):
 
 
 def _nm(opts: Optional[Options]):
-    """Raw Option.NumMonitor (``on`` raises until the observability slice)."""
+    """Raw Option.NumMonitor (``obs.numerics.resolve_num_monitor`` resolves
+    it in the driver: explicit > context > ``SLATE_TPU_NUM`` > auto)."""
     return get_option(opts, Option.NumMonitor)
 
 
@@ -482,7 +483,8 @@ def heev_mesh(
     (``chase_apply_dist``).  Returns (w ascending, Z), or w alone.
     ``opts`` carries Option.BcastImpl and Option.Checkpoint, which
     checkpoints stage 1, the O(n^3) reduction (``ft.ckpt.he2hb_ckpt``);
-    Option.NumMonitor ``on`` raises until the observability slice."""
+    Option.NumMonitor ``on`` records stage 1's orthogonality gauge
+    (``num.he2hb_orth_margin``)."""
     from ..linalg.eig import hb2st, symmetrize_diagband
     from ..linalg.tridiag import stedc, sterf
     from .dist_stedc import stedc_dist
@@ -576,12 +578,10 @@ def tbsm_mesh(
 
 def _band_opts(opts: Optional[Options], who: str) -> None:
     """The band solves have no checkpointed loop (Option.Checkpoint raises,
-    as ``slate_tpu`` has none) and no monitored one yet (Option.NumMonitor
-    ``on`` raises)."""
-    from .dist_chol import _check_num_monitor
-
+    as ``slate_tpu`` has none).  Option.NumMonitor is ignored, as
+    ``slate_tpu``'s band drivers ignore it: the band loops carry no gauge,
+    so ``on`` solves the same bits as ``off`` and records nothing."""
     _no_ckpt(_resilience(opts)[1], who)
-    _check_num_monitor(_nm(opts), who)
 
 
 @instrument("pbsv_mesh")

@@ -1,5 +1,5 @@
-"""The port's mesh dryrun: seven of ``slate_tpu``'s eight dryrun phases on a
-virtual 2 x 4 mesh.
+"""The port's mesh dryrun: ``slate_tpu``'s eight dryrun phases on a virtual
+2 x 4 mesh.
 
     python -m slate_tpu_torch.parallel.dryrun [--device cpu|cuda]
 
@@ -24,11 +24,14 @@ and with its seeded operands (n = 64, nb = 8, 16 right-hand sides):
   overlap efficiency exactly 0 at depth 0 and in (0, 1] at depth 1, and
   the critical path, exposed and total ``bcast`` seconds and the modeled
   bytes (on one card the ``bcast`` rows are indexing: their seconds are
-  fence and host overhead, not wire time).
+  fence and host overhead, not wire time);
+- ``mem``: one ``obs.memwatch`` potrf pass (n = 64, nb = 8) on the same
+  mesh: the traced call's ``temp_bytes`` and ``arg_bytes``, the
+  MemoryModel's workspace and its error (within 10%), and the per-device
+  peak (the allocator's on the card, the live tensors' on the host).
 
 Prints one JSON line (``{"n_devices": 8, "phases": {...}, "ok": ...}``) and
-exits non-zero if a phase failed.  The eighth phase (``mem``) comes with
-the memory slice.
+exits non-zero if a phase failed.
 """
 
 from __future__ import annotations
@@ -206,9 +209,29 @@ def dryrun(device: str = "cuda") -> dict:
                 "critical_path_s": s["critical_path_s"], "exposed_comm_s": s["exposed_comm_s"],
                 "total_comm_s": s["total_comm_s"], "model_bytes": rep["model"]["total_bytes"]}
 
+    def mem_accounting():
+        from ..obs import memory, memwatch
+
+        rep = memwatch.run_memwatch("potrf", n=N, nb=NB, bcast_impl="auto", mesh=mesh,
+                                    with_runtime=False)
+        v = rep["values"]
+        if v["mem.temp_bytes"] <= 0:
+            raise RuntimeError("the traced potrf made no transient bytes")
+        if v["mem.model_err_frac"] > memwatch.MODEL_TOL:
+            raise RuntimeError(f"memory model off by {v['mem.model_err_frac']:.1%}")
+        stats = memory.device_memory_stats()
+        if stats:
+            peak_dev = max(st.get("peak_bytes_in_use", 0.0) for st in stats.values())
+        else:
+            peak_dev = max(memory.device_live_bytes()[1].values(), default=0.0)
+        return {"temp_bytes": v["mem.temp_bytes"], "arg_bytes": v["mem.arg_bytes"],
+                "model_workspace_bytes": round(v["mem.model_workspace_bytes"], 1),
+                "model_err_frac": round(v["mem.model_err_frac"], 4),
+                "peak_bytes_per_device": round(peak_dev, 1)}
+
     for name, fn in (("posv_chain", posv), ("gesv_pp", pp), ("hemm_summa", hemm),
                      ("stedc_dist", stedc), ("heev_chain", eig_chain), ("panel_pallas", panel),
-                     ("flight_timeline", flight_timeline)):
+                     ("flight_timeline", flight_timeline), ("mem", mem_accounting)):
         t0 = time.time()
         try:
             result["phases"][name] = dict(fn(), seconds=round(time.time() - t0, 3))

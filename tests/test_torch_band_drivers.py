@@ -13,7 +13,8 @@ their difference's image, max|A (X - X_ref)| <= C_SOLVE n eps max|A|
 max|X| (c = 1: both solves are backward stable; random general bands are
 not well conditioned, so X - X_ref itself is no yardstick), and both under
 the backward-error gate eta < 100 n eps.  Option.Checkpoint and
-Option.NumMonitor ``on`` raise in pbsv_mesh.
+Option.NumMonitor ``on`` is ignored in pbsv_mesh (the same bits as off, no gauge,
+as slate_tpu's band drivers).
 """
 
 import gc
@@ -31,6 +32,7 @@ from slate_tpu.parallel import comm as jcomm
 from slate_tpu.parallel import drivers as jdrv
 from slate_tpu_torch import parallel as tp
 from slate_tpu_torch import types as tt
+from slate_tpu_torch.obs import numerics as tnum
 from slate_tpu_torch.parallel import comm as tcomm
 
 torch.set_num_threads(1)
@@ -170,5 +172,14 @@ def test_band_driver_audit_bytes_match_jax(driver, nb, n):
 @pytest.mark.parametrize("opt,value", [("Checkpoint", 2), ("NumMonitor", "on")])
 def test_pbsv_mesh_raises_on_unported_options(opt, value):
     a = _spd_band(64, 3, "float64", 1)
-    with pytest.raises(NotImplementedError, match=opt if opt == "Checkpoint" else "num_monitor"):
-        tp.pbsv_mesh(_t(a), _t(a[:, :2]), 3, _tmesh(), NB, opts={tt.Option[opt]: value})
+    if opt == "Checkpoint":
+        with pytest.raises(NotImplementedError, match=opt):
+            tp.pbsv_mesh(_t(a), _t(a[:, :2]), 3, _tmesh(), NB, opts={tt.Option[opt]: value})
+        return
+    # Option.NumMonitor is ignored, as slate_tpu's band drivers ignore it:
+    # the same bits as off, and no gauge recorded
+    tnum.reset()
+    x_off, info_off = tp.pbsv_mesh(_t(a), _t(a[:, :2]), 3, _tmesh(), NB)
+    x_on, info_on = tp.pbsv_mesh(_t(a), _t(a[:, :2]), 3, _tmesh(), NB, opts={tt.Option[opt]: value})
+    assert torch.equal(x_on, x_off) and int(info_on) == int(info_off) == 0
+    assert tnum.num_counter_values()["monitored"] == 0

@@ -93,7 +93,7 @@ def test_potrf_left_looking_matches_jax(n):
     a = generate("spd", n, dtype=np.float64, seed=n + 1)
     with po.use_panel_impl("pallas"):
         l_ref = np.asarray(jc._potrf_left_looking(jnp.asarray(a), nb=16))
-    l = tc._potrf_left_looking(_t(a), nb=16).numpy()
+    l = tc.potrf_left_looking_staged(_t(a), nb=16).numpy()
     assert np.abs(l - l_ref).max() < _tol(n, np.float64, np.abs(a).max())
 
 
@@ -332,7 +332,7 @@ def test_non_spd_first_bad_pivot_matches_jax(form, j):
     if form == "scan":
         got = first_bad(tc._potrf_scan(_t(a), nb=8).numpy())
     else:
-        got = first_bad(tc._potrf_left_looking(_t(a), nb=16).numpy())
+        got = first_bad(tc.potrf_left_looking_staged(_t(a), nb=16).numpy())
     assert got == ref > 0
 
 
@@ -453,7 +453,9 @@ def test_port_imports_no_jax():
                 "linalg/indefinite.py", "linalg/rbt.py", "core/grid.py", "parallel/mesh.py",
                 "parallel/dist.py", "ft/ckpt.py", "ft/elastic.py", "ft/ckpt_smoke.py",
                 "obs/context.py", "obs/span.py", "obs/report.py", "obs/perfetto.py",
-                "obs/schedule.py", "obs/flight.py", "obs/comm_audit.py", "obs/smoke.py"):
+                "obs/schedule.py", "obs/flight.py", "obs/comm_audit.py", "obs/smoke.py",
+                "obs/numerics.py", "obs/numwatch.py", "obs/memory.py", "obs/memmodel.py",
+                "obs/memwatch.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

@@ -302,13 +302,23 @@ def test_drivers_route_checkpoint(potrf_runs, monkeypatch):
 
 
 def test_unported_modes_raise(potrf_runs):
-    d, _, _ = potrf_runs
-    with pytest.raises(NotImplementedError, match="num_monitor"):
-        ckpt.potrf_ckpt(d, every=EVERY, num_monitor="on")
-    ck = kill("potrf", lambda: ckpt.potrf_ckpt(d, every=EVERY), 4)
-    ck.num_monitor = True
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        elastic.resume(ck, tmesh())
+    """Option.NumMonitor is ported: the monitored chain gives the plain
+    bits and records the monitored driver's gauges, and a monitored
+    snapshot resumes monitored, its gauges continued to the unbroken
+    chain's (tests/test_torch_ckpt_num.py holds the gauges in full); a
+    bf16 carry still raises."""
+    from slate_tpu_torch.obs import numerics as tnum
+
+    d, ref, _ = potrf_runs
+    tp.potrf_dist(d, num_monitor="on")
+    want = tnum.last_gauges("potrf")
+    assert_bitwise(ref, ckpt.potrf_ckpt(d, every=EVERY, num_monitor="on"), "monitored chain")
+    assert tnum.last_gauges("potrf") == want
+    ck = kill("potrf", lambda: ckpt.potrf_ckpt(d, every=EVERY, num_monitor="on"), 4)
+    assert ck.num_monitor and set(ck.gauges) == {"g"}
+    tnum.clear_last("potrf")
+    assert_bitwise(ref, elastic.resume(ck, tmesh()), "monitored resume")
+    assert tnum.last_gauges("potrf") == want
     half = tp.DistMatrix(tiles=d.tiles.to(torch.bfloat16), m=N, n=N, nb=NB, mesh=d.mesh,
                          diag_pad=True)
     with pytest.raises(ValueError, match="bfloat16"):

@@ -171,8 +171,10 @@ def test_he2hb_without_panels_and_refusals():
     with pytest.raises(ValueError, match="m >= n"):
         ckpt.geqrf_ckpt(tp.from_dense(torch.from_numpy(operand("general")[:, :40].T.copy()),
                                       tmesh(), NB), every=EVERY)
-    with pytest.raises(NotImplementedError, match="num_monitor"):
-        ckpt.geqrf_ckpt(tdist("geqrf"), every=EVERY, num_monitor="on")
+    # Option.NumMonitor is ported: the monitored chain gives the plain bits
+    gd = tdist("geqrf")
+    assert_bitwise(ckpt.geqrf_ckpt(gd, every=EVERY),
+                   ckpt.geqrf_ckpt(gd, every=EVERY, num_monitor="on"), "monitored geqrf")
 
 
 def test_drivers_route_checkpoint(monkeypatch):

@@ -253,10 +253,13 @@ def test_heev_mesh_refuses_what_is_not_ported(monkeypatch):
     w2, z2 = tp.heev_mesh(a, _tmesh(), nb=4)
     assert torch.equal(w0, w2) and torch.equal(z0, z2)
     monkeypatch.delenv("SLATE_TPU_CKPT")
-    with pytest.raises(NotImplementedError, match="num_monitor"):
-        tp.heev_mesh(a, _tmesh(), nb=4, opts={tt.Option.NumMonitor: "on"})
-    with pytest.raises(NotImplementedError, match="num_monitor"):
-        tp.he2hb_dist(tp.from_dense(a, _tmesh(), 4), num_monitor="on")
+    # Option.NumMonitor is ported: "on" gives the plain bits (stage 1
+    # records its orthogonality gauge)
+    w3, z3 = tp.heev_mesh(a, _tmesh(), nb=4, opts={tt.Option.NumMonitor: "on"})
+    assert torch.equal(w0, w3) and torch.equal(z0, z3)
+    f0 = tp.he2hb_dist(tp.from_dense(a, _tmesh(), 4))
+    f1 = tp.he2hb_dist(tp.from_dense(a, _tmesh(), 4), num_monitor="on")
+    assert torch.equal(f0.band.tiles, f1.band.tiles) and torch.equal(f0.vq, f1.vq)
 
 
 def test_dryrun_eig_phases():
@@ -280,4 +283,4 @@ def test_dryrun_eig_phases():
     res = tdry.dryrun("cpu")
     assert res["ok"] and list(res["phases"]) == ["posv_chain", "gesv_pp", "hemm_summa",
                                                  "stedc_dist", "heev_chain", "panel_pallas",
-                                                 "flight_timeline"]
+                                                 "flight_timeline", "mem"]

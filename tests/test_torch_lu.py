@@ -365,8 +365,10 @@ def test_unported_options_raise(form, monkeypatch):
             assert torch.equal(got[0].tiles, plain[0].tiles)
             assert all(torch.equal(x, y) for x, y in zip(got[1:], plain[1:]))
     monkeypatch.delenv("SLATE_TPU_CKPT")
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        _T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.NumMonitor: "on"})
+    # Option.NumMonitor is ported: "on" gives the plain run's bits
+    got = _T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.NumMonitor: "on"})
+    assert torch.equal(got[0].tiles, plain[0].tiles)
+    assert all(torch.equal(x, y) for x, y in zip(got[1:], plain[1:]))
     assert int(_T_GETRF[form](_t(a), _tmesh(), NB, opts={tt.Option.FaultTolerance: "off"})[-1]) == 0
     with pytest.raises(ValueError, match="identity-padded"):
         _T_DIST[form](tp.from_dense(_t(a[:60, :60]), _tmesh(), NB))

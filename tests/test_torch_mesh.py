@@ -428,11 +428,19 @@ def test_panel_impl_xla_matches_pallas():
 
 
 def test_num_monitor_on_is_not_ported():
+    """Option.NumMonitor is ported: ``on`` factors the same bits as ``off``
+    and records the margin gauges; an unknown mode raises ValueError."""
+    from slate_tpu_torch.obs import numerics as tnum
+
     a, _ = _operands(64, np.float32)
     ad = from_dense(_t(a), _tmesh(), NB, diag_pad_one=True)
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        potrf_dist(ad, num_monitor="on")
-    potrf_dist(ad, num_monitor="off")
+    tnum.clear_last("potrf")
+    l_on, info_on = potrf_dist(ad, num_monitor="on")
+    l_off, info_off = potrf_dist(ad, num_monitor="off")
+    assert torch.equal(l_on.tiles, l_off.tiles) and int(info_on) == int(info_off) == 0
+    assert set(tnum.last_gauges("potrf")) == {"margin", "diag_min", "diag_max"}
+    with pytest.raises(ValueError, match="num-monitor"):
+        potrf_dist(ad, num_monitor="bogus")
     with pytest.raises(ValueError, match="identity-padded"):
         potrf_dist(from_dense(_t(a[:60, :60]), _tmesh(), NB))
 

@@ -268,8 +268,17 @@ def test_fallback_opt_out_and_num_monitor(rng):
     assert ir1["fallback"] == ir0["fallback"] and ir1["solves"] == ir0["solves"] + 1
     assert ir1["converged"] == ir0["converged"]  # IR did not converge; its x comes back
     assert x.shape == (N, 1) and int(info) == 0
-    with pytest.raises(NotImplementedError, match="observability slice"):
-        tp.posv_mesh(_t(_spd(rng)), _t(b), _tmesh(), NB, opts={Option.NumMonitor: "on"})
+    # Option.NumMonitor is ported: a healthy SPD solve takes the health
+    # tier, stays on IR (no GMRES route) and returns the unmonitored bits
+    from slate_tpu_torch.obs import numerics as tnum
+
+    spd = _t(_spd(rng))
+    x_off, _ = tp.posv_mesh(spd, _t(b), _tmesh(), NB)
+    routed = tnum.num_counter_values()["routed_gmres"]
+    x_on, info_on = tp.posv_mesh(spd, _t(b), _tmesh(), NB, opts={Option.NumMonitor: "on"})
+    assert torch.equal(x_on, x_off) and int(info_on) == 0
+    assert tnum.num_counter_values()["routed_gmres"] == routed
+    assert {"margin", "diag_min", "diag_max"} <= set(tnum.last_gauges("potrf"))
     with pytest.raises(TypeError, match="float64"):
         tp.posv_mixed_mesh(_t(_spd(rng)).float(), _t(b), _tmesh(), NB)
 

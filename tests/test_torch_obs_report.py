@@ -54,7 +54,7 @@ def test_reports_cross_validate():
     rep = json.loads(json.dumps(_port_report()))
     assert report.validate_report(rep) == [] and jreport.validate_report(rep) == []
     assert rep["env"]["platform"] in ("cpu", "cuda") and "torch" in rep["env"]
-    assert set(rep) >= {"ft", "ir", "serve", "metrics", "spans"} and "mem" not in rep
+    assert set(rep) >= {"ft", "ir", "mem", "num", "serve", "metrics", "spans"}
     assert [s["name"] for s in rep["spans"]] == ["potrf_dist", "case"]
     jrep = jreport.make_report("jcase", values={"x_seconds": 1.0})
     jrep = json.loads(json.dumps(jrep))

@@ -236,8 +236,9 @@ def test_options_and_refusals(monkeypatch):
     x1 = tp.gels_mesh(a, b, mesh, NB)
     assert torch.equal(x0[0], x1[0]) and torch.equal(x0[1], x1[1])
     monkeypatch.delenv("SLATE_TPU_CKPT")
-    with pytest.raises(NotImplementedError, match="num_monitor"):
-        tp.geqrf_mesh(a, mesh, NB, opts={tt.Option.NumMonitor: "on"})
+    # Option.NumMonitor is ported: "on" gives the plain bits
+    f_on, f_off = (tp.geqrf_mesh(a, mesh, NB, opts={tt.Option.NumMonitor: m}) for m in ("on", "off"))
+    assert torch.equal(f_on.fact.tiles, f_off.fact.tiles) and torch.equal(f_on.tloc, f_off.tloc)
     with pytest.raises(ValueError, match="m >= n"):
         tp.geqrf_dist(tp.from_dense(_t(a.T.copy()), mesh, NB))
     f = tp.geqrf_mesh(a, mesh, NB)
