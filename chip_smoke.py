@@ -335,10 +335,36 @@ printing one JSON line before the next starts (any failure exits non-zero):
    whose copy the model puts past it): torch.cuda.OutOfMemoryError with
    exactly one forensics report; then slice10b_seconds: the phase's
    seconds by part beside the 10 s budget, with the card line;
-52. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+52. serve (slice 11a, the serving core; bins 256-4096): posv_batched f64
+   at bin 4096 and f32 / f64 at 512, B = 8, each row bitwise posv_array of
+   its problem, info 0, eta < 100 n eps, solves/s, the 4096 stack's
+   chol_diag_inv launches derived by potrf_ll_leaves (16 a problem);
+   serve.smoke.measure_throughput at n = 512, B = 8 beside the posv_mesh
+   loop (the ratio and its >= 3x gate); posv_packed_mesh of k = 4 ragged
+   f64 problems (n = 900-1024, bin 1024: one 4096 operand on 2 x 4,
+   nb = 256, MixedPrecision off), each solution bitwise the problem packed
+   alone, the launches by expected_potrf_launches, and the same at bin 200
+   (every tile straddles two problems); a meshless Router stream of 32
+   ragged f64 posv / gesv requests over bins 256-1024 (gesv up to 512; one
+   operand at cond 1e9: the hostile GMRES-IR tier), obs on, run twice: one build per cache
+   key and none in the second pass (assert_steady), every request one
+   "served" outcome, the request timeline valid, p50 <= p95 <= p99 per
+   class, each answer under its gate and the second pass bitwise the
+   first; the resilient mesh router at f64 n = 2048 (2 x 4, nb = 256):
+   posv under Checkpoint every 4 killed at step 6 (one serve.resumes, the
+   answer bitwise the unbroken chain's, the launches by
+   expected_ckpt_launches), a kill at step 1 (reject_unresumable), gesv
+   under FaultTolerance Detect with one panel flip (one serve.retries,
+   twice expected_ft_launches); Router.gels f64 4096 x 2048 with
+   NumMonitor on (tester.py's residual gate, omega, no orth retry, nt
+   qr_panel_offset and nt (p - 1) qr_panel launches); serve.tune's
+   time_gemm_method at f64 2048 (GemmA against GemmC: kt summa_update a
+   GemmC run); then slice11a_seconds beside its 10 s budget, with the card
+   line;
+53. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
    stedc_dist, heev_chain, the LU panel_pallas half, flight_timeline, mem;
    n = 64, nb = 8, 2 x 4);
-53. total: the script's seconds; then kernels: the line of every ported
+54. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
@@ -354,7 +380,8 @@ printing one JSON line before the next starts (any failure exits non-zero):
    those phase 50 reaches its flights' under ``flight_<op>`` (every driver
    run of the flight) and the obs-on posv's under ``obs_posv``; the rows
    phase 51's paths reach, at their dtype, those paths' launches under
-   ``num_<op>`` and ``mem_<op>``), then the card line and, last,
+   ``num_<op>`` and ``mem_<op>``, and those phase 52's reach under
+   ``serve_<path>``), then the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -5519,6 +5546,336 @@ def obs_num_mem_phase(kernels, mp, smi_line, torch):
             for k, (dt, counts) in paths.items() if k.startswith(("num_", "mem_"))]
 
 
+SERVE_BIG = 4096  # the largest serving bin: the f64 posv's left-looking route
+SERVE_SMALL = 512
+SERVE_BATCH = 8
+SERVE_PACK = ((1024, 1000, 950, 900), 1024)  # k = 4 ragged problems, bin 1024 -> 4096
+SERVE_STRADDLE = ((200, 190, 170), 200)  # bin 200: every tile straddles problems
+SERVE_STREAM_BINS = (256, 512, 1024)
+# the ragged sizes' range: posv up to bin 1024, gesv up to bin 512 (its
+# condest probe's pivoted panel and the friendly tier's no-pivot leaves are
+# host-bound eager loops: 5.2 s of an 11.2 s phase with gesv to 1024)
+SERVE_STREAM_N = {"posv": (160, 1024), "gesv": (160, 512)}
+SERVE_HOSTILE_N = 200
+SERVE_RESIL_N = 2048
+SERVE_CKPT_EVERY = 4
+SERVE_KILL_STEP = 6
+SERVE_GELS_MN = (4096, 2048)
+SERVE_SEED = 400
+SLICE11A_BUDGET_S = 10.0
+
+
+def potrf_ll_leaves(n):
+    """chol_diag_inv launches of one f64 potrf_array at n >= 4096 on the
+    card, derived from its loop: potrf_left_looking_staged's panels, each
+    one _potrf_and_inv whose recursion (blas3._split) ends in 256-wide
+    leaves."""
+    from slate_tpu_torch.blas3.blas3 import _NB, _split
+
+    def leaves(k):
+        if k <= _NB:
+            return 1
+        h = _split(k)
+        return leaves(h) + leaves(k - h)
+
+    nb = 4096 if n >= 16384 else 2048
+    return -(-n // nb) * leaves(nb)
+
+
+def serve_phase(kernels, mp, bucket_plan, smi_line, torch):
+    """Slice 11a, the serving core, at the sizes it serves (bins 256-4096).
+    Returns the launches of each path as [(serve_<path>, dtype, counts)]."""
+    import numpy as np
+
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.ft import inject
+    from slate_tpu_torch.ft.checksum import threshold
+    from slate_tpu_torch.ft.policy import FtPolicy
+    from slate_tpu_torch.linalg.chol import posv_array
+    from slate_tpu_torch.obs import perfetto
+    from slate_tpu_torch.obs.metrics import serve_counts
+    from slate_tpu_torch.serve import batch, smoke, trace, tune
+    from slate_tpu_torch.serve.cache import ExecutableCache
+    from slate_tpu_torch.serve.router import Router
+    from slate_tpu_torch.types import Option, SlateError
+    from slate_tpu_torch.utils import testing
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    secs, paths, out = {}, {}, {"phase": "serve", "card": smi_line}
+    obs.reset()
+    t_phase = time.perf_counter()
+
+    def counted(path, dtype, fn):
+        reset_counts(kernels)
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = (dtype, {k: v for k, v in read_counts(kernels).items() if v})
+        return res
+
+    def deltas(before):
+        after = serve_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    def gate(n, dtype):
+        return 100 * n * torch.finfo(dtype).eps
+
+    # 1. the stacked batch driver: each row bitwise posv_array of its problem
+    t0 = time.perf_counter()
+    out["batched"] = {}
+    for n, dtype in ((SERVE_BIG, f64), (SERVE_SMALL, f32), (SERVE_SMALL, f64)):
+        a = torch.stack([dominant_spd(n, dtype, SERVE_SEED + i, torch)
+                         for i in range(SERVE_BATCH)])
+        b = randn((SERVE_BATCH, n, 1), dtype, SERVE_SEED + 50, torch)
+        path = f"serve_posv_{n}" if n == SERVE_BIG else None
+        t1 = time.perf_counter()
+        xs, info = (counted(path, dtype, lambda: batch.posv_batched(a, b)) if path
+                    else batch.posv_batched(a, b))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t1
+        bitwise = all(torch.equal(xs[i], posv_array(a[i], b[i])[0]) for i in range(SERVE_BATCH))
+        etas = [eta(a[i], xs[i], b[i], torch) for i in range(SERVE_BATCH)]
+        key = f"{dname(dtype)}_{n}"
+        out["batched"][key] = {"seconds": s, "solves_per_s": SERVE_BATCH / s, "bitwise": bitwise,
+                               "info": info.tolist(), "eta_max": max(etas),
+                               "eta_gate": gate(n, dtype)}
+        check(bitwise and not any(info.tolist()) and max(etas) < gate(n, dtype),
+              f"serve batched {key}: {out['batched'][key]}")
+        del a, b, xs
+    want = {"chol_diag_inv": SERVE_BATCH * potrf_ll_leaves(SERVE_BIG)}
+    got = paths[f"serve_posv_{SERVE_BIG}"][1]
+    out["batched"]["launches"], out["batched"]["expected_launches"] = got, want
+    check(got == want, f"serve batched launches {got}, expected {want}")
+    secs["batched"] = time.perf_counter() - t0
+
+    # 2. the serving headline: stacked against the posv_mesh loop at 512
+    t0 = time.perf_counter()
+    thr = smoke.measure_throughput(mesh, n=SERVE_SMALL, batch=SERVE_BATCH)
+    out["throughput"] = {k: v for k, v in thr.items() if k != "key"}
+    check(thr["bitwise"] and thr["info_ok"], f"serve throughput: {out['throughput']}")
+    check(thr["speedup"] >= 3.0, f"serve throughput: batched {thr['speedup']:.2f}x the loop, < 3x")
+    secs["throughput"] = time.perf_counter() - t0
+
+    # 3. the packed mesh posv: k ragged problems in one block-diagonal
+    # operand, each solution bitwise the problem packed alone; then a bin
+    # that is not a multiple of nb (tiles straddle two problems)
+    t0 = time.perf_counter()
+    direct = {Option.MixedPrecision: "off"}
+    out["packed"] = {}
+    for label, (sizes, m) in (("aligned", SERVE_PACK), ("straddle", SERVE_STRADDLE)):
+        ops_ = [dominant_spd(n, f64, SERVE_SEED + 60 + i, torch) for i, n in enumerate(sizes)]
+        rhs_ = [randn((n, 1), f64, SERVE_SEED + 70 + i, torch) for i, n in enumerate(sizes)]
+        run = lambda: batch.posv_packed_mesh(ops_, rhs_, mesh, nb=NB, bins=(m,), opts=direct)
+        xs, info = counted("serve_packed_posv", f64, run) if label == "aligned" else run()
+        alone = []
+        for i in range(len(sizes)):
+            eye = torch.eye(m, dtype=f64, device="cuda")
+            zero = torch.zeros((m, 1), dtype=f64, device="cuda")
+            a1, b1 = batch.pack_block_diag([ops_[q] if q == i else eye for q in range(len(sizes))],
+                                           m, [rhs_[q] if q == i else zero
+                                               for q in range(len(sizes))])
+            x1, _ = mp.posv_mesh(a1, b1, mesh, NB, direct)
+            alone.append(torch.equal(xs[i], batch.unpack_block_diag(x1, sizes, m)[i]))
+        etas = [eta(ops_[i], xs[i], rhs_[i], torch) for i in range(len(sizes))]
+        out["packed"][label] = {"sizes": list(sizes), "bin": m, "info": int(info),
+                                "bitwise_packed_alone": alone, "eta_max": max(etas)}
+        check(int(info) == 0 and all(alone) and max(etas) < gate(m, f64),
+              f"serve packed {label}: {out['packed'][label]}")
+    nt = len(SERVE_PACK[0]) * SERVE_PACK[1] // NB
+    want = expected_potrf_launches(nt, 1, bucket_plan)
+    got = paths["serve_packed_posv"][1]
+    out["packed"]["launches"], out["packed"]["expected_launches"] = got, want
+    check(got == want, f"serve packed launches {got}, expected {want}")
+    secs["packed"] = time.perf_counter() - t0
+
+    # 4. a Router stream: 32 ragged f64 posv / gesv requests across bins
+    # 256-1024 (friendly and hostile gesv: one operand at cond 1e9), obs on,
+    # twice: one build per key, none in the second pass, one outcome each
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SERVE_SEED)
+    router = Router(bins=SERVE_STREAM_BINS, cache=ExecutableCache())
+    g = torch.Generator(device="cuda").manual_seed(SERVE_SEED + 80)
+    q1, _ = torch.linalg.qr(torch.randn((SERVE_HOSTILE_N,) * 2, generator=g, dtype=f64,
+                                        device="cuda"))
+    q2, _ = torch.linalg.qr(torch.randn((SERVE_HOSTILE_N,) * 2, generator=g, dtype=f64,
+                                        device="cuda"))
+    sing = torch.logspace(0, -9, SERVE_HOSTILE_N, dtype=f64, device="cuda")
+    hostile = (q1 * sing) @ q2
+    reqs = []
+    for i in range(32):
+        op = "gesv" if i % 2 else "posv"
+        if i % 16 == 5:
+            a = hostile
+        else:
+            lo, hi = SERVE_STREAM_N[op]
+            n = int(rng.integers(lo, hi + 1))
+            a = (dominant_spd(n, f64, SERVE_SEED + 100 + i, torch) if op == "posv"
+                 else lu_matrix("nopiv", n, f64, SERVE_SEED + 100 + i, torch))
+        reqs.append((op, a, randn((a.shape[0], 1), f64, SERVE_SEED + 140 + i, torch)))
+    obs.enable()
+    trace.reset()
+    c0 = serve_counts()
+    t1 = time.perf_counter()
+    xs1 = router.solve_batch(reqs)
+    torch.cuda.synchronize()
+    pass1 = time.perf_counter() - t1
+    snap = router.cache.snapshot_traces()
+    t1 = time.perf_counter()
+    xs2 = router.solve_batch(reqs)
+    torch.cuda.synchronize()
+    pass2 = time.perf_counter() - t1
+    d = deltas(c0)
+    steady = True
+    try:
+        router.cache.assert_steady(snap)
+        router.cache.assert_steady()
+    except AssertionError:
+        steady = False
+    traces = trace.finished_traces()
+    sla = trace.sla_values()
+    doc = perfetto.request_chrome_trace(traces)
+    terrs = perfetto.validate_chrome_trace(json.loads(json.dumps(doc)))
+    quant = {}
+    for op, klass in (("posv", "friendly"), ("gesv", "friendly"), ("gesv", "hostile")):
+        quant[f"{op}_{klass}"] = [sla.get(f"latency_{q}_{op}_{klass}_s") for q in
+                                  ("p50", "p95", "p99")]
+    eta_max, hostile_resid = 0.0, 0.0
+    for (op, a, b), x in zip(reqs, xs1):
+        if a is hostile:
+            hostile_resid = max(hostile_resid, float((a @ x - b).abs().max()))
+        else:
+            eta_max = max(eta_max, eta(a, x, b, torch) / gate(a.shape[0], f64))
+    same = all(torch.equal(x1, x2) for x1, x2 in zip(xs1, xs2))
+    out["router"] = {"requests": len(reqs), "pass_seconds": [pass1, pass2],
+                     "solves_per_s": [len(reqs) / pass1, len(reqs) / pass2],
+                     "programs": len(router.cache), "counter_deltas": d,
+                     "outcomes": sorted({t.outcome for t in traces}), "traces": len(traces),
+                     "quantiles_s": quant, "timeline_problems": terrs[:3],
+                     "eta_over_gate_max": eta_max, "hostile_max_abs_residual": hostile_resid,
+                     "pass2_bitwise_pass1": same, "steady": steady}
+    check(len(traces) == 2 * len(reqs) and all(t.outcome == "served" for t in traces),
+          f"serve router: {len(traces)} traces, outcomes {out['router']['outcomes']}")
+    check(steady and d.get("traces") == len(router.cache) and d.get("cache_misses") == d["traces"],
+          f"serve router cache: {out['router']}")
+    check(d.get("class_hostile") == 4 and d.get("requests") == 2 * len(reqs),
+          f"serve router classes: {d}")
+    check(not terrs and all(q[0] is not None and 0 <= q[0] <= q[1] <= q[2]
+                            for q in quant.values()), f"serve router SLA: {out['router']}")
+    check(eta_max < 1 and hostile_resid < 1e-4 and same, f"serve router answers: {out['router']}")
+    obs.disable()
+    del reqs, xs1, xs2, hostile
+    secs["router"] = time.perf_counter() - t0
+
+    # 5. the resilient mesh path at f64 n = 2048 (2 x 4, nb = 256): a
+    # checkpointed posv killed at step 6 and resumed (bitwise the unbroken
+    # chain), a gesv under FaultTolerance with one transient fault (one
+    # retry), and a kill before the first snapshot (rejected)
+    t0 = time.perf_counter()
+    n = SERVE_RESIL_N
+    nt = n // NB
+    a = dominant_spd(n, f64, SERVE_SEED + 200, torch)
+    b = randn((n, 1), f64, SERVE_SEED + 201, torch)
+    ck = Router(mesh=mesh, nb=NB, bins=(n,), cache=ExecutableCache(),
+                opts={Option.Checkpoint: SERVE_CKPT_EVERY, Option.NumMonitor: "off"})
+    x_chain = ck.solve("posv", a, b)
+    c0 = serve_counts()
+    t1 = time.perf_counter()
+    with inject.fault_scope(inject.FaultPlan([inject.KillFault("potrf", SERVE_KILL_STEP)])):
+        x_res = counted("serve_resume_posv", f64, lambda: ck.solve("posv", a, b))
+    resume_s = time.perf_counter() - t1
+    d_res = deltas(c0)
+    obs.enable()
+    before = len(trace.finished_traces())
+    c0 = serve_counts()
+    rejected = None
+    with inject.fault_scope(inject.FaultPlan([inject.KillFault("potrf", 1)])):
+        try:
+            ck.solve("posv", a, b)
+        except SlateError as e:
+            rejected = str(e)
+    d_rej = deltas(c0)
+    rej_out = [t.outcome for t in trace.finished_traces()[before:]]
+    obs.disable()
+    a_lu = lu_matrix("nopiv", n, f64, SERVE_SEED + 202, torch)
+    ft = Router(mesh=mesh, nb=NB, bins=(n,), cache=ExecutableCache(),
+                opts={Option.FaultTolerance: FtPolicy.Detect, Option.NumMonitor: "off"})
+    k = nt - 3
+    flip = inject.Fault("getrf_nopiv", k=k, phase="panel", ti=nt - 1, tj=k, r=(nt - 1) % P,
+                        c=k % Q, mode=inject.MODE_FLIP,
+                        value=10 * threshold(n, f64, nt * 2 * float(a_lu.abs().max())))
+    c0 = serve_counts()
+    t1 = time.perf_counter()
+    with inject.fault_scope(inject.FaultPlan([flip])):
+        x_ft = counted("serve_gesv_ft", f64, lambda: ft.solve("gesv", a_lu, b))
+    retry_s = time.perf_counter() - t1
+    d_ft = deltas(c0)
+    out["resilient"] = {
+        "n": n, "every": SERVE_CKPT_EVERY, "kill": SERVE_KILL_STEP, "resume_seconds": resume_s,
+        "resume_deltas": d_res, "resume_bitwise_chain": bool(torch.equal(x_res, x_chain)),
+        "resume_eta": eta(a, x_res, b, torch), "unresumable": rejected, "reject_deltas": d_rej,
+        "reject_outcomes": rej_out, "retry_seconds": retry_s, "retry_deltas": d_ft,
+        "retry_omega": omega(a_lu, x_ft, b, torch), "omega_gate": omega_gate(n, f64, torch),
+        "launches": {p_: paths[p_][1] for p_ in ("serve_resume_posv", "serve_gesv_ft")}}
+    check(d_res.get("resumes") == 1 and out["resilient"]["resume_bitwise_chain"]
+          and out["resilient"]["resume_eta"] < gate(n, f64),
+          f"serve resume: {out['resilient']}")
+    check(rejected and "unresumable" in rejected and d_rej.get("admission_rejects") == 1
+          and rej_out == ["reject_unresumable"], f"serve unresumable: {out['resilient']}")
+    check(d_ft.get("retries") == 1 and out["resilient"]["retry_omega"] < omega_gate(n, f64, torch),
+          f"serve ft retry: {out['resilient']}")
+    want_res = expected_ckpt_launches("potrf", nt)
+    want_ft = {k_: 2 * v for k_, v in expected_ft_launches("lu", nt, 1).items()}
+    check(paths["serve_resume_posv"][1] == want_res,
+          f"serve resume launches {paths['serve_resume_posv'][1]}, expected {want_res}")
+    check(paths["serve_gesv_ft"][1] == want_ft,
+          f"serve ft launches {paths['serve_gesv_ft'][1]}, expected {want_ft}")
+    del a, b, a_lu, x_chain, x_res, x_ft
+    secs["resilient"] = time.perf_counter() - t0
+
+    # 6. the gels tier: CAQR at f64 4096 x 2048 with NumMonitor on, tester.py's
+    # residual gate, no re-orthogonalization retry on a sound operand
+    t0 = time.perf_counter()
+    m, n = SERVE_GELS_MN
+    a = randn((m, n), f64, SERVE_SEED + 300, torch)
+    b = randn((m, NRHS), f64, SERVE_SEED + 301, torch)
+    gr = Router(mesh=mesh, nb=NB, cache=ExecutableCache(), opts={Option.NumMonitor: "on"})
+    c0 = serve_counts()
+    x = counted("serve_gels", f64, lambda: gr.gels(a, b))
+    d_g = deltas(c0)
+    res, om = gels_residual(a, x, b), testing.gels_omega(a, x, b)
+    nt = n // NB
+    want = {"qr_panel_offset": nt, "qr_panel": nt * (P - 1)}
+    out["gels"] = {"m": m, "n": n, "residual": res, "residual_gate": 100 * n * 2.0 ** -52,
+                   "omega": om, "omega_gate": testing.gels_omega_gate(m, f64),
+                   "deltas": d_g, "launches": paths["serve_gels"][1], "expected_launches": want}
+    check(res < 100 * n * 2.0 ** -52 and om < testing.gels_omega_gate(m, f64)
+          and "retries" not in d_g, f"serve gels: {out['gels']}")
+    check(paths["serve_gels"][1] == want,
+          f"serve gels launches {paths['serve_gels'][1]}, expected {want}")
+    del a, b, x
+    torch.cuda.empty_cache()
+    secs["gels"] = time.perf_counter() - t0
+
+    # 7. the tuner's stationary-variant timing (GemmA against GemmC at the
+    # thin-output serving shape, f64 2048): GemmC's kt summa_update a run
+    t0 = time.perf_counter()
+    n, reps = SERVE_RESIL_N, 3
+    times = counted("serve_tune_gemm", f64, lambda: tune.time_gemm_method(n, NB, mesh, reps))
+    want = {"summa_update": (1 + reps) * (n // NB)}
+    out["tune_gemm"] = {"n": n, "seconds": times, "launches": paths["serve_tune_gemm"][1],
+                        "expected_launches": want}
+    check(paths["serve_tune_gemm"][1] == want and all(v > 0 for v in times.values()),
+          f"serve tune gemm: {out['tune_gemm']}")
+    secs["tune_gemm"] = time.perf_counter() - t0
+    obs.reset()
+
+    emit(out)
+    phase_total = time.perf_counter() - t_phase
+    emit({"phase": "slice11a_seconds", **secs, "sum": phase_total, "budget": SLICE11A_BUDGET_S,
+          "within_budget": phase_total <= SLICE11A_BUDGET_S, "card": smi_line})
+    return [(k_, dt, counts) for k_, (dt, counts) in paths.items()]
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -5807,10 +6164,20 @@ def main():
             row.setdefault("launches_by_path", {first: row["launches"]})[path] = got
             check(got, f"{row['name']}: no launch on {path}")
 
-    # 52. the dryrun
+    # 52. slice 11a: the serving core.  Each path's launches join the rows of
+    # the kernels it reaches (by dtype) under serve_<path>
+    main_path["chol_diag_inv"] = "posv"
+    for path, dt, counts in serve_phase(kernels, mp, bucket_plan, smi_line, torch):
+        for name, got in counts.items():
+            row = by_label[f"{name}[{dname(dt)}]"]
+            first = main_path.get(row["name"], main_path.get(name))
+            row.setdefault("launches_by_path", {first: row["launches"]})[path] = got
+            check(got, f"{row['name']}: no launch on {path}")
+
+    # 53. the dryrun
     dryrun_phase()
 
-    # 53. the script's seconds, kernels line, card line, result
+    # 54. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

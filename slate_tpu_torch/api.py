@@ -10,8 +10,9 @@ Counterpart of ``multiply``, ``hermitian_multiply`` /
 ``least_squares_solve`` / ``qr_factor`` /
 ``qr_multiply_by_q`` / ``lq_factor`` / ``lq_multiply_by_q`` and
 ``eig_vals`` / ``eig_decompose`` / ``generalized_eig`` / ``svd_vals`` /
-``svd_decompose`` in ``slate_tpu/api.py``; the other verbs come with their
-slices.  Each verb
+``svd_decompose`` and the serving verbs ``chol_solve_batched`` /
+``lu_solve_batched`` / ``multiply_batched`` / ``serve_router`` in
+``slate_tpu/api.py``; the other verbs come with their slices.  Each verb
 computes on ``operand_device(first operand, device)``: tensors where they
 lie, anything else on the card unless ``device`` says otherwise.
 """
@@ -233,3 +234,44 @@ def svd_vals(a: ArrayLike, device=None):
 def svd_decompose(a: ArrayLike, device=None):
     """(U, s, Vh), thin."""
     return svd_mod.svd_array(blas3._arr(a, operand_device(a, device)), want_vectors=True)
+
+
+# -- serving (slate_tpu_torch.serve): batched small-problem verbs ------------
+# Stacks of same-shaped small problems, each row bitwise its single verb
+# above; ``serve_router`` builds the full request path (admission on the
+# memory model, condest-keyed accuracy classes, the executable cache and the
+# tuned schedule table).
+
+
+def chol_solve_batched(a, b, device=None):
+    """Stacked chol_solve: (B, n, n) x (B, n, k) -> (x, info) stacks."""
+    from .serve.batch import posv_batched
+
+    dev = operand_device(a, device)
+    return posv_batched(blas3._arr(a, dev), blas3._arr(b, dev))
+
+
+def lu_solve_batched(a, b, method: MethodLU = MethodLU.PartialPiv, device=None):
+    """Stacked lu_solve: (B, n, n) x (B, n, k) -> (x, info) stacks."""
+    from .serve.batch import gesv_batched
+
+    dev = operand_device(a, device)
+    return gesv_batched(blas3._arr(a, dev), blas3._arr(b, dev), method)
+
+
+def multiply_batched(alpha, a, b, beta=0.0, c=None, device=None):
+    """Stacked multiply over (B, m, k) x (B, k, n) operand stacks."""
+    from .serve.batch import gemm_batched
+
+    dev = operand_device(a, device)
+    return gemm_batched(alpha, blas3._arr(a, dev), blas3._arr(b, dev), beta,
+                        None if c is None else blas3._arr(c, dev))
+
+
+def serve_router(**kwargs):
+    """A ``serve.Router`` over this API's drivers (``serve/router.py``); its
+    keywords are the Router's (``mesh``, ``nb``, ``bins``, ``hbm_budget``,
+    ``cache``, ``opts``, ``device``)."""
+    from .serve.router import Router
+
+    return Router(**kwargs)

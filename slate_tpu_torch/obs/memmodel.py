@@ -53,6 +53,21 @@ _MULTI_OUT_SLOT = {"geqrf": 32, "he2hb": 24}
 # the port's int32 info tensor (one storage of 4 bytes)
 _PORT_INFO_BYTES = 4
 
+# slate_tpu's per-device workspace calibration, fitted to XLA's buffer
+# assignment on its 8-device CPU mesh (slate_tpu/obs/memmodel.py): the
+# index / loop-carry constants, the bucket-view liveness and the trsm /
+# geqrf / he2hb least-squares coefficients.  Only ``device_workspace_bytes``
+# reads them: the serving admission of a meshless router, which admits
+# exactly the sizes slate_tpu's does (serve/router.py).
+_XLA_CONST_BYTES = {"summa": 256, "potrf": 1504, "getrf_nopiv": 1808,
+                    "trsm": 617, "geqrf": 753, "he2hb": 4059}
+_XLA_ENGINE_CONST_BYTES = {"summa": 212, "potrf": 1568, "getrf_nopiv": 2144,
+                           "trsm": 512, "geqrf": 384, "he2hb": 128}
+_XLA_VIEW_COEF = {"potrf": 0.53, "getrf_nopiv": 0.55}
+_XLA_TRSM_COEF = {"stack": 1.996, "pcol": 0.400, "tile": 0.067, "livepay": 0.228}
+_XLA_QR_COEF = {"stack": 1.659, "panel": 0.769, "tree": 1.537}
+_XLA_HE2HB_COEF = {"stack": 1.542, "gpan": 1.236, "pcol": 0.618, "tree": 1.236}
+
 # ---------------------------------------------------------------------------
 # The port's calibration: virtual_workspace_bytes = sum_t coef[t] * term_t
 # over the terms of _virtual_terms (C, R, S, T = tile, D = (1 + depth) C,
@@ -291,6 +306,43 @@ class MemoryModel:
     def peak_bytes(self) -> float:
         return self.arg_bytes + self.out_bytes + self.workspace_bytes
 
+    # -- slate_tpu's per-device form (XLA's buffer assignment) -------------
+
+    @property
+    def device_workspace_bytes(self) -> float:
+        """``slate_tpu``'s per-device transient bytes at peak: its closed
+        form over the exact payload / stack terms with its XLA-fitted
+        coefficients (the ``_XLA_*`` constants), term for term."""
+        const = _XLA_CONST_BYTES[self.op]
+        if self.engine:
+            const += _XLA_ENGINE_CONST_BYTES[self.op]
+        tile = self.tile_bytes
+        if self.op == "trsm":
+            c = _XLA_TRSM_COEF
+            return (c["stack"] * self.stack_bytes + c["pcol"] * self.panel_col_bytes
+                    + c["tile"] * tile + c["livepay"] * self.live_payloads * self.payload_bytes
+                    + const)
+        if self.op == "geqrf":
+            c = _XLA_QR_COEF
+            tops = self.p * self.panel_row_bytes
+            return (c["stack"] * self.stack_bytes + c["panel"] * (self.panel_col_bytes + tops)
+                    + c["tree"] * self.nt * tile + const)
+        if self.op == "he2hb":
+            c = _XLA_HE2HB_COEF
+            pcol = self.panel_col_bytes
+            return (c["stack"] * self.stack_bytes + c["gpan"] * self.p * pcol
+                    + c["pcol"] * pcol + c["tree"] * self.nt * tile + const)
+        if self.op == "summa":
+            return self.stack_bytes + self.live_payloads * self.payload_bytes + const
+        return (self.stack_bytes + self.live_payloads * self.payload_bytes
+                + _XLA_VIEW_COEF[self.op] * self._bucket_view_bytes() + const)
+
+    @property
+    def device_peak_bytes(self) -> float:
+        """``slate_tpu``'s per-device peak: the exact arguments and outputs
+        plus :attr:`device_workspace_bytes`."""
+        return self.arg_bytes + self.out_bytes + self.device_workspace_bytes
+
     def breakdown(self) -> Dict[str, float]:
         return {
             "arg_bytes": float(self.arg_bytes),
@@ -307,20 +359,28 @@ class MemoryModel:
         }
 
 
+PEAK_FORMS = ("peak_bytes", "virtual_peak_bytes", "device_peak_bytes")
+
+
 def predict_max_n(budget_bytes: float, op: str = "potrf", nb: int = 256,
                   grid: Tuple[int, int] = (2, 4), dtype="float32",
                   lookahead: int = 1, bcast_impl: str = "auto",
-                  ft: bool = False) -> int:
-    """Largest n whose modelled per-device peak fits ``budget_bytes``,
-    searched over tile-grid multiples (the model is step-wise constant
-    between them)."""
+                  ft: bool = False, peak: str = "peak_bytes") -> int:
+    """Largest n whose modelled peak fits ``budget_bytes``, searched over
+    tile-grid multiples (the model is step-wise constant between them).
+    ``peak`` names the :class:`MemoryModel` peak held to the budget: the
+    port's per-device share (``peak_bytes``), the whole virtual mesh on one
+    card (``virtual_peak_bytes``) or ``slate_tpu``'s per-device form
+    (``device_peak_bytes``, which gives ``slate_tpu``'s answer)."""
+    if peak not in PEAK_FORMS:
+        raise ValueError(f"unknown peak form {peak!r}; expected one of {PEAK_FORMS}")
     step = nb * math.lcm(int(grid[0]), int(grid[1]))
 
     def fits(n):
         if n <= 0:
             return True
         m = MemoryModel(op, n, nb, grid, dtype, lookahead, bcast_impl, ft)
-        return m.peak_bytes <= budget_bytes
+        return getattr(m, peak) <= budget_bytes
 
     if not fits(step):
         return 0

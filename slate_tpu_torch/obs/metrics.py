@@ -9,10 +9,10 @@ bounded, deterministically seeded sample reservoir), and a snapshot is a
 plain JSON-able dict with ``slate_tpu``'s layout (the RunReport ``metrics``
 section).  Nothing here imports torch.
 
-The flat ``serve.*`` counters of ``slate_tpu/serve/metrics.py`` that the
-port's code bumps so far live here too (:func:`serve_count`): the Ozaki
-digit-plane cache's ``ozaki_presplits`` and ``ozaki_presplit_hits``, and
-the mesh condest memo's ``condest_cache_hits``.
+The flat ``serve.*`` counters of ``slate_tpu/serve/metrics.py`` live here
+too (:func:`serve_count`), so that the mesh caches that bump them (the
+Ozaki digit planes, the condest memo) need not import the serving
+package; ``serve.metrics`` adds the request-level SLA keys.
 """
 
 from __future__ import annotations
@@ -193,23 +193,46 @@ def flatten_snapshot(snap: Dict[str, List[dict]], sep: str = "|") -> Dict[str, f
     return flat
 
 
-# flat serve.* counters (slate_tpu/serve/metrics.py names); the rest of the
-# serving layer comes with its slice
-_SERVE_NAMES = ("ozaki_presplits", "ozaki_presplit_hits", "condest_cache_hits")
+# The flat serve.* counters (slate_tpu/serve/metrics.py's names and
+# meanings; the serving layer, ``serve.metrics``, reads and resets them
+# with its request-level SLA keys).  They live here so that the mesh
+# caches that bump them (the Ozaki planes, the condest memo) need not
+# import the serving package.
+_SERVE_NAMES = (
+    # request router
+    "requests", "batches", "batched_solves", "packed_problems", "admission_rejects",
+    "retries", "resumes", "class_friendly", "class_hostile",
+    # executable cache
+    "cache_hits", "cache_misses", "traces", "warmups",
+    # schedule-table resolution
+    "tuned_resolutions",
+    # stationary-operator caches
+    "condest_cache_hits", "ozaki_presplits", "ozaki_presplit_hits",
+    # the batch-window queue, budgets and control loop (the service layer)
+    "queue_submitted", "queue_windows", "queue_window_full", "queue_window_expired",
+    "queue_dispatched", "queue_packed_dispatches", "queue_budget_rejects",
+    "queue_pump_errors", "controller_actuations",
+    # admission memo misses (MemoryModel closed-form evaluations)
+    "max_n_computes",
+)
 _SERVE_COUNTS: Dict[str, float] = dict.fromkeys(_SERVE_NAMES, 0.0)
 
 
 def serve_count(name: str, n: float = 1.0) -> None:
     """Bump one flat serve counter (an unknown name raises, as in
-    ``slate_tpu``)."""
+    ``slate_tpu``), and its ``serve.<name>`` registry twin while the obs
+    layer is on."""
     if name not in _SERVE_COUNTS:
         raise KeyError(f"unknown serve counter {name!r}")
     _SERVE_COUNTS[name] += n
+    from .span import enabled
+
+    if enabled():
+        REGISTRY.counter_add(f"serve.{name}", n)
 
 
 def serve_counts() -> Dict[str, float]:
-    """Snapshot of the flat serve counters (the RunReport ``serve``
-    section)."""
+    """Snapshot of the flat serve counters (no SLA merge)."""
     return dict(_SERVE_COUNTS)
 
 

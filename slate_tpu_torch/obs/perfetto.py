@@ -10,8 +10,10 @@ ui.perfetto.dev or chrome://tracing; ``validate_chrome_trace`` checks the
 subset of the format written here.  The ``obs.memory`` samples render as
 counter tracks (``memory_counter_events``) beside both the span Gantt and a
 flight Gantt, and a refinement trajectory as the ``num.ir_rnorm`` /
-``num.ir_xnorm`` counter tracks (``numerics_counter_events``).  The
-serving tracks come with the service layer.
+``num.ir_xnorm`` counter tracks (``numerics_counter_events``), and the
+serving layer's finished request traces as one track per accuracy class
+(``request_trace_events``), alone or on one timebase with the spans, the
+memory track and a flight Gantt (``unified_trace_events``).
 
 On one card the hop events are the audited schedule of a real p x q mesh:
 the virtual-mesh broadcast itself is indexing.
@@ -296,3 +298,187 @@ def validate_chrome_trace(obj) -> List[str]:
             if ph != "M" and not isinstance(e.get(k), int):
                 errs.append(f"{where}: bad {k} {e.get(k)!r}")
     return errs
+
+
+def request_trace_events(traces, base: Optional[float] = None) -> List[dict]:
+    """Per-request serving timelines: one track per ACCURACY
+    CLASS (the condest-keyed friendly/hostile partition is the SLA
+    partition, so a class's track is its latency story at a glance), one
+    complete event per request phase (admission → classify →
+    cache_lookup → factor → solve plus the degradation phases), and flow
+    arrows chaining retry → resume → the final phase of every request
+    that consumed the degradation ladder.
+
+    ``traces`` are finished ``serve.trace.RequestTrace`` objects; phase
+    timestamps are perf_counter absolutes rebased to the earliest
+    request start (or to ``base`` when given — the unified export passes
+    a timebase shared with the span/mem tracks)."""
+    traces = [t for t in traces if t is not None]
+    classes = sorted({t.klass or "friendly" for t in traces})
+    tid_of = {kl: 300 + i for i, kl in enumerate(classes)}
+    evs: List[dict] = [
+        {"name": "process_name", "ph": "M", "pid": PID, "tid": 0,
+         "args": {"name": "slate_tpu.serve"}},
+    ]
+    for kl in classes:
+        evs.append(
+            {"name": "thread_name", "ph": "M", "pid": PID,
+             "tid": tid_of[kl], "args": {"name": f"serve[{kl}]"}}
+        )
+    if base is None:
+        base = min((t.t0 for t in traces), default=0.0)
+    flow_id = 50_000
+    for t in traces:
+        tid = tid_of[t.klass or "friendly"]
+        phases = sorted(t.phases, key=lambda ph: (ph["t0"], -ph["t1"]))
+        for ph in phases:
+            args = {"rid": t.rid, "op": t.op, "n": t.n,
+                    "outcome": t.outcome, "phase": ph["name"],
+                    "depth": ph["depth"],
+                    "trace_id": getattr(t, "trace_id", "")}
+            if getattr(t, "tenant", None):
+                args["tenant"] = t.tenant
+            if ph["parent"]:
+                args["parent"] = ph["parent"]
+            args.update({k: str(v) for k, v in ph.get("meta", {}).items()})
+            evs.append(
+                {
+                    "name": f"{t.op}#{t.rid} {ph['name']}",
+                    "cat": "serve",
+                    "ph": "X",
+                    "pid": PID,
+                    "tid": tid,
+                    "ts": (ph["t0"] - base) * _US,
+                    "dur": max(0.0, (ph["t1"] - ph["t0"]) * _US),
+                    "args": args,
+                }
+            )
+        # flow arrows retry -> resume -> final: chain every top-level
+        # degradation phase to the next, ending at the phase that
+        # finished last (the terminal dispatch the ladder carried the
+        # request to)
+        degr = sorted((ph for ph in t.phases
+                       if ph["name"] in ("retry", "resume")),
+                      key=lambda ph: ph["t0"])
+        rest = [ph for ph in t.phases if ph not in degr]
+        if degr and rest:
+            # the final dispatch the ladder carried the request to: the
+            # last-closing non-ladder phase (typically its solve)
+            final = max(rest, key=lambda ph: ph["t1"])
+            chain = degr + [final]
+            for a, b in zip(chain, chain[1:]):
+                flow_id += 1
+                common = {"cat": "serve", "pid": PID, "id": flow_id,
+                          "name": f"{t.op}#{t.rid} ladder"}
+                evs.append(dict(common, ph="s", tid=tid,
+                                ts=(a["t0"] - base) * _US,
+                                args={"from": a["name"], "to": b["name"],
+                                      "rid": t.rid}))
+                evs.append(dict(common, ph="f", bp="e", tid=tid,
+                                ts=(b["t0"] - base) * _US, args={}))
+    return evs
+
+
+def request_chrome_trace(traces) -> dict:
+    return {
+        "traceEvents": request_trace_events(traces),
+        "displayTimeUnit": "ms",
+        "otherData": {"producer": "slate_tpu.serve.trace"},
+    }
+
+
+def write_request_trace(path: str, traces) -> str:
+    with open(path, "w") as f:
+        json.dump(request_chrome_trace(traces), f, indent=1)
+    return path
+
+
+def unified_trace_events(
+    traces,
+    spans: Optional[Iterable[dict]] = None,
+    flight_events: Optional[Iterable[dict]] = None,
+    flight_hop_events: Optional[Iterable[dict]] = None,
+    grid: Optional[tuple] = None,
+) -> List[dict]:
+    """ONE trace per serving run: the request track
+    (tid 300+), the driver-span Gantt + absorbed hop instants (tid 0),
+    the memory counter track, and optionally a flight-recorder Gantt
+    (tid 200+) — all on one shared perf_counter timebase, with
+    ``trace_id`` flow arrows tying each request's track event to every
+    driver span it dispatched.  Request phases, spans and mem samples
+    all stamp perf_counter absolutes, so the shared base is just their
+    minimum; flight events carry report-relative stamps and keep their
+    own zero (their correlation is the trace_id in the args, not the
+    clock).
+
+    ``traces`` are finished RequestTrace objects; ``spans`` defaults to
+    the finished span stream (whose tags already carry trace_id/tenant
+    when recorded under a request's TraceContext — obs/span.py)."""
+    import sys as _sys
+
+    traces = [t for t in traces if t is not None]
+    spans = list(_span.FINISHED) if spans is None else list(spans)
+    _mem = _sys.modules.get(__package__ + ".memory")
+    mem_samples = list(_mem.SAMPLES) if _mem is not None else []
+    bases = ([t.t0 for t in traces] + [s["t0"] for s in spans]
+             + [float(s["t"]) for s in mem_samples if s.get("t") is not None])
+    base = min(bases, default=0.0)
+
+    evs: List[dict] = list(request_trace_events(traces, base=base))
+    # the span/mem half: chrome_trace_events appends the mem counter
+    # track itself (same sys.modules probe), on the same shared base
+    evs.extend(e for e in chrome_trace_events(spans, base=base)
+               if e.get("ph") != "M" or e.get("name") != "process_name")
+    if flight_events:
+        evs.extend(e for e in flight_trace_events(
+            flight_events, flight_hop_events, grid)
+            if e.get("ph") != "M" or e.get("name") != "process_name")
+    # trace_id flow arrows: one arrow per (request, dispatched span) —
+    # ph "s" anchored at the request's first phase on its class track,
+    # ph "f" at the span on the driver track.  This is the correlation
+    # the UI renders; the args carry the id for machine consumers.
+    tid_of = {e["args"]["name"]: e["tid"] for e in evs
+              if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    span_evs = [e for e in evs
+                if e.get("cat") == "driver" and e.get("ph") == "X"
+                and (e.get("args") or {}).get("trace_id")]
+    flow_id = 90_000
+    for t in traces:
+        tr_id = getattr(t, "trace_id", "")
+        if not tr_id or not t.phases:
+            continue
+        klass = t.klass or "friendly"
+        rtid = tid_of.get(f"serve[{klass}]", 300)
+        ts0 = (min(ph["t0"] for ph in t.phases) - base) * _US
+        for se in span_evs:
+            if se["args"].get("trace_id") != tr_id:
+                continue
+            flow_id += 1
+            common = {"cat": "traceflow", "pid": PID, "id": flow_id,
+                      "name": f"trace:{tr_id[:8]}"}
+            evs.append(dict(common, ph="s", tid=rtid, ts=max(0.0, ts0),
+                            args={"trace_id": tr_id, "rid": t.rid,
+                                  "span": se["name"]}))
+            evs.append(dict(common, ph="f", bp="e", tid=se["tid"],
+                            ts=se["ts"], args={"trace_id": tr_id}))
+    evs.insert(0, {"name": "process_name", "ph": "M", "pid": PID, "tid": 0,
+                   "args": {"name": "slate_tpu.unified"}})
+    return evs
+
+
+def unified_chrome_trace(traces, spans=None, flight_events=None,
+                         flight_hop_events=None, grid=None) -> dict:
+    return {
+        "traceEvents": unified_trace_events(traces, spans, flight_events,
+                                            flight_hop_events, grid),
+        "displayTimeUnit": "ms",
+        "otherData": {"producer": "slate_tpu.obs.unified"},
+    }
+
+
+def write_unified_trace(path: str, traces, spans=None, flight_events=None,
+                        flight_hop_events=None, grid=None) -> str:
+    with open(path, "w") as f:
+        json.dump(unified_chrome_trace(traces, spans, flight_events,
+                                       flight_hop_events, grid), f, indent=1)
+    return path

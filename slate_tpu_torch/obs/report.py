@@ -110,6 +110,15 @@ _NEUTRAL = frozenset({"flops", "transcendentals", "bytes_accessed",
                       "mem.alias_bytes"})
 
 
+def _serve_values() -> Dict[str, float]:
+    """The RunReport ``serve`` section: ``serve.metrics``'s counter values
+    (the flat counters and the SLA reduction) when the serving layer is
+    loaded, else the flat counters (a ``sys.modules`` probe: a run that
+    never served never imports it)."""
+    srv = sys.modules.get(__package__.rsplit(".", 1)[0] + ".serve.metrics")
+    return srv.serve_counter_values() if srv is not None else serve_counts()
+
+
 def _env_info() -> dict:
     """torch's version, the platform (``cuda`` or ``cpu``) and the number
     of cards."""
@@ -161,8 +170,9 @@ def make_report(
         # condition estimate, margin and orthogonality loss, the alarms and
         # the health-routed GMRES entries
         "num": num_counter_values(),
-        # the flat serve counters (the Ozaki plane cache, the condest memo)
-        "serve": serve_counts(),
+        # serving totals: the flat serve counters, plus the request-level
+        # SLA keys once the serving layer has run (serve.metrics)
+        "serve": _serve_values(),
         "metrics": REGISTRY.snapshot(),
         "spans": [
             {

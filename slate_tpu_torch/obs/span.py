@@ -88,9 +88,9 @@ def force_enabled(value: bool = True):
 
 def reset() -> None:
     """Drop the finished spans, the metrics, the flat serve counters, the
-    memory samples and the numerics gauges (a fresh run boundary).  The
-    memory and numerics layers are reset only if something imported them
-    (``sys.modules`` probes)."""
+    memory samples, the numerics gauges and the finished request traces (a
+    fresh run boundary).  The memory, numerics and serving layers are reset
+    only if something imported them (``sys.modules`` probes)."""
     import sys as _sys
 
     with _finished_lock:
@@ -101,6 +101,9 @@ def reset() -> None:
         mod = _sys.modules.get(f"{__package__}.{layer}")
         if mod is not None:
             mod.reset()
+    srv = _sys.modules.get(__package__.rsplit(".", 1)[0] + ".serve.trace")
+    if srv is not None:
+        srv.reset()
 
 
 def _stack() -> List["Span"]:

@@ -335,27 +335,13 @@ def clear_prefactor_cache() -> None:
     _PREFACTOR_MEMO.clear()
 
 
-def options_signature(opts: Optional[Options]) -> tuple:
-    """Canonical hashable form of an Options mapping (enum keys and values
-    by their ``.value``), as ``slate_tpu.serve.cache.options_signature``."""
-    if not opts:
-        return ()
-    items = []
-    for k, v in opts.items():
-        vv = getattr(v, "value", v)
-        try:
-            hash(vv)
-        except TypeError:
-            vv = repr(vv)
-        items.append((str(getattr(k, "value", k)), vv))
-    return tuple(sorted(items, key=repr))
-
-
 def _prefactor_cached(kind: str, a, mesh: VirtualMesh, nb: int, opts):
     """:func:`_prefactor` memoized on the operand (see the memo note)."""
     if (not isinstance(a, torch.Tensor) or a.device.type != mesh.device.type
             or a.numel() * a.element_size() > _prefactor_max_bytes()):
         return _prefactor(kind, torch.as_tensor(a, device=mesh.device), mesh, nb, opts)
+    from ..serve.cache import options_signature
+
     key = (tensor_key(a), kind, id(mesh), nb, options_signature(opts))
     hit = _PREFACTOR_MEMO.get(key)
     if hit is not None:

@@ -455,7 +455,9 @@ def test_port_imports_no_jax():
                 "obs/context.py", "obs/span.py", "obs/report.py", "obs/perfetto.py",
                 "obs/schedule.py", "obs/flight.py", "obs/comm_audit.py", "obs/smoke.py",
                 "obs/numerics.py", "obs/numwatch.py", "obs/memory.py", "obs/memmodel.py",
-                "obs/memwatch.py"):
+                "obs/memwatch.py", "serve/__init__.py", "serve/batch.py", "serve/budget.py",
+                "serve/cache.py", "serve/metrics.py", "serve/router.py", "serve/smoke.py",
+                "serve/table.py", "serve/trace.py", "serve/tune.py", "api.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:
