@@ -361,10 +361,31 @@ printing one JSON line before the next starts (any failure exits non-zero):
    time_gemm_method at f64 2048 (GemmA against GemmC: kt summa_update a
    GemmC run); then slice11a_seconds beside its 10 s budget, with the card
    line;
-53. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
+53. serve_queue (slice 11b, the service layer): a Service (BatchQueue on
+   the wall clock, B = 8, T = 5 ms, its worker and ServiceController) over
+   a meshless Router on the card, two tenants weighted 2:1, and 8 client
+   threads calling Service.solve with 64 posv f64 requests ragged in
+   3000-4096 (all at bin 4096) and 4 gesv f64 at bin 512, obs on:
+   requests/s, windows by cause (full / expired), p50 / p95 / p99 from
+   serve.trace.sla_values, the controller's actuations; then the same 68
+   requests one at a time through Router.solve on a fresh Router (its
+   requests/s and the ratio); every concurrent answer bitwise that solve,
+   every trace "served", serve.queue_pump_errors 0, no failed ticket, the
+   chol_diag_inv launches derived by potrf_ll_leaves (16 a posv); the
+   packed dispatch through a mesh Router (2 x 4, nb = 256, f64, bins
+   (1024,)): one window of 1024, 1000, 950, 900 as one block-diagonal
+   program, each solution bitwise the problem packed alone, the launches by
+   expected_potrf_launches; the HTTP front door (start_http on
+   127.0.0.1:0): 4 client threads POST 16 /solve at n = 64 (each 200 and
+   bitwise Router.solve), a malformed body 400, a budget refusal 429, no
+   5xx, /queue.json, /healthz and /metrics (validate_prometheus_text);
+   serve.queue_smoke.run_smoke and obs.live.run_ci on the card into
+   chiprun_out/ (each exit 0); then slice11b_seconds beside its 10 s
+   budget, with the card line;
+54. dryrun: the port's dryrun (posv_chain, gesv_pp, hemm_summa,
    stedc_dist, heev_chain, the LU panel_pallas half, flight_timeline, mem;
    n = 64, nb = 8, 2 x 4);
-54. total: the script's seconds; then kernels: the line of every ported
+55. total: the script's seconds; then kernels: the line of every ported
    kernel (one row per kernel and dtype, all 14 TPU kernels; geadd_tiles
    and genorm_max_tiles, which no driver reaches, count the launches of
    their timed calls in phase 26, and matmul_pallas's f32, bf16 and f16
@@ -380,8 +401,9 @@ printing one JSON line before the next starts (any failure exits non-zero):
    those phase 50 reaches its flights' under ``flight_<op>`` (every driver
    run of the flight) and the obs-on posv's under ``obs_posv``; the rows
    phase 51's paths reach, at their dtype, those paths' launches under
-   ``num_<op>`` and ``mem_<op>``, and those phase 52's reach under
-   ``serve_<path>``), then the card line and, last,
+   ``num_<op>`` and ``mem_<op>``, those phase 52's reach under
+   ``serve_<path>`` and those phase 53's under ``serve_queue_<path>``),
+   then the card line and, last,
    {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -5876,6 +5898,304 @@ def serve_phase(kernels, mp, bucket_plan, smi_line, torch):
     return [(k_, dt, counts) for k_, (dt, counts) in paths.items()]
 
 
+SQ_BINS = (512, 4096)  # gesv at 512, posv at the largest serving bin
+SQ_POSV = 64           # posv f64 requests, ragged in SQ_POSV_N: all at bin 4096
+SQ_POSV_N = (3000, 4096)
+SQ_GESV_AT = (10, 26, 42, 58)  # stream positions of the gesv f64 requests
+SQ_GESV_N = (400, 512)
+SQ_CLIENTS = 8
+SQ_B, SQ_T = 8, 0.005
+SQ_HTTP_N, SQ_HTTP_REQUESTS, SQ_HTTP_CLIENTS = 64, 16, 4
+SQ_SEED = 500
+SLICE11B_BUDGET_S = 10.0
+
+
+def serve_queue_phase(kernels, mp, bucket_plan, smi_line, torch):
+    """Slice 11b, the service layer, on the card: concurrent submitters into
+    a Service at bin 4096 against the same requests one at a time, the
+    packed dispatch through a mesh Router, the HTTP front door, then
+    serve.queue_smoke and obs.live --ci.  Returns the launches of each path
+    as [(serve_queue_<path>, dtype, counts)]."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.obs import live
+    from slate_tpu_torch.obs.metrics import serve_counts
+    from slate_tpu_torch.serve import batch, queue_smoke, trace
+    from slate_tpu_torch.serve.cache import ExecutableCache
+    from slate_tpu_torch.serve.queue import BatchQueue, ManualClock, packed_mesh_body
+    from slate_tpu_torch.serve.router import Router
+    from slate_tpu_torch.serve.service import Service, start_http
+    from slate_tpu_torch.types import Option
+
+    f64 = torch.float64
+    secs, paths, out = {}, {}, {"phase": "serve_queue", "card": smi_line}
+    obs.reset()
+    t_phase = time.perf_counter()
+
+    def counted(path, dtype, fn):
+        reset_counts(kernels)
+        res = fn()
+        torch.cuda.synchronize()
+        paths[path] = (dtype, {k: v for k, v in read_counts(kernels).items() if v})
+        return res
+
+    def deltas(before):
+        after = serve_counts()
+        return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    # 1. concurrent submitters: SQ_CLIENTS threads call Service.solve (wall
+    # clock, worker and controller) with 64 ragged posv f64 at bin 4096 and
+    # a few gesv f64 at bin 512, two tenants weighted 2:1; then the same
+    # requests one at a time through Router.solve on a fresh Router
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SQ_SEED)
+    reqs, posv_at = [], []
+    for i in range(SQ_POSV + len(SQ_GESV_AT)):
+        if i in SQ_GESV_AT:
+            n = int(rng.integers(SQ_GESV_N[0], SQ_GESV_N[1] + 1))
+            a = lu_matrix("nopiv", n, f64, SQ_SEED + i, torch)
+            op = "gesv"
+        else:
+            n = int(rng.integers(SQ_POSV_N[0], SQ_POSV_N[1] + 1))
+            a = dominant_spd(n, f64, SQ_SEED + i, torch)
+            op = "posv"
+            posv_at.append(i)
+        reqs.append((op, a, randn((n, 1), f64, SQ_SEED + 1000 + i, torch),
+                     "zeta" if i % 3 == 2 else "acme"))
+    torch.cuda.synchronize()
+    secs["operands"] = time.perf_counter() - t0
+    svc = Service(Router(bins=SQ_BINS, cache=ExecutableCache()), max_batch=SQ_B, window_s=SQ_T,
+                  weights={"acme": 2.0, "zeta": 1.0}, name="chip_serve_queue",
+                  request_timeout_s=120.0)
+    got, lat, errors = {}, {}, []
+
+    def client(k):
+        for i in range(k, len(reqs), SQ_CLIENTS):
+            op, a, b, tenant = reqs[i]
+            t1 = time.perf_counter()
+            try:
+                got[i] = svc.solve(op, a, b, tenant=tenant)
+            except Exception as e:  # every failure fails the phase below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+            lat[i] = time.perf_counter() - t1
+
+    obs.enable()
+    trace.reset()
+    c0 = serve_counts()
+    t0 = time.perf_counter()
+
+    def run_clients():
+        svc.start()
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(SQ_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        return [th for th in threads if th.is_alive()]
+
+    try:
+        hung = counted("serve_queue_concurrent", f64, run_clients)
+    finally:
+        svc.stop()
+    wall = time.perf_counter() - t0
+    d = deltas(c0)
+    sla = trace.sla_values()
+    traces = trace.finished_traces()
+    actuations = [(a_["action"], a_["batch"], a_["window_s"]) for a_ in svc.controller.actuations]
+    # the same requests one at a time (obs on as above: the same fences)
+    ref = Router(bins=SQ_BINS, cache=ExecutableCache())
+    t1 = time.perf_counter()
+    xs_ref = {}
+    for i, (op, a, b, tenant) in enumerate(reqs):
+        xs_ref[i] = ref.solve(op, a, b, tenant=tenant)
+    torch.cuda.synchronize()
+    sync_wall = time.perf_counter() - t1
+    obs.disable()
+    bitwise = [i for i in range(len(reqs)) if i in got and torch.equal(got[i], xs_ref[i])]
+    etas = [eta(reqs[i][1], got[i], reqs[i][2], torch) / (100 * reqs[i][1].shape[0] * 2.0 ** -52)
+            for i in posv_at if i in got]
+    quant = {f"{op}_friendly": [sla.get(f"latency_{q}_{op}_friendly_s") for q in
+                                ("p50", "p95", "p99")] for op in ("posv", "gesv")}
+    want = {"chol_diag_inv": SQ_POSV * potrf_ll_leaves(SQ_POSV_N[1])}
+    got_l = paths["serve_queue_concurrent"][1]
+    out["concurrent"] = {
+        "requests": len(reqs), "posv": SQ_POSV, "gesv": len(SQ_GESV_AT), "clients": SQ_CLIENTS,
+        "B": SQ_B, "T_s": SQ_T, "seconds": wall, "requests_per_s": len(reqs) / wall,
+        "windows": d.get("queue_windows", 0), "windows_full": d.get("queue_window_full", 0),
+        "windows_expired": d.get("queue_window_expired", 0),
+        "pump_errors": d.get("queue_pump_errors", 0), "errors": errors[:3], "hung": len(hung),
+        "quantiles_s": quant, "client_latency_s": {
+            "p50": float(np.percentile(list(lat.values()), 50)),
+            "max": max(lat.values())},
+        "outcomes": sorted({t_.outcome for t_ in traces}), "traces": len(traces),
+        "controller_actuations": actuations,
+        "sync_seconds": sync_wall, "sync_requests_per_s": len(reqs) / sync_wall,
+        "ratio_concurrent_over_sync": (len(reqs) / wall) / (len(reqs) / sync_wall),
+        "bitwise_router_solve": len(bitwise), "eta_over_gate_max": max(etas),
+        "launches": got_l, "expected_launches": want, "operand_seconds": secs["operands"]}
+    check(not errors and not hung and len(got) == len(reqs),
+          f"serve_queue concurrent: {out['concurrent']}")
+    check(len(bitwise) == len(reqs), f"serve_queue bitwise: {out['concurrent']}")
+    check(len(traces) == len(reqs) and all(t_.outcome == "served" for t_ in traces),
+          f"serve_queue traces: {out['concurrent']}")
+    check(d.get("queue_pump_errors", 0) == 0 and d.get("queue_dispatched") == len(reqs)
+          and max(etas) < 1, f"serve_queue counters: {d}")
+    check(all(q_[0] is not None and 0 <= q_[0] <= q_[1] <= q_[2] for q_ in quant.values()),
+          f"serve_queue SLA: {quant}")
+    check(got_l == want, f"serve_queue launches {got_l}, expected {want}")
+    del reqs, got, xs_ref
+    torch.cuda.empty_cache()
+    secs["concurrent"] = time.perf_counter() - t0
+
+    # 2. packed dispatch through a mesh Router: a ragged posv window of four
+    # at bin 1024 runs as one block-diagonal program on 2 x 4, nb = 256, each
+    # solution bitwise the problem packed alone
+    t0 = time.perf_counter()
+    mesh = mp.make_mesh(P, Q, device="cuda")
+    sizes, m = SERVE_PACK
+    opts = {Option.MixedPrecision: "off", Option.AutoTune: "off", Option.BlockSize: NB}
+    mr = Router(mesh=mesh, nb=NB, bins=(m,), cache=ExecutableCache(), opts=opts)
+    q = BatchQueue(mr, max_batch=len(sizes), window_s=SQ_T, clock=ManualClock(),
+                   dispatch="packed", name="chip_serve_packed")
+    ops_ = [dominant_spd(n, f64, SQ_SEED + 2000 + i, torch) for i, n in enumerate(sizes)]
+    rhs_ = [randn((n, 1), f64, SQ_SEED + 2100 + i, torch) for i, n in enumerate(sizes)]
+    c0 = serve_counts()
+    try:
+        tks = counted("serve_queue_packed", f64,
+                      lambda: [q.submit("posv", a, b) for a, b in zip(ops_, rhs_)])
+    finally:
+        q.close()
+    dp = deltas(c0)
+    body, _merged = packed_mesh_body(mesh, len(sizes) * m, "float64", opts)
+    alone = []
+    for i in range(len(sizes)):
+        eye = torch.eye(m, dtype=f64, device="cuda")
+        zero = torch.zeros((m, 1), dtype=f64, device="cuda")
+        a1, b1 = batch.pack_block_diag([ops_[k] if k == i else eye for k in range(len(sizes))], m,
+                                       [rhs_[k] if k == i else zero for k in range(len(sizes))])
+        x1, _ = body(a1, b1)
+        alone.append(bool(torch.equal(tks[i].result(), batch.unpack_block_diag(x1, sizes, m)[i])))
+    want = expected_potrf_launches(len(sizes) * m // NB, 1, bucket_plan)
+    out["packed"] = {"sizes": list(sizes), "bin": m, "deltas": dp, "bitwise_packed_alone": alone,
+                     "eta_max": max(eta(ops_[i], tks[i].result(), rhs_[i], torch)
+                                    for i in range(len(sizes))),
+                     "launches": paths["serve_queue_packed"][1], "expected_launches": want}
+    check(dp.get("queue_packed_dispatches") == 1 and dp.get("queue_windows") == 1
+          and all(alone) and all(t_.done() for t_ in tks), f"serve_queue packed: {out['packed']}")
+    check(paths["serve_queue_packed"][1] == want,
+          f"serve_queue packed launches {paths['serve_queue_packed'][1]}, expected {want}")
+    del ops_, rhs_, tks
+    secs["packed"] = time.perf_counter() - t0
+
+    # 3. the HTTP front door: SQ_HTTP_CLIENTS threads POST /solve at n = 64,
+    # one malformed body (400), one budget refusal (429), the scrapes
+    t0 = time.perf_counter()
+    hs = Service(Router(bins=(SQ_HTTP_N,), cache=ExecutableCache()), max_batch=4,
+                 window_s=SQ_T, budgets={"tiny": 1000}, name="chip_serve_http",
+                 request_timeout_s=60.0)
+    g = np.random.default_rng(SQ_SEED + 3000)
+    bodies = []
+    for i in range(SQ_HTTP_REQUESTS):
+        u = g.standard_normal((SQ_HTTP_N, SQ_HTTP_N))
+        bodies.append({"op": "posv", "a": (u @ u.T / SQ_HTTP_N + 2 * np.eye(SQ_HTTP_N)).tolist(),
+                       "b": g.standard_normal(SQ_HTTP_N).tolist(),
+                       "tenant": "acme" if i % 2 else "zeta"})
+    codes, answers = {}, {}
+
+    def post(port, body):
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/solve", data=data,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, None
+
+    def get(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            return r.read().decode()
+
+    srv = None
+    obs.enable()
+    try:
+        hs.start()
+        srv, _th, port = start_http(hs, 0)
+
+        def http_client(k):
+            for i in range(k, SQ_HTTP_REQUESTS, SQ_HTTP_CLIENTS):
+                codes[i], answers[i] = post(port, bodies[i])
+
+        threads = [threading.Thread(target=http_client, args=(k,), daemon=True)
+                   for k in range(SQ_HTTP_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        malformed = post(port, b'{"op": "posv", "a": [[1.0, 2.0], [3.0]]')[0]
+        refused = post(port, dict(bodies[0], tenant="tiny"))[0]
+        qdoc = json.loads(get(port, "/queue.json"))
+        health = get(port, "/healthz").splitlines()
+        text = get(port, "/metrics")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        hs.stop()
+        obs.disable()
+    href = Router(bins=(SQ_HTTP_N,), cache=ExecutableCache())
+    http_bitwise = sum(
+        1 for i, ans in answers.items() if ans is not None and torch.equal(
+            torch.tensor(ans["x"], dtype=f64),
+            href.solve("posv", torch.tensor(bodies[i]["a"], dtype=f64, device="cuda"),
+                       torch.tensor(bodies[i]["b"], dtype=f64, device="cuda")).cpu()))
+    prom_errs = live.validate_prometheus_text(text)
+    all_codes = list(codes.values()) + [malformed, refused]
+    out["http"] = {"requests": SQ_HTTP_REQUESTS, "clients": SQ_HTTP_CLIENTS, "n": SQ_HTTP_N,
+                   "codes": sorted(set(codes.values())), "malformed": malformed,
+                   "budget_refusal": refused, "bitwise_router_solve": http_bitwise,
+                   "queue_json_depth": qdoc["queues"]["chip_serve_http"]["depth"],
+                   "healthz": health, "prometheus_problems": prom_errs[:3],
+                   "seconds": time.perf_counter() - t0}
+    check(len(codes) == SQ_HTTP_REQUESTS and set(codes.values()) == {200}
+          and http_bitwise == SQ_HTTP_REQUESTS and malformed == 400 and refused == 429
+          and not any(c >= 500 for c in all_codes), f"serve_queue http: {out['http']}")
+    check(health[0] == "ok" and not prom_errs and "slate_tpu_serve_queue_submitted" in text,
+          f"serve_queue scrape: {out['http']}")
+    secs["http"] = time.perf_counter() - t0
+
+    # 4. the acceptance runs on the card, into the git-ignored chiprun_out/
+    t0 = time.perf_counter()
+    rc_q = counted("serve_queue_smoke", f64,
+                   lambda: queue_smoke.run_smoke(os.path.join("chiprun_out", "serve_queue"),
+                                                 device="cuda"))
+    secs["queue_smoke"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        rc_l = counted("serve_queue_live_ci", f64,
+                       lambda: live.run_ci(os.path.join("chiprun_out", "obs_live"), device="cuda"))
+    finally:
+        obs.disable()
+        obs.reset()
+    secs["live_ci"] = time.perf_counter() - t0
+    out["acceptance"] = {"queue_smoke_rc": rc_q, "live_ci_rc": rc_l,
+                         "launches": {p_: paths[p_][1] for p_ in ("serve_queue_smoke",
+                                                                  "serve_queue_live_ci")}}
+    check(rc_q == 0 and rc_l == 0, f"serve_queue acceptance: {out['acceptance']}")
+
+    emit(out)
+    phase_total = time.perf_counter() - t_phase
+    emit({"phase": "slice11b_seconds", **secs, "sum": phase_total, "budget": SLICE11B_BUDGET_S,
+          "within_budget": phase_total <= SLICE11B_BUDGET_S, "card": smi_line})
+    return [(k_, dt, counts) for k_, (dt, counts) in paths.items() if counts]
+
+
 def dryrun_phase():
     from slate_tpu_torch.parallel import dryrun
 
@@ -6174,10 +6494,21 @@ def main():
             row.setdefault("launches_by_path", {first: row["launches"]})[path] = got
             check(got, f"{row['name']}: no launch on {path}")
 
-    # 53. the dryrun
+    # 53. slice 11b: the service layer.  Each path's launches join the rows
+    # of the kernels it reaches (by dtype) under serve_queue_<path>
+    for path, dt, counts in serve_queue_phase(kernels, mp, bucket_plan, smi_line, torch):
+        for name, got in counts.items():
+            row = by_label.get(f"{name}[{dname(dt)}]")
+            if row is None:  # no row of this kernel at this dtype
+                continue
+            first = main_path.get(row["name"], main_path.get(name))
+            row.setdefault("launches_by_path", {first: row["launches"]})[path] = got
+            check(got, f"{row['name']}: no launch on {path}")
+
+    # 54. the dryrun
     dryrun_phase()
 
-    # 54. the script's seconds, kernels line, card line, result
+    # 55. the script's seconds, kernels line, card line, result
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)

@@ -189,11 +189,11 @@ def no_flight():
     from ..parallel import comm
 
     _SCOPE.append(_OFF)
-    comm._FLIGHT.append(None)
+    comm._STATE.flight.append(None)
     try:
         yield
     finally:
-        comm._FLIGHT.pop()
+        comm._STATE.flight.pop()
         _SCOPE.pop()
 
 
@@ -300,14 +300,14 @@ def fly(op: str, grid: Tuple[int, int], **meta):
 
     rec.note_run(op=op, grid=tuple(grid), **meta)
     run = _Run(rec, op, tuple(grid))
-    outer = comm._FLIGHT[-1]
+    outer = comm._STATE.flight[-1]
     if outer is not None:
         outer.finish()  # a flown driver inside another ends the outer's row
-    comm._FLIGHT.append(run)
+    comm._STATE.flight.append(run)
     try:
         yield run
     finally:
-        comm._FLIGHT.pop()
+        comm._STATE.flight.pop()
         run.finish()
 
 

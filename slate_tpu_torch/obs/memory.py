@@ -390,6 +390,11 @@ def sample(tag: str, **extra) -> dict:
         _STATE["peak_bytes_in_use_max"] = max(_STATE["peak_bytes_in_use_max"], peak_max)
         if len(SAMPLES) < _SAMPLE_CAP:
             SAMPLES.append(s)
+    # the live telemetry bus, only where obs.live was imported (a
+    # sys.modules probe)
+    _live = sys.modules.get(__package__ + ".live")
+    if _live is not None:
+        _live.publish("mem", s)
     return s
 
 

@@ -216,6 +216,7 @@ _SERVE_NAMES = (
     "max_n_computes",
 )
 _SERVE_COUNTS: Dict[str, float] = dict.fromkeys(_SERVE_NAMES, 0.0)
+_SERVE_LOCK = threading.Lock()
 
 
 def serve_count(name: str, n: float = 1.0) -> None:
@@ -224,7 +225,8 @@ def serve_count(name: str, n: float = 1.0) -> None:
     layer is on."""
     if name not in _SERVE_COUNTS:
         raise KeyError(f"unknown serve counter {name!r}")
-    _SERVE_COUNTS[name] += n
+    with _SERVE_LOCK:  # the service layer counts from several threads
+        _SERVE_COUNTS[name] += n
     from .span import enabled
 
     if enabled():

@@ -361,30 +361,6 @@ def load_values(doc: dict, include_series: bool = False) -> Dict[str, float]:
                      "line, or sweep file)")
 
 
-def ledger_load(ledger_dir: str, last: Optional[int] = None) -> List[dict]:
-    """The JSON reports of a ledger directory, oldest first (file names
-    sort by time), the newest ``last`` when given; unreadable entries are
-    skipped."""
-    try:
-        names = sorted(n for n in os.listdir(ledger_dir) if n.endswith(".json"))
-    except OSError:
-        return []
-    paths = [os.path.join(ledger_dir, n) for n in names]
-    if last:
-        paths = paths[-last:]
-    docs: List[dict] = []
-    for p in paths:
-        try:
-            with open(p) as f:
-                doc = json.load(f)
-        except (OSError, json.JSONDecodeError):
-            continue
-        if isinstance(doc, dict):
-            doc["_ledger_path"] = p
-            docs.append(doc)
-    return docs
-
-
 def lower_is_better(name: str) -> bool:
     low = name.lower()
     return any(tok in low for tok in _LOWER_BETTER)
@@ -533,7 +509,9 @@ def main(argv=None) -> int:
     if args.trend:
         import fnmatch
 
-        docs = ledger_load(args.trend, last=max(3, args.last))
+        from . import live as _live
+
+        docs = _live.ledger_load(args.trend, last=max(3, args.last))
         usable = []
         for d in docs:
             try:

@@ -191,9 +191,9 @@ def driver_span(name: str, **tags):
     the region in ``torch.profiler`` traces, fences the card at both ends.
     Yields the Span, or a shared null object when observability is off.
 
-    The span stack is thread-local; the comm audit it absorbs is the
-    process-wide one of ``parallel.comm``, so per-span bytes are right
-    when one thread drives the mesh at a time (every driver here)."""
+    The span stack is thread-local, and so is the comm audit it absorbs
+    (``parallel.comm``'s channels are per thread), so concurrent dispatch
+    threads each count their own bytes."""
     if not _enabled:
         yield _NULL
         return
@@ -277,6 +277,13 @@ def _finish(span: Span, name: str, tags: dict, ctx, records, sched_records) -> N
     with _finished_lock:
         if len(FINISHED) < _EVENT_CAP:
             FINISHED.append(record)
+    # the live telemetry bus, only where obs.live was imported (a
+    # sys.modules probe: a run that never asked for it pays nothing)
+    import sys as _sys
+
+    _live = _sys.modules.get(__package__ + ".live")
+    if _live is not None:
+        _live.publish("span", record)
 
 
 def _default_tags(args) -> Dict[str, Any]:

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -65,15 +66,24 @@ _GRID_DIM = {ROW_AXIS: 0, COL_AXIS: 1}
 # with multiplicity 1, so per-op totals (bytes x multiplicity) agree.
 # ---------------------------------------------------------------------------
 
-_AUDIT: Optional[list] = None
-_AUDIT_MULT = [1]
 
-# the schedule channel: (op, payload_bytes, mult, phase, step, pairs)
-_SCHED: Optional[list] = None
-_PHASE_CTX = [(None, None)]  # (phase, step) of the innermost phase_tag
-# the flight recorder's active runs (obs.flight); [-1] is None when no
-# flight is recording
-_FLIGHT: list = [None]
+class _AuditState(threading.local):
+    """The audit channels of one thread: a verb records into the captures
+    its own thread opened (the service layer dispatches windows from
+    several threads at once, each under its own spans)."""
+
+    def __init__(self) -> None:
+        self.audit: Optional[list] = None
+        self.mult = [1]
+        # the schedule channel: (op, payload_bytes, mult, phase, step, pairs)
+        self.sched: Optional[list] = None
+        self.phase = [(None, None)]  # (phase, step) of the innermost phase_tag
+        # the flight recorder's active runs (obs.flight); [-1] is None when
+        # no flight is recording
+        self.flight: list = [None]
+
+
+_STATE = _AuditState()
 
 
 @contextlib.contextmanager
@@ -81,12 +91,12 @@ def comm_audit(propagate: bool = False):
     """Yield a list that fills with (op, payload_bytes, multiplicity)
     records for every audited verb called while active.
     ``propagate=True`` re-appends the records to the enclosing audit."""
-    global _AUDIT
-    old, _AUDIT = _AUDIT, []
+    st = _STATE
+    old, st.audit = st.audit, []
     try:
-        yield _AUDIT
+        yield st.audit
     finally:
-        records, _AUDIT = _AUDIT, old
+        records, st.audit = st.audit, old
         if propagate and old is not None:
             old.extend(records)
 
@@ -94,11 +104,11 @@ def comm_audit(propagate: bool = False):
 @contextlib.contextmanager
 def audit_scope(mult):
     """Multiply records inside by ``mult``."""
-    _AUDIT_MULT.append(_AUDIT_MULT[-1] * int(mult))
+    _STATE.mult.append(_STATE.mult[-1] * int(mult))
     try:
         yield
     finally:
-        _AUDIT_MULT.pop()
+        _STATE.mult.pop()
 
 
 @contextlib.contextmanager
@@ -108,12 +118,12 @@ def sched_audit(propagate: bool = False):
     active; phase and step come from the innermost ``phase_tag``, pairs
     are a hop's (src, dst) list (None for a collective).
     ``propagate=True`` re-appends the records to the enclosing capture."""
-    global _SCHED
-    old, _SCHED = _SCHED, []
+    st = _STATE
+    old, st.sched = st.sched, []
     try:
-        yield _SCHED
+        yield st.sched
     finally:
-        records, _SCHED = _SCHED, old
+        records, st.sched = st.sched, old
         if propagate and old is not None:
             old.extend(records)
 
@@ -122,11 +132,11 @@ def sched_audit(propagate: bool = False):
 def phase_tag(phase: str, step: Optional[int] = None):
     """Tag the verbs called inside as loop phase ``phase`` of step ``step``
     (the schedule capture's tag alone)."""
-    _PHASE_CTX.append((phase, None if step is None else int(step)))
+    _STATE.phase.append((phase, None if step is None else int(step)))
     try:
         yield
     finally:
-        _PHASE_CTX.pop()
+        _STATE.phase.pop()
 
 
 @contextlib.contextmanager
@@ -134,7 +144,7 @@ def flight_row(phase: str, k: int, root_k: Optional[int] = None):
     """One row of the recording flight's timeline, without a schedule tag
     (a no-op when no flight records); ``root_k`` is the step that owns the
     row's broadcasts, when it is not ``k``."""
-    run = _FLIGHT[-1]
+    run = _STATE.flight[-1]
     if run is None:
         yield
         return
@@ -153,26 +163,26 @@ def phase_scope(phase: str, step: Optional[int] = None, root_k: Optional[int] = 
 def flying() -> bool:
     """True while a flight records (the callers skip their flop counts
     otherwise)."""
-    return _FLIGHT[-1] is not None
+    return _STATE.flight[-1] is not None
 
 
 def note_flops(flops: float) -> None:
     """Add closed-form flops to the recording flight's open row."""
-    run = _FLIGHT[-1]
+    run = _STATE.flight[-1]
     if run is not None:
         run.add_flops(flops)
 
 
 def _sched(op: str, nbytes: int, pairs) -> None:
-    if _SCHED is None and _FLIGHT[-1] is None:
+    if _STATE.sched is None and _STATE.flight[-1] is None:
         return
-    ph, st = _PHASE_CTX[-1]
-    rec = (op, int(nbytes), _AUDIT_MULT[-1], ph, st,
+    ph, st = _STATE.phase[-1]
+    rec = (op, int(nbytes), _STATE.mult[-1], ph, st,
            None if pairs is None else [(int(a), int(b)) for a, b in pairs])
-    if _SCHED is not None:
-        _SCHED.append(rec)
-    if _FLIGHT[-1] is not None:
-        _FLIGHT[-1].sched.append(rec)
+    if _STATE.sched is not None:
+        _STATE.sched.append(rec)
+    if _STATE.flight[-1] is not None:
+        _STATE.flight[-1].sched.append(rec)
 
 
 def _payload_bytes(x: torch.Tensor) -> int:
@@ -186,8 +196,8 @@ def audit(op: str, nbytes: int) -> None:
     """Record one verb by its per-device payload bytes (for a collective
     whose virtual-mesh form is plain indexing, such as the LU row
     exchanges)."""
-    if _AUDIT is not None:
-        _AUDIT.append((op, int(nbytes), _AUDIT_MULT[-1]))
+    if _STATE.audit is not None:
+        _STATE.audit.append((op, int(nbytes), _STATE.mult[-1]))
     _sched(op, nbytes, None)
 
 
@@ -200,8 +210,8 @@ def _rec_hop(op: str, x: torch.Tensor, perm) -> None:
     if not perm:
         return
     nbytes = _payload_bytes(x) * len(perm)
-    if _AUDIT is not None:
-        _AUDIT.append((op, nbytes, _AUDIT_MULT[-1]))
+    if _STATE.audit is not None:
+        _STATE.audit.append((op, nbytes, _STATE.mult[-1]))
     _sched(op, nbytes, perm)
 
 

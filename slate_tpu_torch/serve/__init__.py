@@ -1,10 +1,8 @@
-"""Serving runtime: batched small-problem drivers, an executable cache and
-the tuned schedule table.
+"""Serving runtime: batched small-problem drivers, an executable cache, the
+tuned schedule table and the service layer over them.
 
-Counterpart of ``slate_tpu/serve`` (its serving core; the service layer --
-``BatchQueue``, ``ManualClock``, ``queue_stats``, ``Hysteresis``,
-``ServiceController``, ``serve.stats`` -- comes with slice 11b).  The
-serving workload is floods of 256-4096-sized solves:
+Counterpart of ``slate_tpu/serve``.  The serving workload is floods of
+256-4096-sized solves:
 
 - ``batch``: stacked drivers (a loop over the single verbs, each row bitwise
   its single solve) and block-diagonal packing of ragged sizes for the
@@ -16,10 +14,19 @@ serving workload is floods of 256-4096-sized solves:
   tuned > auto) and the flight-recorder sweep that writes one;
 - ``router``: admission on the memory model, the condest accuracy classes,
   cached stacked dispatch, the resilient mesh path and the gels tier;
-- ``trace`` / ``metrics``: request-level traces and the ``serve.*`` counters
-  and SLA keys of the RunReport's ``serve`` section;
-- ``budget``: per-tenant budgets (``BudgetLedger``, ``request_cost``);
-- ``python -m slate_tpu_torch.serve.smoke`` is the acceptance run.
+- ``trace`` / ``metrics`` / ``stats``: request-level traces, the ``serve.*``
+  counters and SLA keys of the RunReport's ``serve`` section, and their
+  Prometheus export (a delegate of ``obs.live``);
+- ``queue`` / ``budget`` / ``controller`` / ``service``: the service layer.
+  ``BatchQueue`` coalesces a concurrent request stream into batch windows
+  (B requests or T seconds, keyed on the cache-key identity) over
+  per-tenant budget accounts (``BudgetLedger``, ``reject_budget``) with
+  weighted deficit-round-robin dequeue; ``ServiceController`` closes the
+  SLA loop (hysteresis latches moving (B, T) and the precision-tier entry
+  point off the p95 / outcome-rate surface); ``python -m
+  slate_tpu_torch.serve.service`` is the stdlib-http front door;
+- ``python -m slate_tpu_torch.serve.smoke`` and ``python -m
+  slate_tpu_torch.serve.queue_smoke`` are the acceptance runs.
 """
 
 from .batch import (  # noqa: F401
@@ -33,7 +40,9 @@ from .batch import (  # noqa: F401
 )
 from .budget import BudgetLedger, request_cost  # noqa: F401
 from .cache import CacheKey, ExecutableCache, executable_cache  # noqa: F401
+from .controller import Hysteresis, ServiceController  # noqa: F401
 from .metrics import serve_counter_values  # noqa: F401
+from .queue import BatchQueue, ManualClock, queue_stats  # noqa: F401
 from .router import Router  # noqa: F401
 from .trace import RequestTrace, finished_traces  # noqa: F401
 from .table import (  # noqa: F401
@@ -43,11 +52,16 @@ from .table import (  # noqa: F401
 )
 
 __all__ = [
+    "BatchQueue",
     "BudgetLedger",
     "CacheKey",
     "ExecutableCache",
     "executable_cache",
+    "Hysteresis",
+    "ManualClock",
     "Router",
+    "ServiceController",
+    "queue_stats",
     "request_cost",
     "gemm_batched",
     "gesv_batched",

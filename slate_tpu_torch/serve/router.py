@@ -33,6 +33,7 @@ work; an untraced request adds no fence.
 from __future__ import annotations
 
 import functools
+import threading
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -53,37 +54,43 @@ class _BufferMemo:
     plus ``extra``.  It keeps a copy of each key operand and checks a hit
     bitwise, so a write past the version counter (through ``.data`` or a
     numpy alias) misses too.  Capped: serving traffic rotates through a
-    handful of stationary operators."""
+    handful of stationary operators.  Locked: the service layer classifies
+    on its submitters' threads (two threads may both miss and compute)."""
 
     def __init__(self, cap: int = 16) -> None:
         self._cap = cap
         self._entries: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
 
     def get(self, arr: torch.Tensor, extra=()) -> Optional[object]:
         from ..parallel.summa import same_bits, tensor_key
 
         key = (tensor_key(arr),) + tuple(extra)
-        hit = self._entries.get(key)
-        if hit is None:
-            return None
-        ref, value = hit
-        if not same_bits(arr, ref):  # written past the version counter
-            del self._entries[key]
-            return None
-        self._entries.move_to_end(key)
-        return value
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is None:
+                return None
+            ref, value = hit
+            if not same_bits(arr, ref):  # written past the version counter
+                del self._entries[key]
+                return None
+            self._entries.move_to_end(key)
+            return value
 
     def put(self, arr: torch.Tensor, value, extra=()) -> None:
         from ..parallel.summa import tensor_key
 
         key = (tensor_key(arr),) + tuple(extra)
-        self._entries[key] = (arr.clone(), value)
-        self._entries.move_to_end(key)
-        while len(self._entries) > self._cap:
-            self._entries.popitem(last=False)
+        ref = arr.clone()
+        with self._lock:
+            self._entries[key] = (ref, value)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self._cap:
+                self._entries.popitem(last=False)
 
     def clear(self) -> None:
-        self._entries.clear()
+        with self._lock:
+            self._entries.clear()
 
 
 # Process-wide admission memo: the closed forms are pure in (model op, nb,
@@ -130,6 +137,14 @@ class Router:
         # {"friendly": "hostile"} makes friendly operators enter at the
         # pp + GMRES-IR tier
         self.tier_map: Dict[str, str] = {}
+
+    @property
+    def device(self) -> torch.device:
+        """Where a non-tensor operand goes: the mesh's device, else the
+        router's, else the card."""
+        if self.mesh is not None:
+            return self.mesh.device
+        return self._device or torch.device(DEFAULT_DEVICE)
 
     def _operand(self, x) -> torch.Tensor:
         """A request operand on its compute device: a tensor where it lies,

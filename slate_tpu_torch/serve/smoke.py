@@ -16,8 +16,8 @@ one device.  It asserts:
 (e) **Request-level SLA**: a meshless Router stream leaves a non-empty
     latency histogram per accuracy class with p50 <= p95 <= p99, every
     request attributed to exactly one outcome, and a valid Perfetto request
-    timeline.  ``slate_tpu``'s check of the Prometheus export comes with
-    the service layer (slice 11b: ``serve.stats`` reads ``obs.live``).
+    timeline, and the Prometheus export (``serve.stats``) carries the
+    request counter and the latency summary with its p99.
 
 It writes ``serve.report.json`` (RunReport, ``serve`` section and the
 headline values; machine-dependent rates carry ``_runtime_``) and
@@ -122,6 +122,7 @@ def run_sla_phase(out_dir: str, failures: list, device) -> dict:
     from ..types import SlateError
     from . import trace as serve_trace
     from .router import Router
+    from .stats import prometheus_text, stats_snapshot
 
     rng = np.random.default_rng(3)
     n = 48
@@ -186,8 +187,10 @@ def run_sla_phase(out_dir: str, failures: list, device) -> dict:
         errs = perfetto.validate_chrome_trace(json.load(f))
     if errs:
         failures.append(f"SLA phase: request timeline invalid: {errs[:3]}")
-    # slate_tpu also checks its Prometheus export here; serve.stats (a
-    # delegate of obs.live) comes with the service layer, slice 11b
+    text = prometheus_text(stats_snapshot())
+    for needle in ("slate_tpu_serve_requests", "slate_tpu_serve_latency_s", 'quantile="0.99"'):
+        if needle not in text:
+            failures.append(f"SLA phase: {needle!r} missing from the Prometheus export")
     sla_rep_path = os.path.join(out_dir, "serve_sla.report.json")
     report.write_report(sla_rep_path, name="serve_sla",
                         config={"n": n, "bins": "64", "driver": "router_meshless",

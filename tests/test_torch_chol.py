@@ -457,7 +457,9 @@ def test_port_imports_no_jax():
                 "obs/numerics.py", "obs/numwatch.py", "obs/memory.py", "obs/memmodel.py",
                 "obs/memwatch.py", "serve/__init__.py", "serve/batch.py", "serve/budget.py",
                 "serve/cache.py", "serve/metrics.py", "serve/router.py", "serve/smoke.py",
-                "serve/table.py", "serve/trace.py", "serve/tune.py", "api.py"):
+                "serve/table.py", "serve/trace.py", "serve/tune.py", "api.py", "obs/live.py",
+                "serve/stats.py", "serve/queue.py", "serve/controller.py", "serve/service.py",
+                "serve/queue_smoke.py"):
         assert os.path.join(REPO, "slate_tpu_torch", mod) in files
     for path in files:
         with open(path) as f:

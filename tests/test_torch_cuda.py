@@ -1359,3 +1359,37 @@ def test_ft_summa_update_over_nb_is_deterministic(card, dtype, nb, off):
     want = tk.ft_summa_update_plain(acc.clone(), pan, urow, w1, w2, part.clone())
     readings = ft_summa_check(acc, pan, urow, w1, w2, part, one, want)
     assert all(v <= 1 for v in readings.values()), readings
+
+
+@pytest.mark.cuda
+def test_queue_stacked_window_on_the_card(card):
+    """A batch-window queue over a meshless Router on the card: three f64
+    posv requests at bin 4096 (ragged, 3000-4096) close one window on
+    B-fill, each answer bitwise the Router's one-at-a-time solve, and the
+    window's chol_diag_inv launches 16 a problem (the f64 left-looking
+    form's 256-wide leaves)."""
+    from slate_tpu_torch.serve.cache import ExecutableCache
+    from slate_tpu_torch.serve.queue import BatchQueue, ManualClock
+    from slate_tpu_torch.serve.router import Router
+
+    router = Router(bins=(4096,), cache=ExecutableCache())
+    q = BatchQueue(router, max_batch=3, clock=ManualClock(), name="t_card_window")
+    try:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        probs = []
+        for n in (3000, 3500, 4096):
+            x = torch.randn((n, n), generator=g, dtype=torch.float64, device="cuda")
+            probs.append((x @ x.T / n + 2 * torch.eye(n, dtype=torch.float64, device="cuda"),
+                          torch.randn((n, 1), generator=g, dtype=torch.float64, device="cuda")))
+        before = tk.chol_diag_inv.launches
+        tks = [q.submit("posv", a, b, tenant="acme") for a, b in probs]
+        torch.cuda.synchronize()
+        assert all(t_.done() for t_ in tks) and q.dispatch_log[-1]["cause"] == "full"
+        assert q.dispatch_log[-1]["key"] == "posv/friendly/n4096/rhs1/float64"
+        assert tk.chol_diag_inv.launches - before == 3 * 16
+        ref = Router(bins=(4096,), cache=ExecutableCache())
+        for t_, (a, b) in zip(tks, probs):
+            assert t_.result().is_cuda
+            assert torch.equal(t_.result(), ref.solve("posv", a, b))
+    finally:
+        q.close()
